@@ -1,0 +1,163 @@
+"""DREAM-GNN dual-route model composition.
+
+Port of ``dream_gnn_tpu/model/dream_gnn.py`` (reference ``Net``,
+model.py:4-103), grid decode mode:
+
+- **GCMC route**: L stacked relation-typed bipartite conv layers with
+  decayed residual accumulation ``out = h1 + h2/2 + h3/3``
+  (model.py:67-76) while features chain layer to layer;
+- **FGCN route**: two 2-layer GCNs per entity over the kNN similarity
+  and feature-kNN graphs (model.py:79-83);
+- one **shared** attention module fuses the two routes for drugs and
+  diseases alike (model.py:55,93-97 — parity trap §7.3.7);
+- the fused grid decoder scores every (drug, disease) cell and returns
+  logits, with no sigmoid.
+
+Parameters are plain dicts of tensors with the JAX package's keys
+(``tgcn[i]``, ``fgcn``, ``attention``, ``decoder``) and its (in, out)
+weight layout, so ``convert.params_from_jax`` carries weights across.
+Randomness comes from one ``torch.Generator``, drawn in a fixed order.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+from typing import Any, Optional
+
+import torch
+
+from dream_gnn_tpu_torch.config import ModelConfig
+from dream_gnn_tpu_torch.graph.bipartite import BipartiteGraph
+from dream_gnn_tpu_torch.kernels.grid_decoder import decoder_apply_grid_fused
+from dream_gnn_tpu_torch.nn.attention import attention_apply, attention_init
+from dream_gnn_tpu_torch.nn.decoder import decoder_init
+from dream_gnn_tpu_torch.nn.fgcn import fgcn_apply, fgcn_init
+from dream_gnn_tpu_torch.nn.gcmc import gcmc_layer_apply, gcmc_layer_init
+
+_DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16}
+
+
+@dataclasses.dataclass(frozen=True)
+class ModelInputs:
+    """One forward pass's graph and feature inputs (Net.forward's
+    argument list, model.py:60-64)."""
+
+    enc_graph: BipartiteGraph
+    dec_src: torch.Tensor              # (E,) drug ids, candidate-pair order
+    dec_dst: torch.Tensor              # (E,) disease ids
+    drug_graph: Any                    # NormAdj
+    drug_sim_feat: torch.Tensor        # (n_drug, fdim_drug) similarity rows
+    drug_feat: torch.Tensor            # (n_drug, src_in_units) embeddings
+    dis_graph: Any
+    dis_sim_feat: torch.Tensor
+    dis_feat: torch.Tensor
+    drug_feature_graph: Any = None
+    dis_feature_graph: Any = None
+
+
+def init_params(gen: torch.Generator, cfg: ModelConfig):
+    """Random params drawn from ``gen``, on the generator's device."""
+    if cfg.gcn_agg_accum != "sum":
+        # 'stack' is incoherent in the reference itself (its (N, R, eff)
+        # stack cannot feed Linear(eff, out)) and the default is 'sum'.
+        raise NotImplementedError(
+            f"gcn_agg_accum={cfg.gcn_agg_accum!r}: only 'sum' is supported")
+    tgcn = [gcmc_layer_init(
+        gen, in_units=cfg.layer_in_units(i),
+        msg_units=cfg.effective_msg_units(i), out_units=cfg.gcn_out_units,
+        num_ratings=cfg.num_ratings, basis_units=cfg.basis_units,
+        share_param=cfg.share_param) for i in range(cfg.layers)]
+    return {
+        "tgcn": tgcn,
+        "fgcn": fgcn_init(gen, fdim_drug=cfg.fdim_drug,
+                          fdim_disease=cfg.fdim_disease,
+                          nhid1=cfg.nhid1, nhid2=cfg.nhid2),
+        "attention": attention_init(gen, in_size=cfg.gcn_out_units,
+                                    hidden_size=cfg.attention_hidden),
+        "decoder": decoder_init(gen, in_units=cfg.gcn_out_units,
+                                hidden1=cfg.decoder_hidden1,
+                                hidden2=cfg.decoder_hidden2),
+    }
+
+
+def map_params(fn, params):
+    """Apply ``fn`` to every tensor of a param tree (dicts and lists)."""
+    if isinstance(params, dict):
+        return {k: map_params(fn, v) for k, v in params.items()}
+    if isinstance(params, list):
+        return [map_params(fn, v) for v in params]
+    return fn(params)
+
+
+def param_leaves(params):
+    """The tree's tensors in a fixed order (dict keys sorted)."""
+    if isinstance(params, dict):
+        return [x for k in sorted(params) for x in param_leaves(params[k])]
+    if isinstance(params, list):
+        return [x for v in params for x in param_leaves(v)]
+    return [params]
+
+
+def _encode(params, inputs: ModelInputs, cfg: ModelConfig, *, train: bool,
+            generator, edge_masks):
+    """GCMC route, FGCN route, attention fusion.
+
+    Returns (drug_feats, dis_feats, drug_out, drug_sim_out, dis_out,
+    dis_sim_out).
+    """
+    drug_feat, dis_feat = inputs.drug_feat, inputs.dis_feat
+    drug_out = dis_out = 0.0
+    for i in range(cfg.layers):
+        drug_o, dis_o = gcmc_layer_apply(
+            params["tgcn"][i], inputs.enc_graph, drug_feat, dis_feat,
+            dropout_rate=cfg.dropout, agg_act=cfg.model_activation,
+            share_param=cfg.share_param, train=train, generator=generator,
+            edge_masks=edge_masks)
+        # Decayed residual accumulation (model.py:67-76).
+        drug_out = drug_o if i == 0 else drug_out + drug_o / float(i + 1)
+        dis_out = dis_o if i == 0 else dis_out + dis_o / float(i + 1)
+        drug_feat, dis_feat = drug_o, dis_o
+
+    drug_sim_out, dis_sim_out, *_ = fgcn_apply(
+        params["fgcn"], inputs.drug_graph, inputs.drug_sim_feat,
+        inputs.dis_graph, inputs.dis_sim_feat,
+        inputs.drug_feature_graph, inputs.dis_feature_graph,
+        dropout_rate=cfg.dropout, train=train, generator=generator)
+
+    drug_feats, _ = attention_apply(
+        params["attention"], torch.stack([drug_out, drug_sim_out], dim=1),
+        dropout_rate=cfg.attention_dropout, train=train, generator=generator)
+    dis_feats, _ = attention_apply(
+        params["attention"], torch.stack([dis_out, dis_sim_out], dim=1),
+        dropout_rate=cfg.attention_dropout, train=train, generator=generator)
+    return drug_feats, dis_feats, drug_out, drug_sim_out, dis_out, dis_sim_out
+
+
+def forward(params, inputs: ModelInputs, cfg: ModelConfig, *,
+            train: bool = False, generator: Optional[torch.Generator] = None,
+            edge_masks=None):
+    """Full dual-route forward, grid decode mode.
+
+    Returns (pred_logits (n_drug, n_dis), drug_out, drug_sim_out,
+    dis_out, dis_sim_out) — the intermediates feed the covariance common
+    loss (train.py:289).
+    """
+    if cfg.decode_mode != "grid":
+        raise NotImplementedError(
+            "decode_mode='edges' is not ported yet (ROADMAP.md queue B, "
+            "items 3-4: the per-edge fused decoders)")
+    if cfg.decoder_backend != "pallas":
+        raise NotImplementedError(
+            "decoder_backend='xla' is not wired into the port's trainer yet "
+            "(ROADMAP.md queue A, item 3: the plain decoder backend)")
+    if train and generator is None:
+        raise ValueError("a training forward needs a generator")
+    (drug_feats, dis_feats, drug_out, drug_sim_out, dis_out,
+     dis_sim_out) = _encode(params, inputs, cfg, train=train,
+                            generator=generator, edge_masks=edge_masks)
+    # pred is the (n_drug, n_dis) logit grid; the loss/metrics mask
+    # out-of-fold cells with enc_graph.mask (labels = enc_graph.a1).
+    pred = decoder_apply_grid_fused(
+        params["decoder"], drug_feats, dis_feats, dropout_rate=cfg.dropout,
+        train=train, generator=generator, dtype=_DTYPES[cfg.compute_dtype])
+    return pred, drug_out, drug_sim_out, dis_out, dis_sim_out
