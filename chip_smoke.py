@@ -13,12 +13,21 @@ Phases, each of which fails the run if it fails:
    control showing that the bf16 tolerance sees a kernel that does not
    round; then each kernel's time beside its bound and the plain
    version's time;
-3. the model's eval forward on the card (kernel) against the same
+3. the fold-batched kernels the same way at F = 3 folds of the full grid,
+   plus: fold f of a batched forward equals the single-fold kernel with
+   seed[f] bit for bit, and two batched backward launches give the same
+   bits; then their times at F = 10, bf16, dropout 0.3;
+4. the model's eval forward on the card (kernel) against the same
    forward on the CPU (plain version), at full default width;
-4. the trainer through the port's CLI at full default width: a few
+5. the trainer through the port's CLI at full default width: a few
    training steps and two eval intervals, with the kernels' launch counts;
-5. a profile of ten default training steps: step time, device busy share
-   and the kernels that take the device's time.
+6. the fold-parallel trainer through the CLI (``--fold_parallel``, all 10
+   folds of one seed as one stack): ms per stacked step and per
+   fold-step, and the batched kernels' launch counts;
+7. a profile of ten default training steps: step time, device busy share
+   and the kernels that take the device's time;
+8. the same profile of ten stacked steps of the 10 folds, whose kernels
+   per step must stay within twice the sequential step's.
 
 The line before the last is the JSON kernel table; the last line is
 ``{"ok": true, "device": {...}}``.  Without a CUDA device the script exits
@@ -43,6 +52,7 @@ PEAK_BYTES_S = 3.35e12
 PEAK_FLOPS_S = {torch.bfloat16: 989e12, torch.float32: 67e12}
 
 ND, NV = 593, 313            # Gdataset preset (data/synthetic.py)
+NF_CHECK, NF = 3, 10         # folds: batched checks, batched timing and trainer
 # Tolerances on max|kernel - plain| / max|plain|, per output.  Both dtypes
 # run the same arithmetic and differ only in the order of their f32 sums:
 # in bf16 mode both round h1d, w2, da2, g and h2d at the same points, and
@@ -80,23 +90,30 @@ def _time_ms(fn, reps: int = 20) -> float:
     return start.elapsed_time(stop) / reps
 
 
-def _decoder_inputs(dev):
+def _decoder_inputs(dev, nf=None):
+    """Decoder kernel inputs; with ``nf`` every tensor gains a leading fold
+    axis and each fold its own seed."""
     rng = np.random.default_rng(0)
     h1, h2 = 128, 64
+    lead = () if nf is None else (nf,)
 
     def t(x):
         return torch.tensor(np.asarray(x, np.float32), device=dev)
 
     return dict(
-        pd=t(rng.normal(0, 0.5, (ND, h1))), pv=t(rng.normal(0, 0.5, (NV, h1))),
-        b1=t(rng.uniform(-0.06, 0.06, h1)),
-        w2=t(rng.uniform(-0.09, 0.09, (h1, h2))),
-        b2=t(rng.uniform(-0.09, 0.09, h2)), w3=t(rng.uniform(-0.12, 0.12, h2)),
-        g=t(rng.normal(0, 1e-3, (ND, NV))),
-        seed=torch.tensor([918273], dtype=torch.int32, device=dev))
+        pd=t(rng.normal(0, 0.5, (*lead, ND, h1))),
+        pv=t(rng.normal(0, 0.5, (*lead, NV, h1))),
+        b1=t(rng.uniform(-0.06, 0.06, (*lead, h1))),
+        w2=t(rng.uniform(-0.09, 0.09, (*lead, h1, h2))),
+        b2=t(rng.uniform(-0.09, 0.09, (*lead, h2))),
+        w3=t(rng.uniform(-0.12, 0.12, (*lead, h2))),
+        g=t(rng.normal(0, 1e-3, (*lead, ND, NV))),
+        seed=torch.tensor([918273] if nf is None
+                          else rng.integers(0, 2 ** 31 - 1, nf),
+                          dtype=torch.int32, device=dev))
 
 
-def _bound_ms(fwd: bool, dtype) -> tuple:
+def _bound_ms(fwd: bool, dtype, nf: int = 1) -> tuple:
     h1, h2 = 128, 64
     cells = ND * NV
     per_cell = 2 * h1 * h2 + 2 * h1 + 2 * h2             # a2 product, a1, w3 dot
@@ -104,10 +121,10 @@ def _bound_ms(fwd: bool, dtype) -> tuple:
         # The recomputed forward, the dh1 and dW2 products, then g * w3,
         # the db2 and dw3 sums and the dPd, dPv and db1 sums.
         per_cell += 2 * (2 * h1 * h2) + 4 * h2 + 3 * h1
-    flops = cells * per_cell
-    table_bytes = (ND + NV) * h1 * 4
-    weight_bytes = (h1 + h1 * h2 + 2 * h2) * 4
-    grid_bytes = cells * 4                                # out, or g
+    flops = nf * cells * per_cell
+    table_bytes = nf * (ND + NV) * h1 * 4
+    weight_bytes = nf * (h1 + h1 * h2 + 2 * h2) * 4
+    grid_bytes = nf * cells * 4                           # out, or g
     nbytes = table_bytes + weight_bytes + grid_bytes
     if not fwd:
         nbytes += table_bytes + weight_bytes              # the gradients
@@ -123,6 +140,25 @@ def phase_build():
     t0 = time.perf_counter()
     report = gd.build(force=True)
     print(f"{report}  nvcc build: {time.perf_counter() - t0:.2f} s")
+
+
+def _compare(pairs, dtype, rate, label, err):
+    """Hold (name, kernel, plain) outputs to TOL; ``err`` keeps the largest
+    absolute error per direction."""
+    for name, a, b in pairs:
+        if a.shape != b.shape:
+            raise AssertionError(f"{name}: shape {a.shape} != {b.shape}")
+        abs_err = float((a - b).abs().max())
+        rel = abs_err / max(float(b.abs().max()), 1e-30)
+        kind = "fwd" if name == "logits" else "bwd"
+        err[kind] = max(err[kind], abs_err)
+        ok = rel <= TOL[dtype] and bool(torch.isfinite(a).all())
+        print(f"  {label} {str(dtype)[6:]:8s} rate={rate:.1f} {name:6s} "
+              f"max_abs_err={abs_err:.3e} rel={rel:.3e} "
+              f"tol={TOL[dtype]:.0e} {'ok' if ok else 'FAIL'}")
+        if not ok:
+            raise AssertionError(f"{label} {name} ({dtype}, rate {rate}) "
+                                 f"disagrees with the plain version")
 
 
 def phase_kernels():
@@ -141,21 +177,9 @@ def phase_kernels():
             ref_g = gd.grid_decoder_plain_bwd(*args, rate, True, dtype, x["g"])
             out_g = gd.launch_bwd(*args, rate, True, dtype, x["g"])
             torch.cuda.synchronize()
-            pairs = [("logits", out, ref)] + list(zip(GRAD_NAMES, out_g, ref_g))
-            for name, a, b in pairs:
-                if a.shape != b.shape:
-                    raise AssertionError(f"{name}: shape {a.shape} != {b.shape}")
-                abs_err = float((a - b).abs().max())
-                rel = abs_err / max(float(b.abs().max()), 1e-30)
-                kind = "fwd" if name == "logits" else "bwd"
-                err[kind] = max(err[kind], abs_err)
-                ok = rel <= TOL[dtype] and bool(torch.isfinite(a).all())
-                print(f"  {str(dtype)[6:]:8s} rate={rate:.1f} {name:6s} "
-                      f"max_abs_err={abs_err:.3e} rel={rel:.3e} "
-                      f"tol={TOL[dtype]:.0e} {'ok' if ok else 'FAIL'}")
-                if not ok:
-                    raise AssertionError(f"{name} ({dtype}, rate {rate}) "
-                                         f"disagrees with the plain version")
+            _compare([("logits", out, ref)] + list(zip(GRAD_NAMES, out_g,
+                                                       ref_g)),
+                     dtype, rate, "single", err)
     # Control: the fp32 kernel, which rounds nothing, held against the bf16
     # plain version must fail the bf16 tolerance, or that tolerance could
     # not see a bf16 kernel that skipped its rounding.
@@ -197,6 +221,95 @@ def phase_kernels():
               f"computes this function")
         rows.append(dict(
             name=f"grid_decoder_{kind}", route="cuda",
+            source="dream_gnn_tpu_torch/kernels/csrc/grid_decoder.cu",
+            replaces=f"dream_gnn_tpu/kernels/pallas_grid_decoder.py:{line}",
+            launches=0, max_abs_err=err[kind], ms=t[kind], plain_ms=tp[kind],
+            bound_ms=bound, bound_by=by, library_ms=None))
+    return rows
+
+
+def phase_kernels_batched():
+    """Fold-batched kernels vs plain version at F = 3, fold vs single-fold
+    kernel, determinism; timing at F = 10.  Returns the table's rows
+    without launches."""
+    from dream_gnn_tpu_torch.kernels import grid_decoder as gd
+
+    dev = torch.device("cuda", 0)
+    x = _decoder_inputs(dev, NF_CHECK)
+    args = [x[k] for k in ("pd", "pv", "b1", "w2", "b2", "w3", "seed")]
+    print(f"== batched kernels vs plain at F={NF_CHECK} x {ND} x {NV}")
+    err = {"fwd": 0.0, "bwd": 0.0}
+    for dtype in (torch.float32, torch.bfloat16):
+        for rate in (0.0, 0.3):
+            out = gd.launch_fwd_batched(*args, rate, True, dtype)
+            out_g = gd.launch_bwd_batched(*args, rate, True, dtype, x["g"])
+            ref = gd.grid_decoder_batched_plain(*args, rate, True, dtype)
+            ref_g = gd.grid_decoder_batched_plain_bwd(*args, rate, True,
+                                                      dtype, x["g"])
+            torch.cuda.synchronize()
+            _compare([("logits", out, ref)] + list(zip(GRAD_NAMES, out_g,
+                                                       ref_g)),
+                     dtype, rate, "batched", err)
+            del ref, ref_g
+            # Fold f of the batched launch is the single-fold kernel called
+            # with seed[f], bit for bit.
+            for f in range(NF_CHECK):
+                one = gd.launch_fwd(*[a[f].contiguous() for a in args[:6]],
+                                    args[6][f:f + 1].contiguous(), rate, True,
+                                    dtype)
+                if not torch.equal(one, out[f]):
+                    raise AssertionError(f"batched fold {f} ({dtype}, rate "
+                                         f"{rate}) != single-fold kernel")
+            print(f"  batched {str(dtype)[6:]:8s} rate={rate:.1f} every fold "
+                  f"equals the single-fold kernel bit for bit")
+    again = gd.launch_bwd_batched(*args, 0.3, True, torch.bfloat16, x["g"])
+    first = gd.launch_bwd_batched(*args, 0.3, True, torch.bfloat16, x["g"])
+    if not all(torch.equal(a, b) for a, b in zip(again, first)):
+        raise AssertionError("two batched backward launches differ")
+    print("  batched backward: two launches give identical bits")
+    for rate in (0.0, 0.3):
+        ref = gd.grid_decoder_batched_plain(*args, rate, True, torch.bfloat16)
+        ref_g = gd.grid_decoder_batched_plain_bwd(*args, rate, True,
+                                                  torch.bfloat16, x["g"])
+        out = gd.launch_fwd_batched(*args, rate, True, torch.float32)
+        out_g = gd.launch_bwd_batched(*args, rate, True, torch.float32, x["g"])
+        for name, a, b in [("logits", out, ref)] + list(zip(GRAD_NAMES, out_g,
+                                                            ref_g)):
+            rel = float((a - b).abs().max()) / max(float(b.abs().max()), 1e-30)
+            print(f"  control fp32 batched kernel vs bf16 plain "
+                  f"rate={rate:.1f} {name:6s} rel={rel:.3e}")
+            if name in ROUNDED and rel <= TOL[torch.bfloat16]:
+                raise AssertionError(f"control: batched {name} without bf16 "
+                                     f"rounding passes the bf16 tolerance")
+        del ref, ref_g
+    # Main-path case at the trainer's F: bf16, dropout 0.3, training.
+    x = _decoder_inputs(dev, NF)
+    args = [x[k] for k in ("pd", "pv", "b1", "w2", "b2", "w3", "seed")]
+    dtype, rate = torch.bfloat16, 0.3
+    launches = dict(gd.LAUNCHES)
+    t = {
+        "fwd": _time_ms(lambda: gd.launch_fwd_batched(*args, rate, True,
+                                                      dtype)),
+        "bwd": _time_ms(lambda: gd.launch_bwd_batched(*args, rate, True,
+                                                      dtype, x["g"])),
+    }
+    with torch.no_grad():
+        tp = {
+            "fwd": _time_ms(lambda: gd.grid_decoder_batched_plain(
+                *args, rate, True, dtype), reps=3),
+            "bwd": _time_ms(lambda: gd.grid_decoder_batched_plain_bwd(
+                *args, rate, True, dtype, x["g"]), reps=3),
+        }
+    gd.LAUNCHES.update(launches)
+    rows = []
+    for kind, line in (("fwd", 406), ("bwd", 427)):
+        bound, by = _bound_ms(kind == "fwd", dtype, NF)
+        print(f"  grid_decoder_{kind}_batched F={NF}: {t[kind]:.4f} ms "
+              f"({t[kind] / NF:.4f} ms per fold), bound {bound:.4f} ms "
+              f"({by}), plain {tp[kind]:.4f} ms; no single PyTorch call "
+              f"computes this function")
+        rows.append(dict(
+            name=f"grid_decoder_{kind}_batched", route="cuda",
             source="dream_gnn_tpu_torch/kernels/csrc/grid_decoder.cu",
             replaces=f"dream_gnn_tpu/kernels/pallas_grid_decoder.py:{line}",
             launches=0, max_abs_err=err[kind], ms=t[kind], plain_ms=tp[kind],
@@ -268,38 +381,75 @@ def phase_trainer():
             if not f.exists():
                 raise AssertionError(f"missing artifact {f.name}")
     print(f"  launches on the trainer path: {launches}")
-    for k, n in launches.items():
-        if n <= 0:
+    for k in ("fwd", "bwd"):
+        if launches[k] <= 0:
             raise AssertionError(f"grid_decoder_{k} never launched on the "
                                  f"trainer path")
     return launches
 
 
-def phase_profile(n_steps: int = 10):
-    """Where a default training step's time goes: ``n_steps`` steady
-    steps under torch.profiler; device busy share and the top kernels."""
+def phase_trainer_stacked():
+    """The fold-parallel trainer through the CLI: all folds of one seed as
+    one stack; returns the batched kernels' launch counts."""
+    from dream_gnn_tpu_torch.kernels import grid_decoder as gd
+    from dream_gnn_tpu_torch.train.cli import main
+
+    print("== fold-parallel trainer: python -m dream_gnn_tpu_torch.train.cli "
+          "--fold_parallel (Gdataset defaults, 10 folds)")
+    with tempfile.TemporaryDirectory() as save_dir:
+        for k in gd.LAUNCHES:
+            gd.LAUNCHES[k] = 0
+        summary = main(["--data_name", "Gdataset", "--fold_parallel",
+                        "--seeds", "77", "--train_max_iter", "41",
+                        "--train_valid_interval", "20",
+                        "--save_dir", save_dir])
+        torch.cuda.synchronize()
+        launches = dict(gd.LAUNCHES)
+        seed_dir = Path(save_dir, "seed_77")
+        for cv in range(NF):
+            rows = (seed_dir / f"test_metric{cv + 1}.csv").read_text().split()
+            if len(rows) != 3:
+                raise AssertionError(f"fold {cv}: expected 2 eval intervals, "
+                                     f"got {rows}")
+            last = dict(zip(rows[0].split(","),
+                            map(float, rows[-1].split(","))))
+            for name in ("loss", "train_auroc", "test_auroc"):
+                if not np.isfinite(last[name]):
+                    raise AssertionError(f"fold {cv} {name} is not finite: "
+                                         f"{last}")
+            if not (seed_dir / f"best_metric{cv + 1}.csv").exists():
+                raise AssertionError(f"missing best_metric{cv + 1}.csv")
+        for f in (seed_dir / "experiment_results.csv",
+                  Path(save_dir, "summary_results.csv")):
+            if not f.exists():
+                raise AssertionError(f"missing artifact {f.name}")
+        if not np.isfinite(summary["mean_auroc"]):
+            raise AssertionError(f"summary AUROC is not finite: {summary}")
+    ms = summary["results"][0]["ms_per_step"]
+    print(f"  {ms:.3f} ms per stacked step of {NF} folds (mean of all 40 "
+          f"steps, CUDA events), {ms / NF:.3f} ms per fold-step")
+    print(f"  launches on the fold-parallel path: {launches}")
+    for k in ("fwd_b", "bwd_b"):
+        if launches[k] <= 0:
+            raise AssertionError(f"grid_decoder_{k} never launched on the "
+                                 f"fold-parallel path")
+    if launches["fwd"] or launches["bwd"]:
+        raise AssertionError("the fold-parallel path launched a single-fold "
+                             "kernel")
+    return launches
+
+
+def _profile(label: str, step, n_steps: int) -> float:
+    """``n_steps`` steady calls of ``step`` under torch.profiler: step time,
+    device busy share and the top kernels; returns kernels per step."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
-    from dream_gnn_tpu_torch.config import TrainConfig
-    from dream_gnn_tpu_torch.data.loader import DreamDataset
-    from dream_gnn_tpu_torch.model.dream_gnn import init_params
-    from dream_gnn_tpu_torch.train.loop import derive_model_cfg, fold_inputs
-    from dream_gnn_tpu_torch.train.step import init_state, make_one_step
-
-    print(f"== profile: {n_steps} training steps, Gdataset defaults")
-    cfg = TrainConfig()
-    ds = DreamDataset.load("Gdataset", k=cfg.num_neighbor, device="cuda:0")
-    mcfg = dataclasses.replace(derive_model_cfg(cfg, ds), **MAIN_PATH)
-    gen = torch.Generator(device="cuda:0").manual_seed(0)
-    state = init_state(init_params(gen, mcfg), gen, cfg)
-    step = make_one_step(mcfg, cfg)
-    inputs, _ = fold_inputs(ds, 0)
-    step_ms = _time_ms(lambda: step(state, inputs), reps=n_steps)
+    step_ms = _time_ms(step, reps=n_steps)
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
         for _ in range(n_steps):
-            step(state, inputs)
+            step()
         torch.cuda.synchronize()
     rows = []
     for ev in prof.key_averages():
@@ -315,14 +465,68 @@ def phase_profile(n_steps: int = 10):
             rows.append((dev_us / 1e3 / n_steps, ev.count / n_steps, ev.key))
     rows.sort(reverse=True)
     busy_ms = sum(r[0] for r in rows)
-    print(f"  step {step_ms:.3f} ms (CUDA events, no profiler); device "
-          f"kernels {busy_ms:.3f} ms/step = {100 * busy_ms / step_ms:.1f}% "
-          f"busy" + ("" if rows else " (profiler saw no device time: "
-                     "not measured)"))
-    print(f"  {sum(r[1] for r in rows):.0f} kernels per step; top by device "
-          f"time (ms/step, calls/step, name):")
+    kernels = sum(r[1] for r in rows)
+    print(f"  {label}: step {step_ms:.3f} ms (CUDA events, no profiler); "
+          f"device kernels {busy_ms:.3f} ms/step = "
+          f"{100 * busy_ms / step_ms:.1f}% busy"
+          + ("" if rows else " (profiler saw no device time: not measured)"))
+    print(f"  {kernels:.0f} kernels per step; top by device time (ms/step, "
+          f"calls/step, name):")
     for ms, count, key in rows[:12]:
         print(f"    {ms:8.4f} {count:6.1f}  {key[:90]}")
+    return kernels
+
+
+def phase_profile(n_steps: int = 10) -> float:
+    """Where a default training step's time goes; returns kernels/step."""
+    from dream_gnn_tpu_torch.config import TrainConfig
+    from dream_gnn_tpu_torch.data.loader import DreamDataset
+    from dream_gnn_tpu_torch.model.dream_gnn import init_params
+    from dream_gnn_tpu_torch.train.loop import derive_model_cfg, fold_inputs
+    from dream_gnn_tpu_torch.train.step import init_state, make_one_step
+
+    print(f"== profile: {n_steps} training steps, Gdataset defaults")
+    cfg = TrainConfig()
+    ds = DreamDataset.load("Gdataset", k=cfg.num_neighbor, device="cuda:0")
+    mcfg = dataclasses.replace(derive_model_cfg(cfg, ds), **MAIN_PATH)
+    gen = torch.Generator(device="cuda:0").manual_seed(0)
+    state = init_state(init_params(gen, mcfg), gen, cfg)
+    step = make_one_step(mcfg, cfg)
+    inputs, _ = fold_inputs(ds, 0)
+    return _profile("sequential", lambda: step(state, inputs), n_steps)
+
+
+def phase_profile_stacked(seq_kernels: float, n_steps: int = 10):
+    """The same profile for a stacked step of the 10 folds of one seed; its
+    kernels per step must stay within twice the sequential step's."""
+    from dream_gnn_tpu_torch.config import TrainConfig
+    from dream_gnn_tpu_torch.data.loader import DreamDataset
+    from dream_gnn_tpu_torch.sharding.foldstack import stack_folds
+    from dream_gnn_tpu_torch.train.loop import derive_model_cfg
+    from dream_gnn_tpu_torch.train.stacked import (init_params_stacked,
+                                                   init_state_stacked,
+                                                   make_one_step_stacked,
+                                                   stack_seed)
+
+    print(f"== profile: {n_steps} stacked training steps of {NF} folds, "
+          f"Gdataset defaults")
+    cfg = TrainConfig()
+    ds = DreamDataset.load("Gdataset", k=cfg.num_neighbor, device="cuda:0")
+    mcfg = dataclasses.replace(derive_model_cfg(cfg, ds), **MAIN_PATH)
+    folds = list(range(NF))
+    gen = torch.Generator(device="cuda:0").manual_seed(stack_seed([0], folds))
+    state = init_state_stacked(init_params_stacked(mcfg, [0], folds,
+                                                   "cuda:0"), gen, cfg)
+    step = make_one_step_stacked(mcfg, cfg)
+    inputs = stack_folds(ds, folds).inputs
+    kernels = _profile(f"stacked F={NF}", lambda: step(state, inputs),
+                       n_steps)
+    if kernels > 2 * seq_kernels:
+        raise AssertionError(f"stacked step launches {kernels:.0f} kernels, "
+                             f"more than twice the sequential "
+                             f"{seq_kernels:.0f}")
+    print(f"  kernels per step: stacked {kernels:.0f} vs sequential "
+          f"{seq_kernels:.0f}")
 
 
 def main() -> int:
@@ -337,11 +541,17 @@ def main() -> int:
           f"(count {torch.cuda.device_count()})")
     phase_build()
     rows = phase_kernels()
+    rows_b = phase_kernels_batched()
     phase_model()
     launches = phase_trainer()
-    phase_profile()
-    for row in rows:
-        row["launches"] = launches[row["name"].rsplit("_", 1)[1]]
+    launches_b = phase_trainer_stacked()
+    seq_kernels = phase_profile()
+    phase_profile_stacked(seq_kernels)
+    # Each kernel's launches on the path that runs it.
+    rows += rows_b
+    for row, n in zip(rows, (launches["fwd"], launches["bwd"],
+                             launches_b["fwd_b"], launches_b["bwd_b"])):
+        row["launches"] = n
     print(gpu)
     print(json.dumps({"kernels": rows}))
     print(json.dumps({"ok": True, "device": {

@@ -17,6 +17,10 @@ Parity notes (SURVEY.md §7.3.2-3):
 - feature noise adds ``feature_noise_scale`` Gaussian noise to the
   embeddings and ``sim_noise_scale`` noise to the similarity rows.
 
+Inputs stacked over folds (sharding/foldstack.py) get stacked draws:
+each draw is one call that makes the whole (F, ...) tensor, so no two
+folds share a mask or a noise tensor.
+
 The other four methods (add_random_edges, graph_noise, feature_masking,
 mix_up) are still to be ported (ROADMAP.md queue A, item 4).
 """
@@ -43,11 +47,12 @@ def _bernoulli(gen, p: float, shape, device) -> torch.Tensor:
 
 
 def edge_dropout_masks(gen, n_drug: int, n_dis: int, num_ratings: int,
-                       rate: float, device) -> Dict[str, torch.Tensor]:
-    """Per-etype keep masks (R, n_drug, n_dis) for the encoder graph;
-    forward and reverse relations drop independent edge sets
+                       rate: float, device,
+                       folds: tuple = ()) -> Dict[str, torch.Tensor]:
+    """Per-etype keep masks (*folds, R, n_drug, n_dis) for the encoder
+    graph; forward and reverse relations drop independent edge sets
     (augmentation.py:35-62)."""
-    shape = (num_ratings, n_drug, n_dis)
+    shape = (*folds, num_ratings, n_drug, n_dis)
     return {"fwd": _bernoulli(gen, 1.0 - rate, shape, device),
             "rev": _bernoulli(gen, 1.0 - rate, shape, device)}
 
@@ -81,7 +86,8 @@ def draw_augment(gen, inputs, cfg: AugmentConfig, num_ratings: int = 2):
                     f"(ROADMAP.md queue A, items 7, 8 and 10)")
             draws["edge_masks"] = edge_dropout_masks(
                 gen, enc.n_drug, enc.n_dis, num_ratings,
-                cfg.edge_dropout_rate, enc.a1.device)
+                cfg.edge_dropout_rate, enc.a1.device,
+                folds=tuple(enc.a1.shape[:-2]))
             for field in GRAPH_FIELDS:
                 g = getattr(inputs, field)
                 if g is not None:

@@ -30,6 +30,8 @@ from dream_gnn_tpu_torch.graph.norms import inv_sqrt_norm
 class BipartiteGraph:
     """Dense-mask bipartite graph with GCMC degree norms.
 
+    Every field may carry a leading fold axis (sharding/foldstack.py).
+
     Attributes:
       a1:   (n_drug, n_dis) float — 1.0 where an observed association
             (rating-1 pair) of this fold exists.
@@ -48,11 +50,11 @@ class BipartiteGraph:
 
     @property
     def n_drug(self) -> int:
-        return self.a1.shape[0]
+        return self.a1.shape[-2]
 
     @property
     def n_dis(self) -> int:
-        return self.a1.shape[1]
+        return self.a1.shape[-1]
 
     def a0(self) -> torch.Tensor:
         return self.mask - self.a1

@@ -31,7 +31,7 @@ class NormAdj:
 
     @property
     def n(self) -> int:
-        return self.a.shape[0]
+        return self.a.shape[-1]
 
 
 def _knn_adjacency(sim_matrix: np.ndarray, k: int, symm: bool) -> np.ndarray:

@@ -1,8 +1,10 @@
-// Fused dense-grid MLP decoder for Hopper (sm_90a), forward and backward.
+// Fused dense-grid MLP decoder for Hopper (sm_90a), forward and backward,
+// for one fold or a stack of F folds.
 //
-// Replaces the Pallas TPU kernels _fwd_kernel and _bwd_kernel of
-// dream_gnn_tpu/kernels/pallas_grid_decoder.py.  For every cell (drug i,
-// disease j) of the grid:
+// Replaces the Pallas TPU kernels _fwd_kernel / _bwd_kernel and their
+// fold-batched forms _fwd_kernel_b / _bwd_kernel_b of
+// dream_gnn_tpu/kernels/pallas_grid_decoder.py.  For every fold f and cell
+// (drug i, disease j) of its grid:
 //
 //     a1  = Pd[i] + Pv[j] + b1                 (H1 = 128 units)
 //     h1d = relu(a1) * m1                      (m1: dropout mask, layer 1)
@@ -12,16 +14,23 @@
 //
 // rnd() rounds to bf16 in bf16 mode and is the identity in fp32 mode, at
 // the same points as the Pallas kernels.  Dropout bits are a stateless hash
-// of (seed, layer, i, j, k); see dream_gnn_tpu_torch/kernels/grid_decoder.py
-// for the definition that the plain PyTorch version shares bit for bit.
+// of (seed[f], layer, i, j, k), with no fold term; see
+// dream_gnn_tpu_torch/kernels/grid_decoder.py for the definition that the
+// plain PyTorch version shares bit for bit.
+//
+// Folds.  The fold index is blockIdx.z: each fold reads its own Pd, Pv, b1,
+// w2, b2, w3, g and seed at a fold stride and writes its own slice of the
+// outputs.  A single-fold call is the same kernel with one fold, so fold f
+// of a batched call computes exactly what a single-fold call with seed[f]
+// computes.
 //
 // Design (simple first; the tensor cores are left unused):
 // - forward: one block of 128 threads per 4 x 32 tile of cells, one thread
 //   per cell; w2, b1, b2, w3 and the tile's Pd / Pv rows sit in shared
 //   memory; each thread keeps its 64 a2 sums in registers and reads w2
 //   rows as float4 broadcasts.
-// - backward: a block owns one 32-disease column of tiles and walks over a
-//   fixed, strided subset of the 4-drug row tiles.  Per tile it recomputes
+// - backward: a block owns one 32-disease column of tiles of one fold and
+//   walks over a fixed, strided subset of the 4-drug row tiles.  Per tile it recomputes
 //   the forward, forms da2 and da1 per cell, and reduces the cross-cell
 //   sums through shared memory: dW2 and dPv accumulate in shared memory
 //   over the block's tiles, dPd is written once per tile.  Each block
@@ -141,6 +150,14 @@ __global__ void __launch_bounds__(NT) grid_fwd_kernel(
   float* b2s = b1s + H1;
   float* w3s = b2s + H2;
 
+  const int f = blockIdx.z;
+  pd += (size_t)f * nd * H1;
+  pv += (size_t)f * nv * H1;
+  b1 += f * H1;
+  w2 += f * H1 * H2;
+  b2 += f * H2;
+  w3 += f * H2;
+  out += (size_t)f * nd * nv;
   const int t = threadIdx.x;
   const int i0 = blockIdx.y * TI, j0 = blockIdx.x * TJ;
   for (int e = t; e < H1 * H2; e += NT) w2s[e] = rnd<BF16>(w2[e]);
@@ -161,7 +178,7 @@ __global__ void __launch_bounds__(NT) grid_fwd_kernel(
 
   const int ti = t / TJ, tj = t % TJ, i = i0 + ti, j = j0 + tj;
   const bool drop = use_drop != 0;
-  const uint32_t seed = (uint32_t)seed_ptr[0];
+  const uint32_t seed = (uint32_t)seed_ptr[f];
   float acc[H2];
   cell_layer1<BF16>(pds + ti * H1, pvs + tj * LD1, b1s, w2s,
                     cell_key(seed, 1u, i, j), drop, thresh, scale, acc, nullptr);
@@ -182,12 +199,12 @@ __global__ void __launch_bounds__(NT) grid_bwd_kernel(
     const float* __restrict__ b1, const float* __restrict__ w2,
     const float* __restrict__ b2, const float* __restrict__ w3,
     const int* __restrict__ seed_ptr, const float* __restrict__ g,
-    float* __restrict__ dpd_part,   // (n_jt, n_it * TI, H1)
-    float* __restrict__ dpv_part,   // (n_split, n_jt * TJ, H1)
-    float* __restrict__ db1_part,   // (n_blocks, H1)
-    float* __restrict__ dw2_part,   // (n_blocks, H1, H2)
-    float* __restrict__ db2_part,   // (n_blocks, H2)
-    float* __restrict__ dw3_part,   // (n_blocks, H2)
+    float* __restrict__ dpd_part,   // (F, n_jt, n_it * TI, H1)
+    float* __restrict__ dpv_part,   // (F, n_split, n_jt * TJ, H1)
+    float* __restrict__ db1_part,   // (F, n_blocks, H1)
+    float* __restrict__ dw2_part,   // (F, n_blocks, H1, H2)
+    float* __restrict__ db2_part,   // (F, n_blocks, H2)
+    float* __restrict__ dw3_part,   // (F, n_blocks, H2)
     int nd, int nv, uint32_t thresh, float scale, int use_drop) {
   extern __shared__ float4 smem4[];
   float* w2s = reinterpret_cast<float*>(smem4);
@@ -210,7 +227,22 @@ __global__ void __launch_bounds__(NT) grid_bwd_kernel(
   const int nd_pad = n_it * TI, nv_pad = n_jt * TJ;
   const int j0 = jt * TJ;
   const bool drop = use_drop != 0;
-  const uint32_t seed = (uint32_t)seed_ptr[0];
+
+  const int f = blockIdx.z, n_blk = n_split * n_jt;
+  const uint32_t seed = (uint32_t)seed_ptr[f];
+  pd += (size_t)f * nd * H1;
+  pv += (size_t)f * nv * H1;
+  b1 += f * H1;
+  w2 += f * H1 * H2;
+  b2 += f * H2;
+  w3 += f * H2;
+  g += (size_t)f * nd * nv;
+  dpd_part += (size_t)f * n_jt * nd_pad * H1;
+  dpv_part += (size_t)f * n_split * nv_pad * H1;
+  db1_part += (size_t)f * n_blk * H1;
+  dw2_part += (size_t)f * n_blk * H1 * H2;
+  db2_part += (size_t)f * n_blk * H2;
+  dw3_part += (size_t)f * n_blk * H2;
 
   for (int e = t; e < H1 * H2; e += NT) w2s[e] = rnd<BF16>(w2[e]);
   for (int e = t; e < TJ * H1; e += NT) {
@@ -383,39 +415,39 @@ cudaError_t prepare(K kernel, int smem_floats) {
                               smem_floats * (int)sizeof(float));
 }
 
-// Backward blocks aimed at: one per SM of an H100.  The split depends on the
-// shapes only, so the order of the partial sums, and with it the result, is
-// the same on every run and every card.
+// A backward wave: one block per SM of an H100 (a block holds 204 KB of
+// shared memory).  The split of the drug tiles aims at whole waves: it is
+// the smallest split whose nf * n_jt * split blocks fill their last wave
+// to at least 15/16 of the waves they take, else the split that fills
+// them best.  For one fold at Gdataset width (n_jt = 10) that is 13, one
+// wave of 130 blocks; for 10 folds it is 5, 500 blocks in 4 waves, where
+// a split of 1 would leave 32 of 132 SMs idle through the whole kernel.
+// It depends on the shapes only, so the order of the partial sums, and
+// with it the result, is the same on every run and every card.
 constexpr int BWD_BLOCKS = 132;
 
-int bwd_split(int n_it, int n_jt) {
-  const int s = BWD_BLOCKS / n_jt;
-  return s < 1 ? 1 : (s < n_it ? s : n_it);
+int bwd_split(int n_it, int n_jt, int nf) {
+  int best = 1;
+  double best_fill = 0.0;
+  for (int s = 1; s <= n_it; ++s) {
+    const long blocks = (long)nf * n_jt * s;
+    const long waves = (blocks + BWD_BLOCKS - 1) / BWD_BLOCKS;
+    const double fill = (double)blocks / (double)(waves * BWD_BLOCKS);
+    if (fill >= 15.0 / 16.0) return s;
+    if (fill > best_fill) {
+      best = s;
+      best_fill = fill;
+    }
+  }
+  return best;
 }
 
-}  // namespace
-
-extern "C" {
-
-// Layout of the backward's partial slabs for an nd x nv grid, which the
-// caller allocates and sums:
-//   dpd_part (n_jt, nd_pad, H1), dpv_part (n_split, nv_pad, H1),
-//   db1/dw2/db2/dw3 parts (n_split * n_jt, ...).
-// layout[] receives {n_jt, n_split, nd_pad, nv_pad}.
-void grid_decoder_bwd_layout(int nd, int nv, int* layout) {
-  const int n_it = (nd + TI - 1) / TI, n_jt = (nv + TJ - 1) / TJ;
-  layout[0] = n_jt;
-  layout[1] = bwd_split(n_it, n_jt);
-  layout[2] = n_it * TI;
-  layout[3] = n_jt * TJ;
-}
-
-int grid_decoder_fwd(const float* pd, const float* pv, const float* b1,
-                     const float* w2, const float* b2, const float* w3,
-                     const int* seed, float* out, int nd, int nv,
-                     unsigned int thresh, float scale, int use_drop, int bf16,
-                     void* stream) {
-  const dim3 grid((nv + TJ - 1) / TJ, (nd + TI - 1) / TI);
+int launch_fwd(const float* pd, const float* pv, const float* b1,
+               const float* w2, const float* b2, const float* w3,
+               const int* seed, float* out, int nf, int nd, int nv,
+               unsigned int thresh, float scale, int use_drop, int bf16,
+               void* stream) {
+  const dim3 grid((nv + TJ - 1) / TJ, (nd + TI - 1) / TI, nf);
   const size_t smem = FWD_SMEM * sizeof(float);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   cudaError_t err;
@@ -433,15 +465,15 @@ int grid_decoder_fwd(const float* pd, const float* pv, const float* b1,
   return (int)cudaGetLastError();
 }
 
-int grid_decoder_bwd(const float* pd, const float* pv, const float* b1,
-                     const float* w2, const float* b2, const float* w3,
-                     const int* seed, const float* g, float* dpd_part,
-                     float* dpv_part, float* db1_part, float* dw2_part,
-                     float* db2_part, float* dw3_part, int nd, int nv,
-                     unsigned int thresh, float scale, int use_drop, int bf16,
-                     void* stream) {
+int launch_bwd(const float* pd, const float* pv, const float* b1,
+               const float* w2, const float* b2, const float* w3,
+               const int* seed, const float* g, float* dpd_part,
+               float* dpv_part, float* db1_part, float* dw2_part,
+               float* db2_part, float* dw3_part, int nf, int nd, int nv,
+               unsigned int thresh, float scale, int use_drop, int bf16,
+               void* stream) {
   const int n_jt = (nv + TJ - 1) / TJ;
-  const dim3 grid(n_jt, bwd_split((nd + TI - 1) / TI, n_jt));
+  const dim3 grid(n_jt, bwd_split((nd + TI - 1) / TI, n_jt, nf), nf);
   const size_t smem = BWD_SMEM * sizeof(float);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   cudaError_t err;
@@ -459,6 +491,73 @@ int grid_decoder_bwd(const float* pd, const float* pv, const float* b1,
         db2_part, dw3_part, nd, nv, thresh, scale, use_drop);
   }
   return (int)cudaGetLastError();
+}
+
+}  // namespace
+
+extern "C" {
+
+// Layout of the backward's partial slabs for nf folds of an nd x nv grid,
+// which the caller allocates and sums over their second axis:
+//   dpd_part (nf, n_jt, nd_pad, H1), dpv_part (nf, n_split, nv_pad, H1),
+//   db1/dw2/db2/dw3 parts (nf, n_split * n_jt, ...).
+// layout[] receives {n_jt, n_split, nd_pad, nv_pad}.
+void grid_decoder_bwd_layout_batched(int nf, int nd, int nv, int* layout) {
+  const int n_it = (nd + TI - 1) / TI, n_jt = (nv + TJ - 1) / TJ;
+  layout[0] = n_jt;
+  layout[1] = bwd_split(n_it, n_jt, nf);
+  layout[2] = n_it * TI;
+  layout[3] = n_jt * TJ;
+}
+
+// The single-fold layout: the batched one with nf = 1, without its fold axis.
+void grid_decoder_bwd_layout(int nd, int nv, int* layout) {
+  grid_decoder_bwd_layout_batched(1, nd, nv, layout);
+}
+
+int grid_decoder_fwd(const float* pd, const float* pv, const float* b1,
+                     const float* w2, const float* b2, const float* w3,
+                     const int* seed, float* out, int nd, int nv,
+                     unsigned int thresh, float scale, int use_drop, int bf16,
+                     void* stream) {
+  return launch_fwd(pd, pv, b1, w2, b2, w3, seed, out, 1, nd, nv, thresh,
+                    scale, use_drop, bf16, stream);
+}
+
+int grid_decoder_bwd(const float* pd, const float* pv, const float* b1,
+                     const float* w2, const float* b2, const float* w3,
+                     const int* seed, const float* g, float* dpd_part,
+                     float* dpv_part, float* db1_part, float* dw2_part,
+                     float* db2_part, float* dw3_part, int nd, int nv,
+                     unsigned int thresh, float scale, int use_drop, int bf16,
+                     void* stream) {
+  return launch_bwd(pd, pv, b1, w2, b2, w3, seed, g, dpd_part, dpv_part,
+                    db1_part, dw2_part, db2_part, dw3_part, 1, nd, nv, thresh,
+                    scale, use_drop, bf16, stream);
+}
+
+// nf folds in one launch: pd (nf, nd, H1), pv (nf, nv, H1), b1 (nf, H1),
+// w2 (nf, H1, H2), b2 (nf, H2), w3 (nf, H2), seed (nf,), out (nf, nd, nv).
+int grid_decoder_fwd_batched(const float* pd, const float* pv, const float* b1,
+                             const float* w2, const float* b2, const float* w3,
+                             const int* seed, float* out, int nf, int nd, int nv,
+                             unsigned int thresh, float scale, int use_drop,
+                             int bf16, void* stream) {
+  return launch_fwd(pd, pv, b1, w2, b2, w3, seed, out, nf, nd, nv, thresh,
+                    scale, use_drop, bf16, stream);
+}
+
+// Its backward; g (nf, nd, nv), partial slabs as grid_decoder_bwd_layout_batched.
+int grid_decoder_bwd_batched(const float* pd, const float* pv, const float* b1,
+                             const float* w2, const float* b2, const float* w3,
+                             const int* seed, const float* g, float* dpd_part,
+                             float* dpv_part, float* db1_part, float* dw2_part,
+                             float* db2_part, float* dw3_part, int nf, int nd,
+                             int nv, unsigned int thresh, float scale,
+                             int use_drop, int bf16, void* stream) {
+  return launch_bwd(pd, pv, b1, w2, b2, w3, seed, g, dpd_part, dpv_part,
+                    db1_part, dw2_part, db2_part, dw3_part, nf, nd, nv, thresh,
+                    scale, use_drop, bf16, stream);
 }
 
 }  // extern "C"

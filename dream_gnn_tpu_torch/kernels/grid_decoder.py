@@ -1,9 +1,11 @@
 """Fused dense-grid MLP decoder: a hand-written CUDA kernel and its plain
-PyTorch version.
+PyTorch version, for one fold or a stack of F folds.
 
-Replaces the Pallas TPU kernels ``_fwd_kernel`` and ``_bwd_kernel`` of
-``dream_gnn_tpu/kernels/pallas_grid_decoder.py`` (``fused_grid_decoder``).
-For every (drug i, disease j) cell of the grid it computes
+Replaces the Pallas TPU kernels ``_fwd_kernel`` / ``_bwd_kernel``
+(``fused_grid_decoder``) and ``_fwd_kernel_b`` / ``_bwd_kernel_b``
+(``fused_grid_decoder_batched``) of
+``dream_gnn_tpu/kernels/pallas_grid_decoder.py``.  For every (drug i,
+disease j) cell of the grid, of every fold, it computes
 
     a1 = Pd[i] + Pv[j] + b1;        h1d = relu(a1) * m1
     a2 = rnd(h1d) @ rnd(w2) + b2;   h2d = relu(a2) * m2
@@ -26,19 +28,22 @@ uint32 arithmetic::
 The keep threshold and scale follow pallas_decoder.py:75-76.  The plain
 version evaluates the same hash in int64 masked to 32 bits, so kernel and
 plain version draw the same masks bit for bit, and the forward and the
-backward kernels draw the same masks whatever their tiling.
+backward kernels draw the same masks whatever their tiling.  A stack of
+folds carries one seed per fold and no fold term in the hash: fold f of a
+batched call draws the masks of a single-fold call with ``seed[f]``.
 
 What bounds the kernel on an H100.  At Gdataset width (593 x 313 cells,
 H1 = 128, H2 = 64) the forward does about 16.6 kFLOP per cell, about
 3.1 GFLOP in all, against about 1.2 MB of traffic: operations bound it,
-by a wide margin.  The backward does about three times the work.  This
-first version runs the products on the CUDA cores in f32 and leaves the
-tensor cores unused; ``PERF.md`` carries its measured times beside the
-bound.
+by a wide margin.  The backward does about three times the work.  A stack
+of F folds does F times the work in one launch.  This first version runs
+the products on the CUDA cores in f32 and leaves the tensor cores unused;
+``PERF.md`` carries its measured times beside the bound.
 
-Dispatch.  ``fused_grid_decoder`` runs the kernel for CUDA tensors and the
-plain version only for CPU tensors; there is no fallback from one to the
-other.  ``LAUNCHES`` counts kernel launches.
+Dispatch.  ``fused_grid_decoder`` and ``fused_grid_decoder_batched`` run
+the kernel for CUDA tensors and the plain version only for CPU tensors;
+there is no fallback from one to the other.  ``LAUNCHES`` counts kernel
+launches: ``fwd``/``bwd`` single-fold, ``fwd_b``/``bwd_b`` batched.
 """
 
 from __future__ import annotations
@@ -54,7 +59,7 @@ import torch
 
 H1, H2 = 128, 64          # widths the CUDA kernel is built for
 
-LAUNCHES = {"fwd": 0, "bwd": 0}
+LAUNCHES = {"fwd": 0, "bwd": 0, "fwd_b": 0, "bwd_b": 0}
 
 _SRC = Path(__file__).resolve().parent / "csrc" / "grid_decoder.cu"
 BUILD_DIR = Path(__file__).resolve().parents[2] / "build"
@@ -84,12 +89,14 @@ def fmix32(x: torch.Tensor) -> torch.Tensor:
 
 def dropout_bits(seed: torch.Tensor, layer: int, nd: int, nv: int,
                  h: int) -> torch.Tensor:
-    """(nd, nv, h) int64 tensor of the uint32 hash bits defined above."""
+    """int64 tensor of the uint32 hash bits defined above: (nd, nv, h) for
+    a seed of shape (1,), and (F, nd, nv, h) for one of shape (F, 1)."""
     dev = seed.device
     i = torch.arange(nd, device=dev, dtype=torch.int64).view(nd, 1, 1)
     j = torch.arange(nv, device=dev, dtype=torch.int64).view(1, nv, 1)
     k = torch.arange(h, device=dev, dtype=torch.int64).view(1, 1, h)
-    x = fmix32((seed.reshape(1, 1, 1).to(torch.int64) & _M32) ^ layer)
+    s = seed.reshape(*seed.shape[:-1], 1, 1, 1).to(torch.int64)
+    x = fmix32((s & _M32) ^ layer)
     x = fmix32(x ^ i)
     x = fmix32(x ^ j)
     return fmix32(x ^ k)
@@ -106,7 +113,7 @@ def keep_scale(rate: float) -> float:
 
 def dropout_mask(seed: torch.Tensor, layer: int, nd: int, nv: int, h: int,
                  rate: float) -> torch.Tensor:
-    """(nd, nv, h) f32 mask with values 0 or 1/(1-rate)."""
+    """f32 mask with values 0 or 1/(1-rate), shaped as ``dropout_bits``."""
     keep = dropout_bits(seed, layer, nd, nv, h) >= keep_threshold(rate)
     return keep.to(torch.float32) * keep_scale(rate)
 
@@ -121,18 +128,30 @@ def round_to(x: torch.Tensor, dtype) -> torch.Tensor:
     return x.to(dtype).to(torch.float32)
 
 
+# The plain version is written once for an optional leading fold axis:
+# tables (..., N, H1), weights (..., H1, H2), biases (..., H), the seed
+# (..., 1).  Grid intermediates are (..., nd, nv, H); the per-cell products
+# run over the flattened grid, (..., nd * nv, H) @ (..., H, H'), so that a
+# fold's weights meet only that fold's cells.
+
+def _cells(x):
+    return x.flatten(-3, -2)
+
+
 def _plain_parts(pd, pv, b1, w2, b2, seed, rate, train, dtype):
     """(a1, h1d, m1, a2, h2d, m2) over the whole grid, as _tile_forward."""
-    nd, nv = pd.shape[0], pv.shape[0]
+    nd, nv = pd.shape[-2], pv.shape[-2]
+    h1, h2 = w2.shape[-2:]
     use_drop = train and rate > 0.0
-    a1 = (pd[:, None, :] + pv[None, :, :]) + b1
-    h1 = torch.relu(a1)
-    m1 = dropout_mask(seed, 1, nd, nv, w2.shape[0], rate) if use_drop else None
-    h1d = h1 * m1 if use_drop else h1
-    a2 = torch.matmul(round_to(h1d, dtype), round_to(w2, dtype)) + b2
-    h2 = torch.relu(a2)
-    m2 = dropout_mask(seed, 2, nd, nv, w2.shape[1], rate) if use_drop else None
-    h2d = h2 * m2 if use_drop else h2
+    a1 = (pd[..., :, None, :] + pv[..., None, :, :]) + b1[..., None, None, :]
+    h1a = torch.relu(a1)
+    m1 = dropout_mask(seed, 1, nd, nv, h1, rate) if use_drop else None
+    h1d = h1a * m1 if use_drop else h1a
+    a2 = torch.matmul(_cells(round_to(h1d, dtype)), round_to(w2, dtype)) \
+        .unflatten(-2, (nd, nv)) + b2[..., None, None, :]
+    h2a = torch.relu(a2)
+    m2 = dropout_mask(seed, 2, nd, nv, h2, rate) if use_drop else None
+    h2d = h2a * m2 if use_drop else h2a
     return a1, h1d, m1, a2, h2d, m2
 
 
@@ -140,7 +159,7 @@ def grid_decoder_plain(pd, pv, b1, w2, b2, w3, seed, rate: float,
                        train: bool, dtype=torch.bfloat16) -> torch.Tensor:
     """Forward of the kernel in plain PyTorch; differentiable by autograd."""
     *_, h2d, _ = _plain_parts(pd, pv, b1, w2, b2, seed, rate, train, dtype)
-    return torch.sum(h2d * w3, dim=-1)
+    return torch.sum(h2d * w3[..., None, None, :], dim=-1)
 
 
 def grid_decoder_plain_bwd(pd, pv, b1, w2, b2, w3, seed, rate: float,
@@ -150,23 +169,40 @@ def grid_decoder_plain_bwd(pd, pv, b1, w2, b2, w3, seed, rate: float,
     use_drop = train and rate > 0.0
     a1, h1d, m1, a2, h2d, m2 = _plain_parts(pd, pv, b1, w2, b2, seed, rate,
                                             train, dtype)
-    h1, h2 = w2.shape
-    g = g[:, :, None]
-    dw3 = torch.matmul(round_to(g, dtype).reshape(1, -1),
-                       round_to(h2d, dtype).reshape(-1, h2))[0]
-    dh2 = g * w3
+    g = g[..., None]
+    dw3 = torch.matmul(round_to(g, dtype).flatten(-3).unsqueeze(-2),
+                       _cells(round_to(h2d, dtype)))[..., 0, :]
+    dh2 = g * w3[..., None, None, :]
     if use_drop:
         dh2 = dh2 * m2
     da2 = torch.where(a2 > 0.0, dh2, torch.zeros_like(dh2))
-    dw2 = torch.matmul(round_to(h1d, dtype).reshape(-1, h1).T,
-                       round_to(da2, dtype).reshape(-1, h2))
-    db2 = torch.sum(da2, dim=(0, 1))
-    dh1 = torch.matmul(round_to(da2, dtype), round_to(w2, dtype).T)
+    dw2 = torch.matmul(_cells(round_to(h1d, dtype)).mT,
+                       _cells(round_to(da2, dtype)))
+    db2 = torch.sum(da2, dim=(-3, -2))
+    dh1 = torch.matmul(_cells(round_to(da2, dtype)),
+                       round_to(w2, dtype).mT).unflatten(-2, a1.shape[-3:-1])
     if use_drop:
         dh1 = dh1 * m1
     da1 = torch.where(a1 > 0.0, dh1, torch.zeros_like(dh1))
-    return (torch.sum(da1, dim=1), torch.sum(da1, dim=0),
-            torch.sum(da1, dim=(0, 1)), dw2, db2, dw3)
+    return (torch.sum(da1, dim=-2), torch.sum(da1, dim=-3),
+            torch.sum(da1, dim=(-3, -2)), dw2, db2, dw3)
+
+
+def grid_decoder_batched_plain(pd, pv, b1, w2, b2, w3, seed, rate: float,
+                               train: bool,
+                               dtype=torch.bfloat16) -> torch.Tensor:
+    """Forward of the batched kernel in plain PyTorch: the single-fold
+    version over a leading fold axis, fold f with ``seed[f]``."""
+    return grid_decoder_plain(pd, pv, b1, w2, b2, w3, seed[:, None], rate,
+                              train, dtype)
+
+
+def grid_decoder_batched_plain_bwd(pd, pv, b1, w2, b2, w3, seed, rate: float,
+                                   train: bool, dtype, g):
+    """Explicit backward of the batched version, as ``_bwd_kernel_b``.
+    Returns (dpd, dpv, db1, dw2, db2, dw3), each with a leading fold axis."""
+    return grid_decoder_plain_bwd(pd, pv, b1, w2, b2, w3, seed[:, None], rate,
+                                  train, dtype, g)
 
 
 # ---------------------------------------------------------------------------
@@ -216,24 +252,39 @@ def _load():
         lib.grid_decoder_bwd.restype = i
         lib.grid_decoder_bwd_layout.argtypes = [i, i, p]
         lib.grid_decoder_bwd_layout.restype = None
+        lib.grid_decoder_fwd_batched.argtypes = [p] * 8 + [i, i, i, u, f, i,
+                                                           i, p]
+        lib.grid_decoder_fwd_batched.restype = i
+        lib.grid_decoder_bwd_batched.argtypes = [p] * 14 + [i, i, i, u, f, i,
+                                                            i, p]
+        lib.grid_decoder_bwd_batched.restype = i
+        lib.grid_decoder_bwd_layout_batched.argtypes = [i, i, i, p]
+        lib.grid_decoder_bwd_layout_batched.restype = None
         _lib = lib
     return _lib
 
 
-def _check(pd, pv, b1, w2, b2, w3, seed, dtype):
+def _check(pd, pv, b1, w2, b2, w3, seed, dtype, folds=()):
+    """Device, type, shape and contiguity of the kernel's inputs; ``folds``
+    is () for a single-fold call and (F,) for a batched one."""
     dev = pd.device
-    for name, x, shape in (("proj_drug", pd, (pd.shape[0], H1)),
-                           ("proj_dis", pv, (pv.shape[0], H1)),
-                           ("b1", b1, (H1,)), ("w2", w2, (H1, H2)),
-                           ("b2", b2, (H2,)), ("w3", w3, (H2,))):
+    nd = pd.shape[-2] if pd.dim() >= 2 else -1
+    nv = pv.shape[-2] if pv.dim() >= 2 else -1
+    for name, x, shape in (("proj_drug", pd, (*folds, nd, H1)),
+                           ("proj_dis", pv, (*folds, nv, H1)),
+                           ("b1", b1, (*folds, H1)),
+                           ("w2", w2, (*folds, H1, H2)),
+                           ("b2", b2, (*folds, H2)), ("w3", w3, (*folds, H2))):
         if x.device != dev or x.dtype != torch.float32 \
                 or tuple(x.shape) != shape or not x.is_contiguous():
             raise ValueError(f"grid decoder kernel: {name} must be a "
                              f"contiguous f32 {shape} tensor on {dev}, got "
                              f"{x.dtype} {tuple(x.shape)} on {x.device}")
-    if seed.device != dev or seed.dtype != torch.int32 or seed.numel() != 1:
-        raise ValueError("grid decoder kernel: seed must be one int32 on "
-                         f"{dev}")
+    n_seeds = folds[0] if folds else 1
+    if seed.device != dev or seed.dtype != torch.int32 \
+            or tuple(seed.shape) != (n_seeds,):
+        raise ValueError(f"grid decoder kernel: seed must be ({n_seeds},) "
+                         f"int32 on {dev}")
     if dtype not in (torch.float32, torch.bfloat16):
         raise ValueError(f"grid decoder kernel: dtype {dtype} unsupported")
 
@@ -242,60 +293,92 @@ def _stream(dev) -> int:
     return torch.cuda.current_stream(dev).cuda_stream
 
 
+def _drop_args(rate, train):
+    use_drop = bool(train and rate > 0.0)
+    return (keep_threshold(rate) if use_drop else 0,
+            keep_scale(rate) if use_drop else 1.0, int(use_drop))
+
+
+def _launch_fwd(pd, pv, b1, w2, b2, w3, seed, rate, train, dtype, folds):
+    _check(pd, pv, b1, w2, b2, w3, seed, dtype, folds)
+    lib = _load()
+    nd, nv = pd.shape[-2], pv.shape[-2]
+    out = torch.empty((*folds, nd, nv), dtype=torch.float32,
+                      device=pd.device)
+    ptrs = [x.data_ptr() for x in (pd, pv, b1, w2, b2, w3, seed, out)]
+    tail = (nd, nv, *_drop_args(rate, train), int(dtype == torch.bfloat16),
+            _stream(pd.device))
+    if folds:
+        err = lib.grid_decoder_fwd_batched(*ptrs, folds[0], *tail)
+    else:
+        err = lib.grid_decoder_fwd(*ptrs, *tail)
+    if err != 0:
+        raise RuntimeError(f"grid_decoder_fwd{'_batched' if folds else ''} "
+                           f"launch failed: CUDA error {err}")
+    LAUNCHES["fwd_b" if folds else "fwd"] += 1
+    return out
+
+
+def _launch_bwd(pd, pv, b1, w2, b2, w3, seed, rate, train, dtype, g, folds):
+    _check(pd, pv, b1, w2, b2, w3, seed, dtype, folds)
+    nd, nv = pd.shape[-2], pv.shape[-2]
+    if g.device != pd.device or g.dtype != torch.float32 \
+            or tuple(g.shape) != (*folds, nd, nv) or not g.is_contiguous():
+        raise ValueError("grid decoder kernel: g must be a contiguous f32 "
+                         f"{(*folds, nd, nv)} tensor on {pd.device}")
+    lib = _load()
+    layout = (ctypes.c_int * 4)()
+    if folds:
+        lib.grid_decoder_bwd_layout_batched(folds[0], nd, nv,
+                                            ctypes.addressof(layout))
+    else:
+        lib.grid_decoder_bwd_layout(nd, nv, ctypes.addressof(layout))
+    n_jt, n_split, nd_pad, nv_pad = layout
+    n_blk = n_split * n_jt
+    kw = dict(dtype=torch.float32, device=pd.device)
+    parts = [torch.empty((*folds, *shape), **kw) for shape in (
+        (n_jt, nd_pad, H1), (n_split, nv_pad, H1), (n_blk, H1),
+        (n_blk, H1, H2), (n_blk, H2), (n_blk, H2))]
+    ptrs = [x.data_ptr() for x in (pd, pv, b1, w2, b2, w3, seed, g, *parts)]
+    tail = (nd, nv, *_drop_args(rate, train), int(dtype == torch.bfloat16),
+            _stream(pd.device))
+    if folds:
+        err = lib.grid_decoder_bwd_batched(*ptrs, folds[0], *tail)
+    else:
+        err = lib.grid_decoder_bwd(*ptrs, *tail)
+    if err != 0:
+        raise RuntimeError(f"grid_decoder_bwd{'_batched' if folds else ''} "
+                           f"launch failed: CUDA error {err}")
+    LAUNCHES["bwd_b" if folds else "bwd"] += 1
+    # Sum each slab over its partial axis, in a fixed order.
+    dpd, dpv, db1, dw2, db2, dw3 = (x.sum(len(folds)) for x in parts)
+    return dpd[..., :nd, :], dpv[..., :nv, :], db1, dw2, db2, dw3
+
+
 def launch_fwd(pd, pv, b1, w2, b2, w3, seed, rate, train, dtype):
     """One forward kernel launch; returns (Nd, Nv) f32 without b3."""
-    _check(pd, pv, b1, w2, b2, w3, seed, dtype)
-    lib = _load()
-    nd, nv = pd.shape[0], pv.shape[0]
-    out = torch.empty((nd, nv), dtype=torch.float32, device=pd.device)
-    use_drop = bool(train and rate > 0.0)
-    err = lib.grid_decoder_fwd(
-        pd.data_ptr(), pv.data_ptr(), b1.data_ptr(), w2.data_ptr(),
-        b2.data_ptr(), w3.data_ptr(), seed.data_ptr(), out.data_ptr(), nd, nv,
-        keep_threshold(rate) if use_drop else 0,
-        keep_scale(rate) if use_drop else 1.0, int(use_drop),
-        int(dtype == torch.bfloat16), _stream(pd.device))
-    if err != 0:
-        raise RuntimeError(f"grid_decoder_fwd launch failed: CUDA error {err}")
-    LAUNCHES["fwd"] += 1
-    return out
+    return _launch_fwd(pd, pv, b1, w2, b2, w3, seed, rate, train, dtype, ())
 
 
 def launch_bwd(pd, pv, b1, w2, b2, w3, seed, rate, train, dtype, g):
     """One backward kernel launch plus the sums over its partial slabs.
     Returns (dpd, dpv, db1, dw2, db2, dw3)."""
-    _check(pd, pv, b1, w2, b2, w3, seed, dtype)
-    nd, nv = pd.shape[0], pv.shape[0]
-    if g.device != pd.device or g.dtype != torch.float32 \
-            or tuple(g.shape) != (nd, nv) or not g.is_contiguous():
-        raise ValueError("grid decoder kernel: g must be a contiguous f32 "
-                         f"({nd}, {nv}) tensor on {pd.device}")
-    lib = _load()
-    layout = (ctypes.c_int * 4)()
-    lib.grid_decoder_bwd_layout(nd, nv, ctypes.addressof(layout))
-    n_jt, n_split, nd_pad, nv_pad = layout
-    n_blk = n_split * n_jt
-    kw = dict(dtype=torch.float32, device=pd.device)
-    dpd_part = torch.empty((n_jt, nd_pad, H1), **kw)
-    dpv_part = torch.empty((n_split, nv_pad, H1), **kw)
-    db1_part = torch.empty((n_blk, H1), **kw)
-    dw2_part = torch.empty((n_blk, H1, H2), **kw)
-    db2_part = torch.empty((n_blk, H2), **kw)
-    dw3_part = torch.empty((n_blk, H2), **kw)
-    use_drop = bool(train and rate > 0.0)
-    err = lib.grid_decoder_bwd(
-        pd.data_ptr(), pv.data_ptr(), b1.data_ptr(), w2.data_ptr(),
-        b2.data_ptr(), w3.data_ptr(), seed.data_ptr(), g.data_ptr(),
-        dpd_part.data_ptr(), dpv_part.data_ptr(), db1_part.data_ptr(),
-        dw2_part.data_ptr(), db2_part.data_ptr(), dw3_part.data_ptr(),
-        nd, nv, keep_threshold(rate) if use_drop else 0,
-        keep_scale(rate) if use_drop else 1.0, int(use_drop),
-        int(dtype == torch.bfloat16), _stream(pd.device))
-    if err != 0:
-        raise RuntimeError(f"grid_decoder_bwd launch failed: CUDA error {err}")
-    LAUNCHES["bwd"] += 1
-    return (dpd_part.sum(0)[:nd], dpv_part.sum(0)[:nv], db1_part.sum(0),
-            dw2_part.sum(0), db2_part.sum(0), dw3_part.sum(0))
+    return _launch_bwd(pd, pv, b1, w2, b2, w3, seed, rate, train, dtype, g,
+                       ())
+
+
+def launch_fwd_batched(pd, pv, b1, w2, b2, w3, seed, rate, train, dtype):
+    """One batched forward launch over F folds; returns (F, Nd, Nv) f32
+    without b3."""
+    return _launch_fwd(pd, pv, b1, w2, b2, w3, seed, rate, train, dtype,
+                       (pd.shape[0],))
+
+
+def launch_bwd_batched(pd, pv, b1, w2, b2, w3, seed, rate, train, dtype, g):
+    """One batched backward launch plus the sums over its partial slabs.
+    Returns (dpd, dpv, db1, dw2, db2, dw3), each with a leading F."""
+    return _launch_bwd(pd, pv, b1, w2, b2, w3, seed, rate, train, dtype, g,
+                       (pd.shape[0],))
 
 
 class _FusedGridDecoder(torch.autograd.Function):
@@ -330,15 +413,54 @@ def fused_grid_decoder(proj_drug, proj_dis, b1, w2, b2, w3, seed,
         dtype)
 
 
+class _FusedGridDecoderBatched(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, pd, pv, b1, w2, b2, w3, seed, rate, train, dtype):
+        ctx.save_for_backward(pd, pv, b1, w2, b2, w3, seed)
+        ctx.cfg = (rate, train, dtype)
+        if pd.is_cuda:
+            return launch_fwd_batched(pd, pv, b1, w2, b2, w3, seed, rate,
+                                      train, dtype)
+        return grid_decoder_batched_plain(pd, pv, b1, w2, b2, w3, seed, rate,
+                                          train, dtype)
+
+    @staticmethod
+    def backward(ctx, g):
+        args = (*ctx.saved_tensors, *ctx.cfg, g.contiguous())
+        grads = launch_bwd_batched(*args) if g.is_cuda \
+            else grid_decoder_batched_plain_bwd(*args)
+        return (*grads, None, None, None, None)
+
+
+def fused_grid_decoder_batched(proj_drug, proj_dis, b1, w2, b2, w3, seed,
+                               rate: float, train: bool,
+                               dtype=torch.bfloat16):
+    """Fold-batched grid decoder MLP, the contract of the JAX
+    ``fused_grid_decoder_batched`` (pallas_grid_decoder.py:489-501).
+
+    proj_drug (F, Nd, 128), proj_dis (F, Nv, 128), b1 (F, 128),
+    w2 (F, 128, 64), b2 (F, 64), w3 (F, 64), seed (F,) int32, all f32 but
+    the seed, on one device.  Returns (F, Nd, Nv) f32 logits without b3.
+    CUDA tensors run one kernel launch, CPU tensors the plain version.
+    """
+    return _FusedGridDecoderBatched.apply(
+        proj_drug.contiguous(), proj_dis.contiguous(), b1.contiguous(),
+        w2.contiguous(), b2.contiguous(), w3.contiguous(), seed, rate, train,
+        dtype)
+
+
 def node_projections(params, drug_feat, dis_feat, dtype):
     """(Pd, Pv): bf16 operands with an f32 product, as XLA's
     ``preferred_element_type=f32``.  torch's bf16 @ bf16 returns bf16,
     which would round the output, so the rounded operands are multiplied
-    in f32 instead; a bf16 x bf16 product is exact in f32."""
-    d = drug_feat.shape[1]
+    in f32 instead; a bf16 x bf16 product is exact in f32.  Features and
+    ``w1`` may carry a leading fold axis."""
+    d = drug_feat.shape[-1]
     w1 = params["w1"]
-    return (torch.matmul(round_to(drug_feat, dtype), round_to(w1[:d], dtype)),
-            torch.matmul(round_to(dis_feat, dtype), round_to(w1[d:], dtype)))
+    return (torch.matmul(round_to(drug_feat, dtype),
+                         round_to(w1[..., :d, :], dtype)),
+            torch.matmul(round_to(dis_feat, dtype),
+                         round_to(w1[..., d:, :], dtype)))
 
 
 def decoder_apply_grid_fused(params, drug_feat, dis_feat, *,
@@ -362,3 +484,27 @@ def decoder_apply_grid_fused(params, drug_feat, dis_feat, *,
                                 params["w3"][:, 0], seed, dropout_rate,
                                 train, dtype)
     return logits + params["b3"][0]
+
+
+def decoder_apply_grid_fused_batched(params, drug_feat, dis_feat, *,
+                                     dropout_rate: float, train: bool = False,
+                                     generator=None, dtype=torch.bfloat16):
+    """Fold-batched fused grid decode, the counterpart of the JAX
+    ``decoder_apply_grid_fused_batched`` (pallas_grid_decoder.py:675-712)
+    without a mesh.  Params leaves and features (F, N, d) carry a leading
+    fold axis; the F dropout seeds come from one draw of ``generator``.
+    Returns (F, Nd, Nv) logits."""
+    proj_drug, proj_dis = node_projections(params, drug_feat, dis_feat, dtype)
+    n_folds, dev = proj_drug.shape[0], proj_drug.device
+    if train and dropout_rate > 0.0:
+        if generator is None:
+            raise ValueError("dropout in training needs a generator")
+        seed = torch.randint(0, np.iinfo(np.int32).max, (n_folds,),
+                             generator=generator, device=dev,
+                             dtype=torch.int32)
+    else:
+        seed = torch.zeros((n_folds,), dtype=torch.int32, device=dev)
+    logits = fused_grid_decoder_batched(
+        proj_drug, proj_dis, params["b1"], params["w2"], params["b2"],
+        params["w3"][..., 0], seed, dropout_rate, train, dtype)
+    return logits + params["b3"][:, :, None]

@@ -17,6 +17,10 @@ Parameters are plain dicts of tensors with the JAX package's keys
 (``tgcn[i]``, ``fgcn``, ``attention``, ``decoder``) and its (in, out)
 weight layout, so ``convert.params_from_jax`` carries weights across.
 Randomness comes from one ``torch.Generator``, drawn in a fixed order.
+
+``forward_stacked`` runs a stack of F folds: every param leaf, input and
+mask carries a leading fold axis, the encoder runs each op once over it,
+and the decoder is one launch of the fold-batched kernel.
 """
 
 from __future__ import annotations
@@ -28,7 +32,8 @@ import torch
 
 from dream_gnn_tpu_torch.config import ModelConfig
 from dream_gnn_tpu_torch.graph.bipartite import BipartiteGraph
-from dream_gnn_tpu_torch.kernels.grid_decoder import decoder_apply_grid_fused
+from dream_gnn_tpu_torch.kernels.grid_decoder import (
+    decoder_apply_grid_fused, decoder_apply_grid_fused_batched)
 from dream_gnn_tpu_torch.nn.attention import attention_apply, attention_init
 from dream_gnn_tpu_torch.nn.decoder import decoder_init
 from dream_gnn_tpu_torch.nn.fgcn import fgcn_apply, fgcn_init
@@ -125,10 +130,10 @@ def _encode(params, inputs: ModelInputs, cfg: ModelConfig, *, train: bool,
         dropout_rate=cfg.dropout, train=train, generator=generator)
 
     drug_feats, _ = attention_apply(
-        params["attention"], torch.stack([drug_out, drug_sim_out], dim=1),
+        params["attention"], torch.stack([drug_out, drug_sim_out], dim=-2),
         dropout_rate=cfg.attention_dropout, train=train, generator=generator)
     dis_feats, _ = attention_apply(
-        params["attention"], torch.stack([dis_out, dis_sim_out], dim=1),
+        params["attention"], torch.stack([dis_out, dis_sim_out], dim=-2),
         dropout_rate=cfg.attention_dropout, train=train, generator=generator)
     return drug_feats, dis_feats, drug_out, drug_sim_out, dis_out, dis_sim_out
 
@@ -142,6 +147,28 @@ def forward(params, inputs: ModelInputs, cfg: ModelConfig, *,
     dis_out, dis_sim_out) — the intermediates feed the covariance common
     loss (train.py:289).
     """
+    return _forward(decoder_apply_grid_fused, params, inputs, cfg,
+                    train=train, generator=generator, edge_masks=edge_masks)
+
+
+def forward_stacked(params, inputs: ModelInputs, cfg: ModelConfig, *,
+                    train: bool = False,
+                    generator: Optional[torch.Generator] = None,
+                    edge_masks=None):
+    """Fold-batched forward, the counterpart of the JAX ``forward_stacked``
+    (dream_gnn.py:224-283) in grid mode: every param leaf, input leaf and
+    ``edge_masks`` leaf carries a leading fold axis F.  Each op runs once
+    over the stack; the decoder is one fold-batched kernel launch with one
+    dropout seed per fold, all F drawn at once from ``generator``.
+
+    Returns (pred (F, n_drug, n_dis), drug_out, drug_sim_out, dis_out,
+    dis_sim_out) with leading fold axes.
+    """
+    return _forward(decoder_apply_grid_fused_batched, params, inputs, cfg,
+                    train=train, generator=generator, edge_masks=edge_masks)
+
+
+def _forward(decode, params, inputs, cfg, *, train, generator, edge_masks):
     if cfg.decode_mode != "grid":
         raise NotImplementedError(
             "decode_mode='edges' is not ported yet (ROADMAP.md queue B, "
@@ -155,9 +182,9 @@ def forward(params, inputs: ModelInputs, cfg: ModelConfig, *,
     (drug_feats, dis_feats, drug_out, drug_sim_out, dis_out,
      dis_sim_out) = _encode(params, inputs, cfg, train=train,
                             generator=generator, edge_masks=edge_masks)
-    # pred is the (n_drug, n_dis) logit grid; the loss/metrics mask
+    # pred is the (..., n_drug, n_dis) logit grid; the loss/metrics mask
     # out-of-fold cells with enc_graph.mask (labels = enc_graph.a1).
-    pred = decoder_apply_grid_fused(
+    pred = decode(
         params["decoder"], drug_feats, dis_feats, dropout_rate=cfg.dropout,
         train=train, generator=generator, dtype=_DTYPES[cfg.compute_dtype])
     return pred, drug_out, drug_sim_out, dis_out, dis_sim_out

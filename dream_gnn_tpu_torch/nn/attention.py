@@ -25,9 +25,15 @@ def attention_init(gen, *, in_size: int, hidden_size: int = 16):
 def attention_apply(params, z: torch.Tensor, *, dropout_rate: float,
                     train: bool = False,
                     generator: Optional[torch.Generator] = None):
-    """z: (N, routes, d) -> fused (N, d), beta (N, routes, 1)."""
-    w = torch.tanh(z @ params["w1"] + params["b1"]) @ params["w2"]
-    beta = torch.softmax(w, dim=1)
+    """z: (..., N, routes, d) -> fused (..., N, d), beta (..., N, routes, 1).
+
+    A leading fold axis on ``z`` and the params batches over folds: the
+    projection runs over the flattened (N * routes) rows of each fold."""
+    n, routes = z.shape[-3:-1]
+    h = torch.tanh(z.flatten(-3, -2) @ params["w1"]
+                   + params["b1"][..., None, :])
+    w = (h @ params["w2"]).unflatten(-2, (n, routes))
+    beta = torch.softmax(w, dim=-2)
     if train:
         beta = dropout(generator, beta, dropout_rate, train)
-    return torch.sum(beta * z, dim=1), beta
+    return torch.sum(beta * z, dim=-2), beta

@@ -40,17 +40,22 @@ def decoder_apply_grid(params, drug_feat: torch.Tensor,
                        train: bool = False,
                        generator: Optional[torch.Generator] = None,
                        dtype=torch.float32) -> torch.Tensor:
-    """Score EVERY (drug, disease) cell; returns (n_drug, n_disease)
-    logits.  Matrix operands round to ``dtype`` with f32 accumulation."""
+    """Score EVERY (drug, disease) cell; returns (..., n_drug, n_disease)
+    logits.  Matrix operands round to ``dtype`` with f32 accumulation.
+    Params and features may carry a leading fold axis; the per-cell
+    products run over each fold's flattened grid."""
     proj_drug, proj_dis = node_projections(params, drug_feat, dis_feat, dtype)
-    h = torch.relu(proj_drug[:, None, :] + proj_dis[None, :, :]
-                   + params["b1"])
+    nd, nv = proj_drug.shape[-2], proj_dis.shape[-2]
+    h = torch.relu(proj_drug[..., :, None, :] + proj_dis[..., None, :, :]
+                   + params["b1"][..., None, None, :])
     if train:
         h = dropout(generator, h, dropout_rate, train)
+    h = h.flatten(-3, -2)
     h = torch.relu(torch.matmul(round_to(h, dtype),
-                                round_to(params["w2"], dtype)) + params["b2"])
+                                round_to(params["w2"], dtype))
+                   + params["b2"][..., None, :])
     if train:
         h = dropout(generator, h, dropout_rate, train)
     out = torch.matmul(round_to(h, dtype), round_to(params["w3"], dtype)) \
-        + params["b3"]
-    return out[:, :, 0]
+        + params["b3"][..., None, :]
+    return out[..., 0].unflatten(-1, (nd, nv))

@@ -7,6 +7,9 @@ disease — each run on the kNN *similarity* graph and on the kNN
 similarity-matrix rows, so the input dim is the node count,
 train.py:174-175), fused per node by ``relu(Linear(2*nhid2 -> nhid2))``
 + dropout (layers.py:268-278).
+
+Params, features and graphs may carry a leading fold axis F; products
+batch over it and biases broadcast as ``b[..., None, :]``.
 """
 
 from __future__ import annotations
@@ -29,11 +32,11 @@ def _gcn_init(gen, fdim, nhid1, nhid2):
 def _gcn_apply(p, x, adj, *, dropout_rate, train, generator):
     """relu(gc1) -> dropout -> gc2 (layers.py:245-249)."""
     h = spmm(adj, torch.matmul(x, p["w1"]))
-    h = torch.relu(h + p["b1"])
+    h = torch.relu(h + p["b1"][..., None, :])
     if train:
         h = dropout(generator, h, dropout_rate, train)
     h = spmm(adj, torch.matmul(h, p["w2"]))
-    return h + p["b2"]
+    return h + p["b2"][..., None, :]
 
 
 def fgcn_init(gen, *, fdim_drug: int, fdim_disease: int,
@@ -68,11 +71,11 @@ def fgcn_apply(params, drug_graph, drug_sim_feat, dis_graph, dis_sim_feat,
                            dis_feature_graph, **kw)
 
     fused_drug = torch.relu(
-        torch.cat([emb1_sim, emb1_feat], dim=1) @ params["drug_fusion_w"]
-        + params["drug_fusion_b"])
+        torch.cat([emb1_sim, emb1_feat], dim=-1) @ params["drug_fusion_w"]
+        + params["drug_fusion_b"][..., None, :])
     fused_dis = torch.relu(
-        torch.cat([emb2_sim, emb2_feat], dim=1) @ params["dis_fusion_w"]
-        + params["dis_fusion_b"])
+        torch.cat([emb2_sim, emb2_feat], dim=-1) @ params["dis_fusion_w"]
+        + params["dis_fusion_b"][..., None, :])
     if train:
         fused_drug = dropout(generator, fused_drug, dropout_rate, train)
         fused_dis = dropout(generator, fused_dis, dropout_rate, train)

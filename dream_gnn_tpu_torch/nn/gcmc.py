@@ -15,6 +15,10 @@ Weight parity notes:
 - under ``share_param`` the drug/disease output projections are one
   module (``ufc is ifc``, layers.py:61-64).
 
+Params, features, graphs and masks may carry a leading fold axis F
+(a stack of folds, train/stacked.py): every product is batched over it and
+every bias broadcasts as ``b[..., None, :]``.
+
 The COO, grouped, slabbed and sharded layouts are still to be ported
 (ROADMAP.md queue A, items 7, 8 and 10).
 """
@@ -54,13 +58,15 @@ def gcmc_layer_init(gen, *, in_units: int, msg_units: int, out_units: int,
 
 
 def _relation_weights(params, num_ratings: int, share_param: bool):
+    """(W_fwd, W_rev), each (..., R, in, msg)."""
     if share_param:
         basis = params["basis"]
-        b, in_units, msg_units = basis.shape
-        w = torch.matmul(params["att"], basis.reshape(b, -1))
-        w = w.reshape(num_ratings, in_units, msg_units)
+        *lead, b, in_units, msg_units = basis.shape
+        w = torch.matmul(params["att"], basis.reshape(*lead, b, -1))
+        w = w.reshape(*lead, num_ratings, in_units, msg_units)
         return w, w  # same W for forward and reverse etypes
-    return params["conv_w"][:, 0], params["conv_w"][:, 1]
+    conv_w = params["conv_w"]
+    return conv_w[..., 0, :, :], conv_w[..., 1, :, :]
 
 
 def gcmc_layer_apply(params, graph: BipartiteGraph,
@@ -73,10 +79,10 @@ def gcmc_layer_apply(params, graph: BipartiteGraph,
 
     Args:
       edge_masks: optional dict with 'fwd'/'rev' tensors of shape
-        (R, n_drug, n_dis) — per-etype edge keep-masks from augmentation.
-        The graph's ci/cj stay *stale* by construction (parity trap,
-        SURVEY.md §7.3.3).
-    Returns (drug_out, dis_out), each (N, out_units).
+        (..., R, n_drug, n_dis) — per-etype edge keep-masks from
+        augmentation.  The graph's ci/cj stay *stale* by construction
+        (parity trap, SURVEY.md §7.3.3).
+    Returns (drug_out, dis_out), each (..., N, out_units).
     """
     if not isinstance(graph, BipartiteGraph):
         raise NotImplementedError(
@@ -86,7 +92,7 @@ def gcmc_layer_apply(params, graph: BipartiteGraph,
         raise NotImplementedError(
             "add_random_edges masks are not ported yet (ROADMAP.md queue A, "
             "item 4: the other augment methods)")
-    num_ratings = params["att"].shape[0]
+    num_ratings = params["att"].shape[-2]
     act = get_activation(agg_act)
     w_fwd, w_rev = _relation_weights(params, num_ratings, share_param)
 
@@ -101,11 +107,13 @@ def gcmc_layer_apply(params, graph: BipartiteGraph,
         if train:
             cj_d = dropout(generator, cj_d, dropout_rate, train)
             cj_v = dropout(generator, cj_v, dropout_rate, train)
-        hd = torch.matmul(drug_feat, w_fwd[r])
-        hv = torch.matmul(dis_feat, w_rev[r])
-        a_f = adjs[r] if edge_masks is None else adjs[r] * edge_masks["fwd"][r]
-        a_r = adjs[r] if edge_masks is None else adjs[r] * edge_masks["rev"][r]
-        msg_dis = msg_dis + torch.matmul(a_f.T, hd * cj_d)
+        hd = torch.matmul(drug_feat, w_fwd[..., r, :, :])
+        hv = torch.matmul(dis_feat, w_rev[..., r, :, :])
+        a_f, a_r = adjs[r], adjs[r]
+        if edge_masks is not None:
+            a_f = a_f * edge_masks["fwd"][..., r, :, :]
+            a_r = a_r * edge_masks["rev"][..., r, :, :]
+        msg_dis = msg_dis + torch.matmul(a_f.mT, hd * cj_d)
         # disease -> drug (etype rev-r) reuses W[r] (layers.py:126-127)
         msg_drug = msg_drug + torch.matmul(a_r, hv * cj_v)
 
@@ -117,10 +125,8 @@ def gcmc_layer_apply(params, graph: BipartiteGraph,
 
     # Output projections: drug through ifc, disease through ufc; one
     # shared module under share_param (layers.py:61-64,140-141).
-    if share_param:
-        drug_out = drug_h @ params["fc_w"] + params["fc_b"]
-        dis_out = dis_h @ params["fc_w"] + params["fc_b"]
-    else:
-        drug_out = drug_h @ params["ifc_w"] + params["ifc_b"]
-        dis_out = dis_h @ params["fc_w"] + params["fc_b"]
+    drug_fc = "fc" if share_param else "ifc"
+    drug_out = drug_h @ params[f"{drug_fc}_w"] \
+        + params[f"{drug_fc}_b"][..., None, :]
+    dis_out = dis_h @ params["fc_w"] + params["fc_b"][..., None, :]
     return drug_out, dis_out

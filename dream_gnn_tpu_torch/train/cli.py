@@ -104,8 +104,6 @@ def build_parser() -> argparse.ArgumentParser:
 
 # (flag is set, ROADMAP.md queue A item that ports it)
 _NOT_PORTED = (
-    (lambda a: a.fold_parallel, "--fold_parallel", "6: fold-parallel"),
-    (lambda a: a.seed_parallel, "--seed_parallel", "6: fold-parallel"),
     (lambda a: a.resume, "--resume", "5: checkpoint and resume"),
     (lambda a: a.checkpoint_every > 0, "--checkpoint_every",
      "5: checkpoint and resume"),
@@ -186,7 +184,9 @@ def main(argv=None):
                                 kfold_seed=cfg.kfold_seed,
                                 embedding_mode=args.embedding_mode,
                                 device=device)
-    return run_experiments(dataset, cfg, seeds=args.seeds, folds=args.folds)
+    return run_experiments(dataset, cfg, seeds=args.seeds, folds=args.folds,
+                           fold_parallel=args.fold_parallel,
+                           seed_parallel=args.seed_parallel)
 
 
 if __name__ == "__main__":

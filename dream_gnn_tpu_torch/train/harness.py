@@ -1,16 +1,20 @@
-"""Experiment harness: fixed seeds x 10-fold CV, folds in sequence
-(reference train.py:456-556).
+"""Experiment harness: fixed seeds x 10-fold CV (reference
+train.py:456-556).
 
-Port of the sequential loop of ``dream_gnn_tpu/train/harness.py``.
-Artifact contract kept: per-seed directories ``{save_dir}/seed_{seed}/``
-with ``experiment_results.csv`` (per-fold AUROC/AUPR + average), and a
-global ``summary_results.csv`` with per-seed averages, overall mean and
-std.
+Port of ``dream_gnn_tpu/train/harness.py`` without novel predictions
+(ROADMAP.md queue A, item 5).  Folds run one after another by default;
+``fold_parallel`` trains the folds of each seed as one stack and
+``seed_parallel`` all seeds' folds as one stack (train/stacked.py).
+Artifact contract kept in all three modes: per-seed directories
+``{save_dir}/seed_{seed}/`` with the per-fold CSVs and
+``experiment_results.csv`` (per-fold AUROC/AUPR + average), and a global
+``summary_results.csv`` with per-seed averages, overall mean and std.
 
 Randomness: the JAX package derives each fold's key as
-``fold_in(key(seed), cv)``.  Here each fold draws from one
-``torch.Generator`` on the dataset's device, seeded with
-``fold_seed(seed, cv) = seed * 1_000_003 + cv``.
+``fold_in(key(seed), cv)``.  Here each fold of the sequential path draws
+from one ``torch.Generator`` on the dataset's device, seeded with
+``loop.fold_seed(seed, cv) = seed * 1_000_003 + cv``; a stack draws from
+one generator seeded with ``stacked.stack_seed(seeds, folds)``.
 """
 
 from __future__ import annotations
@@ -19,60 +23,75 @@ import os
 from typing import Optional, Sequence
 
 import numpy as np
-import torch
 
 from dream_gnn_tpu_torch.config import TrainConfig
 from dream_gnn_tpu_torch.data.loader import DreamDataset
-from dream_gnn_tpu_torch.train.loop import train_fold
+from dream_gnn_tpu_torch.train.loop import fold_generator, train_fold
+from dream_gnn_tpu_torch.train.stacked import (train_seed_foldparallel,
+                                               train_stacked_protocol)
 
 
-def fold_seed(seed: int, cv: int) -> int:
-    return seed * 1_000_003 + cv
-
-
-def fold_generator(seed: int, cv: int, device) -> torch.Generator:
-    return torch.Generator(device=device).manual_seed(fold_seed(seed, cv))
+def _seed_summary(seed: int, exp_dir: str, results) -> dict:
+    """Write the seed's ``experiment_results.csv`` from its per-fold
+    result dicts; returns the seed's entry of the summary."""
+    fold_results = [(r["best_auroc"], r["best_aupr"]) for r in results]
+    avg_auroc = float(np.mean([r[0] for r in fold_results]))
+    avg_aupr = float(np.mean([r[1] for r in fold_results]))
+    with open(os.path.join(exp_dir, "experiment_results.csv"), "w") as f:
+        f.write("fold,auroc,aupr\n")
+        for i, (a, p) in enumerate(fold_results):
+            f.write(f"{i + 1},{a:.4f},{p:.4f}\n")
+        f.write(f"average,{avg_auroc:.4f},{avg_aupr:.4f}\n")
+    ms = [r["ms_per_step"] for r in results]
+    return dict(seed=seed, avg_auroc=avg_auroc, avg_aupr=avg_aupr,
+                fold_results=fold_results,
+                ms_per_step=None if None in ms else float(np.mean(ms)))
 
 
 def run_experiments(dataset: DreamDataset, cfg: TrainConfig, *,
                     seeds: Optional[Sequence[int]] = None,
                     folds: Optional[Sequence[int]] = None,
-                    verbose: bool = True):
-    """Run the protocol, folds one after another; returns the summary."""
+                    verbose: bool = True, fold_parallel: bool = False,
+                    seed_parallel: bool = False):
+    """Run the protocol; returns the summary.  Each seed's entry carries
+    ``ms_per_step``: the stacked step's time under ``fold_parallel`` or
+    ``seed_parallel``, else the mean of its folds' step times."""
     seeds = list(seeds if seeds is not None else cfg.seeds)
     folds = list(folds if folds is not None else range(cfg.n_folds))
+    seed_dirs = [os.path.join(cfg.save_dir, f"seed_{seed}") for seed in seeds]
+
+    if seed_parallel:
+        per_seed = train_stacked_protocol(dataset, cfg, seeds, folds,
+                                          save_dirs=seed_dirs,
+                                          verbose=verbose)
+        all_results = [_seed_summary(seed, d, res)
+                       for seed, d, res in zip(seeds, seed_dirs, per_seed)]
+        return _summarize(cfg, seeds, all_results, verbose)
 
     all_results = []
-    for exp_idx, seed in enumerate(seeds):
+    for exp_idx, (seed, exp_dir) in enumerate(zip(seeds, seed_dirs)):
         if verbose:
             print(f"======== Experiment {exp_idx + 1}/{len(seeds)} "
                   f"with seed {seed} ========")
-        exp_dir = os.path.join(cfg.save_dir, f"seed_{seed}")
         os.makedirs(exp_dir, exist_ok=True)
-
-        fold_results = []
-        for cv in folds:
-            if verbose:
-                print(f"============== Fold {cv + 1} ==============")
-            res = train_fold(dataset, cv, cfg,
-                             fold_generator(seed, cv, dataset.device),
-                             save_dir=exp_dir, save_id=cv + 1,
-                             verbose=verbose)
-            fold_results.append((res["best_auroc"], res["best_aupr"]))
-
-        avg_auroc = float(np.mean([r[0] for r in fold_results]))
-        avg_aupr = float(np.mean([r[1] for r in fold_results]))
-        with open(os.path.join(exp_dir, "experiment_results.csv"), "w") as f:
-            f.write("fold,auroc,aupr\n")
-            for i, (a, p) in enumerate(fold_results):
-                f.write(f"{i + 1},{a:.4f},{p:.4f}\n")
-            f.write(f"average,{avg_auroc:.4f},{avg_aupr:.4f}\n")
-        all_results.append(dict(seed=seed, avg_auroc=avg_auroc,
-                                avg_aupr=avg_aupr,
-                                fold_results=fold_results))
+        if fold_parallel:
+            results = train_seed_foldparallel(dataset, cfg, seed, folds,
+                                              save_dir=exp_dir,
+                                              verbose=verbose)
+        else:
+            results = []
+            for cv in folds:
+                if verbose:
+                    print(f"============== Fold {cv + 1} ==============")
+                results.append(train_fold(
+                    dataset, cv, cfg, fold_generator(seed, cv, dataset.device),
+                    save_dir=exp_dir, save_id=cv + 1, verbose=verbose))
+        entry = _seed_summary(seed, exp_dir, results)
+        all_results.append(entry)
         if verbose:
             print(f"Experiment {exp_idx + 1} (Seed {seed}) - "
-                  f"Avg AUROC: {avg_auroc:.4f}, Avg AUPR: {avg_aupr:.4f}")
+                  f"Avg AUROC: {entry['avg_auroc']:.4f}, "
+                  f"Avg AUPR: {entry['avg_aupr']:.4f}")
 
     return _summarize(cfg, seeds, all_results, verbose)
 

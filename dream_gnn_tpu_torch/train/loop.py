@@ -39,6 +39,16 @@ def derive_model_cfg(cfg: TrainConfig, dataset: DreamDataset) -> ModelConfig:
         fdim_disease=dataset.n_dis)
 
 
+def fold_seed(seed: int, cv: int) -> int:
+    """Seed of fold ``cv``'s generator under experiment seed ``seed``; the
+    JAX package derives the fold's key as ``fold_in(key(seed), cv)``."""
+    return seed * 1_000_003 + cv
+
+
+def fold_generator(seed: int, cv: int, device) -> torch.Generator:
+    return torch.Generator(device=device).manual_seed(fold_seed(seed, cv))
+
+
 def fold_inputs(dataset: DreamDataset, cv: int):
     """(train_inputs, test_eval_inputs) of fold ``cv``."""
     fold = dataset.fold(cv)
@@ -60,7 +70,7 @@ def fold_inputs(dataset: DreamDataset, cv: int):
     return train_inputs, test_inputs
 
 
-class _IntervalTimer:
+class IntervalTimer:
     """Time of a run of steps: CUDA events on the card, else the host
     clock.  ``ms_per_step`` is the mean over every timed step."""
 
@@ -104,7 +114,7 @@ def train_fold(dataset: DreamDataset, cv: int, cfg: TrainConfig,
                            verbose=verbose)
 
 
-def _save_params(path: str, params) -> None:
+def save_params(path: str, params) -> None:
     """Flat npz of the param tree, keys like ``tgcn.0.basis``."""
     flat = {}
 
@@ -152,7 +162,7 @@ def train_on_inputs(model_cfg: ModelConfig, cfg: TrainConfig,
     total_iters = cfg.train_max_iter - 1      # range(1, max_iter)
     done = 0
     t0 = time.perf_counter()
-    timer = _IntervalTimer(device)
+    timer = IntervalTimer(device)
 
     while done < total_iters:
         chunk = min(cfg.train_valid_interval, total_iters - done)
@@ -198,7 +208,7 @@ def train_on_inputs(model_cfg: ModelConfig, cfg: TrainConfig,
                     f"{best['train_aupr']:.4f},{best['auroc']:.4f},"
                     f"{best['aupr']:.4f}\n")
         if cfg.save_model and best_params is not None:
-            _save_params(os.path.join(save_dir,
+            save_params(os.path.join(save_dir,
                                       f"best_model_fold{save_id}.npz"),
                          best_params)
 

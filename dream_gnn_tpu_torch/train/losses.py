@@ -1,4 +1,10 @@
-"""Loss functions (reference train.py:15-23,289-294 + utils.py:87-95)."""
+"""Loss functions (reference train.py:15-23,289-294 + utils.py:87-95).
+
+Every loss reduces over its trailing axes only, so inputs with a leading
+fold axis give one loss per fold: each fold's BCE mean over its own
+weight mass, each fold's own N x N Gram matrices.  Nothing is pooled
+across folds.
+"""
 
 from __future__ import annotations
 
@@ -15,8 +21,8 @@ def bce_with_logits(logits: torch.Tensor, targets: torch.Tensor,
     loss = (torch.clamp_min(logits, 0.0) - logits * targets
             + torch.log1p(torch.exp(-torch.abs(logits))))
     if weight is None:
-        return torch.mean(loss)
-    return torch.sum(loss * weight) / torch.sum(weight)
+        return torch.mean(loss, dim=-1)
+    return torch.sum(loss * weight, dim=-1) / torch.sum(weight, dim=-1)
 
 
 def common_loss(emb1: torch.Tensor, emb2: torch.Tensor) -> torch.Tensor:
@@ -24,12 +30,12 @@ def common_loss(emb1: torch.Tensor, emb2: torch.Tensor) -> torch.Tensor:
     MSE between the N x N Gram matrices of centred, row-L2-normalised
     embeddings."""
     def _norm_cov(e):
-        e = e - torch.mean(e, dim=0, keepdim=True)
-        n = torch.linalg.norm(e, dim=1, keepdim=True)
+        e = e - torch.mean(e, dim=-2, keepdim=True)
+        n = torch.linalg.norm(e, dim=-1, keepdim=True)
         e = e / torch.clamp_min(n, 1e-12)   # F.normalize eps
-        return e @ e.T
+        return e @ e.mT
 
-    return torch.mean((_norm_cov(emb1) - _norm_cov(emb2)) ** 2)
+    return torch.mean((_norm_cov(emb1) - _norm_cov(emb2)) ** 2, dim=(-2, -1))
 
 
 def total_loss(pred, labels, drug_out, drug_sim_out, dis_out, dis_sim_out, *,

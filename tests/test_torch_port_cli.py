@@ -1,7 +1,8 @@
 """The port's CLI on the CPU (``--device -1``): a smoke run writes the CSV
-artifacts that tests/test_train_smoke.py pins for the JAX package, the
-flag surface matches the JAX CLI, parts not ported yet raise, and a
-card that is not there is an error."""
+artifacts that tests/test_train_smoke.py pins for the JAX package, in
+sequence and with ``--fold_parallel`` / ``--seed_parallel``, the flag
+surface matches the JAX CLI, parts not ported yet raise, and a card that
+is not there is an error."""
 
 import os
 
@@ -62,8 +63,44 @@ def test_flag_surface_matches_jax_cli():
     assert ours == ref
 
 
+@pytest.mark.parametrize("flag", ["--fold_parallel", "--seed_parallel"])
+def test_cli_stacked_writes_per_fold_artifacts(tiny_preset, tmp_path, capsys,
+                                               flag):
+    """Two seeds x two folds trained as stacks write the sequential path's
+    files for every seed and fold; each interval line reports the stacked
+    step's time and the time per fold-step."""
+    save_dir = str(tmp_path)
+    summary = main(["--data_name", tiny_preset, "--device", "-1",
+                    "--seeds", "77", "78", "--folds", "0", "2",
+                    "--train_max_iter", "9", "--train_valid_interval", "4",
+                    "--save_model", "--save_dir", save_dir, flag, *SMALL])
+    out = capsys.readouterr().out
+    assert "ms/step" in out and "ms/fold-step" in out
+    items = 4 if flag == "--seed_parallel" else 2
+    assert f"[mean over {items} folds]" in out
+    for seed in (77, 78):
+        seed_dir = os.path.join(save_dir, f"seed_{seed}")
+        for f in ("test_metric1.csv", "best_metric1.csv", "test_metric3.csv",
+                  "best_metric3.csv", "best_model_fold1.npz",
+                  "best_model_fold3.npz", "experiment_results.csv"):
+            assert os.path.exists(os.path.join(seed_dir, f)), (seed, f)
+        assert not os.path.exists(os.path.join(seed_dir, "test_metric2.csv"))
+        with open(os.path.join(seed_dir, "test_metric3.csv")) as f:
+            lines = f.read().strip().split("\n")
+        assert lines[0] == ("iter,loss,train_auroc,train_aupr,test_auroc,"
+                            "test_aupr")
+        assert [int(x.split(",")[0]) for x in lines[1:]] == [4, 8]
+        with open(os.path.join(seed_dir, "experiment_results.csv")) as f:
+            rows = f.read().strip().split("\n")
+        assert rows[0] == "fold,auroc,aupr" and len(rows) == 4
+    with open(os.path.join(save_dir, "summary_results.csv")) as f:
+        assert len(f.read().strip().split("\n")) == 5
+    assert [r["seed"] for r in summary["results"]] == [77, 78]
+    assert all(r["ms_per_step"] > 0 for r in summary["results"])
+
+
 @pytest.mark.parametrize("flags", [
-    ["--fold_parallel"], ["--seed_parallel"], ["--resume"],
+    ["--resume"], ["--resume", "--fold_parallel"],
     ["--checkpoint_every", "250"], ["--generate_top_predictions"],
     ["--decode_mode", "edges"], ["--decoder_backend", "xla"],
     ["--data_path", "x.mat"], ["--profile_dir", "trace"]])

@@ -1,6 +1,6 @@
-"""Card-only checks of the port: the CUDA grid decoder kernel against its
-plain version at ragged shapes, its input checks, and the trainer's use
-of it.  Every test carries the ``gpu`` marker and skips without a CUDA
+"""Card-only checks of the port: the CUDA grid decoder kernels, single-fold
+and fold-batched, against their plain versions at ragged shapes, their
+input checks, and the trainers' use of them.  Every test carries the ``gpu`` marker and skips without a CUDA
 device.  The file imports no JAX, so that it runs where the card is:
 
     python -m pytest --noconftest -p no:cacheprovider -m gpu \
@@ -106,4 +106,88 @@ def test_trainer_step_launches_kernels(cuda, tmp_path):
           "--train_max_iter", "3", "--train_valid_interval", "2",
           "--layers", "2", "--gcn_agg_units", "96", "--gcn_out_units", "32",
           "--nhid1", "64", "--nhid2", "32", "--save_dir", str(tmp_path)])
-    assert gd.LAUNCHES == {"fwd": 2 + 2, "bwd": 2}
+    assert gd.LAUNCHES == {"fwd": 2 + 2, "bwd": 2, "fwd_b": 0, "bwd_b": 0}
+
+
+def _args_b(dev, nf, nd, nv, seed=0):
+    rng = np.random.default_rng(seed)
+
+    def t(x):
+        return torch.tensor(np.asarray(x, np.float32), device=dev)
+
+    return ([t(rng.normal(0, 0.5, (nf, nd, 128))),
+             t(rng.normal(0, 0.5, (nf, nv, 128))),
+             t(rng.uniform(-.1, .1, (nf, 128))),
+             t(rng.uniform(-.1, .1, (nf, 128, 64))),
+             t(rng.uniform(-.1, .1, (nf, 64))), t(rng.uniform(-.2, .2, (nf, 64))),
+             torch.tensor(rng.integers(0, 2 ** 31 - 1, nf), dtype=torch.int32,
+                          device=dev)],
+            t(rng.normal(0, 1, (nf, nd, nv))))
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("rate", [0.0, 0.3])
+@pytest.mark.parametrize("shape", [(1, 1, 1), (3, 5, 33), (3, 37, 23),
+                                   (10, 130, 300)])
+def test_batched_kernel_matches_plain(cuda, dtype, rate, shape):
+    args, g = _args_b(cuda, *shape)
+    out = gd.launch_fwd_batched(*args, rate, True, dtype)
+    ref = gd.grid_decoder_batched_plain(*args, rate, True, dtype)
+    grads = gd.launch_bwd_batched(*args, rate, True, dtype, g)
+    refs = gd.grid_decoder_batched_plain_bwd(*args, rate, True, dtype, g)
+    torch.cuda.synchronize()
+    for a, b in zip((out, *grads), (ref, *refs)):
+        assert a.shape == b.shape
+        err = float((a - b).abs().max()) / max(float(b.abs().max()), 1e-30)
+        assert err <= TOL[dtype]
+
+
+def test_batched_kernel_is_deterministic(cuda):
+    args, g = _args_b(cuda, 3, 64, 96, seed=1)
+    a = gd.launch_bwd_batched(*args, 0.3, True, torch.bfloat16, g)
+    b = gd.launch_bwd_batched(*args, 0.3, True, torch.bfloat16, g)
+    for x, y in zip(a, b):
+        assert torch.equal(x, y)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_batched_fold_equals_single_fold_kernel(cuda, dtype):
+    """Fold f of one batched forward launch is the single-fold kernel
+    called with seed[f], bit for bit."""
+    args, _ = _args_b(cuda, 3, 37, 45, seed=2)
+    out = gd.launch_fwd_batched(*args, 0.3, True, dtype)
+    for f in range(3):
+        one = gd.launch_fwd(*[a[f].contiguous() for a in args[:6]],
+                            args[6][f:f + 1].contiguous(), 0.3, True, dtype)
+        assert torch.equal(out[f], one)
+
+
+def test_batched_wrapper_checks_inputs(cuda):
+    args, _ = _args_b(cuda, 3, 8, 8)
+    bad = list(args)
+    bad[6] = args[6][:2].contiguous()
+    with pytest.raises(ValueError, match="seed"):
+        gd.launch_fwd_batched(*bad, 0.0, False, torch.bfloat16)
+    bad = list(args)
+    bad[2] = args[2][0].contiguous()
+    with pytest.raises(ValueError, match="b1"):
+        gd.launch_fwd_batched(*bad, 0.0, False, torch.bfloat16)
+
+
+@pytest.mark.parametrize("flag", ["--fold_parallel", "--seed_parallel"])
+def test_stacked_trainer_launches_batched_kernels(cuda, tmp_path, flag):
+    """Two folds of two seeds through the CLI: one batched forward and one
+    batched backward launch per stacked step, plus two batched forward
+    launches per eval interval; no single-fold launch."""
+    from dream_gnn_tpu_torch.train.cli import main
+
+    for k in gd.LAUNCHES:
+        gd.LAUNCHES[k] = 0
+    main(["--data_name", "Gdataset", "--seeds", "1", "2", "--folds", "0", "1",
+          "--train_max_iter", "3", "--train_valid_interval", "2",
+          "--layers", "2", "--gcn_agg_units", "96", "--gcn_out_units", "32",
+          "--nhid1", "64", "--nhid2", "32", "--save_dir", str(tmp_path), flag])
+    runs = 2 if flag == "--fold_parallel" else 1
+    assert gd.LAUNCHES == {"fwd": 0, "bwd": 0, "fwd_b": runs * (2 + 2),
+                           "bwd_b": runs * 2}
+    assert (tmp_path / "seed_2" / "test_metric2.csv").exists()
