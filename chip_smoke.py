@@ -5,8 +5,8 @@
 Phases, each of which fails the run if it fails:
 
 1. device and build: the card's name and power limit, then the CUDA
-   kernels built from the sources in the checkout (nvcc's register and
-   shared-memory report is printed);
+   kernels built from the sources in the checkout, one nvcc per source in
+   parallel (nvcc's register and shared-memory report is printed);
 2. kernels against their plain PyTorch versions at Gdataset width
    (593 drugs x 313 diseases), fp32 and bf16, dropout 0 and 0.3: forward
    logits and all six gradients, each within a stated tolerance; a
@@ -17,17 +17,36 @@ Phases, each of which fails the run if it fails:
    plus: fold f of a batched forward equals the single-fold kernel with
    seed[f] bit for bit, and two batched backward launches give the same
    bits; then their times at F = 10, bf16, dropout 0.3;
-4. the model's eval forward on the card (kernel) against the same
-   forward on the CPU (plain version), at full default width;
-5. the trainer through the port's CLI at full default width: a few
+4. the per-edge kernels on fold 0's real train list (167,168 edges over
+   the Gdataset tables) the same way, plus: an fp32 edge logit with
+   dropout equals the grid kernel's cell [src, dst], and two backward
+   launches give the same bits; then their times, the CSR build's and the
+   da1 buffer's size;
+5. the fold-batched per-edge kernels at F = 3 folds' real lists, fold f
+   equal to the single-fold kernel with seed[f] bit for bit, determinism;
+   their times at F = 10;
+6. the model's eval forward on the card (kernels) against the same
+   forward on the CPU (plain versions), at full default width, in grid
+   and in edges mode;
+7. the trainer through the port's CLI at full default width: a few
    training steps and two eval intervals, with the kernels' launch counts;
-6. the fold-parallel trainer through the CLI (``--fold_parallel``, all 10
+8. the fold-parallel trainer through the CLI (``--fold_parallel``, all 10
    folds of one seed as one stack): ms per stacked step and per
    fold-step, and the batched kernels' launch counts;
-7. a profile of ten default training steps: step time, device busy share
-   and the kernels that take the device's time;
-8. the same profile of ten stacked steps of the 10 folds, whose kernels
-   per step must stay within twice the sequential step's.
+9. the trainer of 7 with ``--decode_mode edges``: only the single-fold
+   edge kernels launch;
+10. the trainer of 8 with ``--decode_mode edges``: only the batched edge
+    kernels launch;
+11. ``--decoder_backend xla --decode_mode edges``: the plain decoder,
+    finite metrics and no decoder kernel launched;
+12. a profile of ten default training steps: step time, device busy share
+    and the kernels that take the device's time;
+13. the same profile of ten stacked steps of the 10 folds, whose kernels
+    per step must stay within twice the sequential step's;
+14-15. the profiles of 12 and 13 in edges mode.
+
+Each trainer phase sets every launch count to 0 just before it drives the
+CLI and reads the counts just after.
 
 The line before the last is the JSON kernel table; the last line is
 ``{"ok": true, "device": {...}}``.  Without a CUDA device the script exits
@@ -67,6 +86,8 @@ ROUNDED = ("logits", "dPd", "dPv", "db1", "dW2", "dw3")
 # The CLI's defaults (train/cli.py), which ModelConfig's own defaults are not.
 MAIN_PATH = dict(compute_dtype="bfloat16", decoder_backend="pallas",
                  decode_mode="grid")
+EDGES_PATH = dict(MAIN_PATH, decode_mode="edges")
+KERNEL_ARGS = ("pd", "pv", "b1", "w2", "b2", "w3", "seed")
 
 
 def _gpu_line() -> str:
@@ -113,9 +134,11 @@ def _decoder_inputs(dev, nf=None):
                           dtype=torch.int32, device=dev))
 
 
-def _bound_ms(fwd: bool, dtype, nf: int = 1) -> tuple:
+def _bound_ms(fwd: bool, dtype, nf: int = 1, cells: int = ND * NV,
+              index_bytes: int = 0) -> tuple:
+    """(least ms, "operations" or "bytes") of the decoder MLP over ``cells``
+    grid cells or edges per fold; ``index_bytes`` are the edge ids read."""
     h1, h2 = 128, 64
-    cells = ND * NV
     per_cell = 2 * h1 * h2 + 2 * h1 + 2 * h2             # a2 product, a1, w3 dot
     if not fwd:
         # The recomputed forward, the dh1 and dW2 products, then g * w3,
@@ -125,7 +148,7 @@ def _bound_ms(fwd: bool, dtype, nf: int = 1) -> tuple:
     table_bytes = nf * (ND + NV) * h1 * 4
     weight_bytes = nf * (h1 + h1 * h2 + 2 * h2) * 4
     grid_bytes = nf * cells * 4                           # out, or g
-    nbytes = table_bytes + weight_bytes + grid_bytes
+    nbytes = table_bytes + weight_bytes + grid_bytes + index_bytes
     if not fwd:
         nbytes += table_bytes + weight_bytes              # the gradients
     t_bytes = nbytes / PEAK_BYTES_S * 1e3
@@ -134,11 +157,11 @@ def _bound_ms(fwd: bool, dtype, nf: int = 1) -> tuple:
 
 
 def phase_build():
-    from dream_gnn_tpu_torch.kernels import grid_decoder as gd
+    from dream_gnn_tpu_torch.kernels import cuda_build
 
     print("== build")
     t0 = time.perf_counter()
-    report = gd.build(force=True)
+    report = cuda_build.build(force=True)
     print(f"{report}  nvcc build: {time.perf_counter() - t0:.2f} s")
 
 
@@ -317,8 +340,192 @@ def phase_kernels_batched():
     return rows
 
 
+def _edge_inputs(ds, nf=None):
+    """Edge kernel inputs on fold 0's real train list (or the stacked train
+    lists of folds 0 .. nf-1): random Gdataset-sized tables and weights,
+    the edges, their CSR orderings and a cotangent that is 0 on padding."""
+    from dream_gnn_tpu_torch.sharding.foldstack import stack_folds
+    from dream_gnn_tpu_torch.train.loop import fold_inputs
+
+    x = _decoder_inputs(ds.device, nf)
+    if nf is None:
+        inputs, _, _, _ = fold_inputs(ds, 0)
+        w = ds.fold(0).train_w
+    else:
+        stacked = stack_folds(ds, list(range(nf)))
+        inputs, w = stacked.inputs, stacked.edge_weight
+    x["edges"] = torch.stack([inputs.dec_src, inputs.dec_dst], dim=-2) \
+        .contiguous()
+    x["csr"] = inputs.dec_csr
+    rng = np.random.default_rng(1)
+    x["g"] = torch.tensor(rng.normal(0, 1e-3, tuple(w.shape)).astype(
+        np.float32), device=ds.device) * w
+    return x
+
+
+def _edge_row(kind, batched, err, t, tp, dtype, ne, nf=1):
+    line = {("fwd", False): "pallas_decoder.py:99",
+            ("bwd", False): "pallas_decoder.py:120",
+            ("fwd", True): "pallas_decoder_batched.py:43",
+            ("bwd", True): "pallas_decoder_batched.py:63"}[kind, batched]
+    name = f"edge_decoder_{kind}" + ("_batched" if batched else "")
+    bound, by = _bound_ms(kind == "fwd", dtype, nf, cells=ne,
+                          index_bytes=nf * 2 * ne * 4)
+    print(f"  {name} F={nf} E={ne}: {t[kind]:.4f} ms ({t[kind] / nf:.4f} ms "
+          f"per fold), bound {bound:.5f} ms ({by}), plain {tp[kind]:.4f} ms; "
+          f"no single PyTorch call computes this function")
+    return dict(name=name, route="cuda",
+                source="dream_gnn_tpu_torch/kernels/csrc/edge_decoder.cu",
+                replaces=f"dream_gnn_tpu/kernels/{line}", launches=0,
+                max_abs_err=err[kind], ms=t[kind], plain_ms=tp[kind],
+                bound_ms=bound, bound_by=by, library_ms=None)
+
+
+def _edge_checks(ed, x, batched, label, err):
+    """Edge kernel vs plain version (fp32/bf16, rate 0/0.3), then the
+    control that the bf16 tolerance sees missing rounding."""
+    fwd = ed.launch_fwd_batched if batched else ed.launch_fwd
+    bwd = ed.launch_bwd_batched if batched else ed.launch_bwd
+    plain = ed.edge_decoder_batched_plain if batched else ed.edge_decoder_plain
+    plain_bwd = ed.edge_decoder_batched_plain_bwd if batched \
+        else ed.edge_decoder_plain_bwd
+    args = [x[k] for k in KERNEL_ARGS[:6]] + [x["edges"], x["seed"]]
+    for dtype in (torch.float32, torch.bfloat16):
+        for rate in (0.0, 0.3):
+            out = fwd(*args, rate, True, dtype)
+            out_g = bwd(*args, rate, True, dtype, x["g"], x["csr"])
+            ref = plain(*args, rate, True, dtype)
+            ref_g = plain_bwd(*args, rate, True, dtype, x["g"])
+            torch.cuda.synchronize()
+            _compare([("logits", out, ref)] + list(zip(GRAD_NAMES, out_g,
+                                                       ref_g)),
+                     dtype, rate, label, err)
+            del ref, ref_g
+    for rate in (0.0, 0.3):
+        ref = plain(*args, rate, True, torch.bfloat16)
+        ref_g = plain_bwd(*args, rate, True, torch.bfloat16, x["g"])
+        out = fwd(*args, rate, True, torch.float32)
+        out_g = bwd(*args, rate, True, torch.float32, x["g"], x["csr"])
+        for name, a, b in [("logits", out, ref)] + list(zip(GRAD_NAMES, out_g,
+                                                            ref_g)):
+            rel = float((a - b).abs().max()) / max(float(b.abs().max()), 1e-30)
+            print(f"  control fp32 {label} kernel vs bf16 plain "
+                  f"rate={rate:.1f} {name:6s} rel={rel:.3e}")
+            if name in ROUNDED and rel <= TOL[torch.bfloat16]:
+                raise AssertionError(f"control: {label} {name} without bf16 "
+                                     f"rounding passes the bf16 tolerance")
+        del ref, ref_g
+    first = bwd(*args, 0.3, True, torch.bfloat16, x["g"], x["csr"])
+    again = bwd(*args, 0.3, True, torch.bfloat16, x["g"], x["csr"])
+    if not all(torch.equal(a, b) for a, b in zip(first, again)):
+        raise AssertionError(f"two {label} backward launches differ")
+    print(f"  {label} backward: two launches give identical bits")
+    return args
+
+
+def _edge_times(ed, x, batched):
+    """Kernel and plain times, bf16 with dropout 0.3 (the main path)."""
+    fwd = ed.launch_fwd_batched if batched else ed.launch_fwd
+    bwd = ed.launch_bwd_batched if batched else ed.launch_bwd
+    plain = ed.edge_decoder_batched_plain if batched else ed.edge_decoder_plain
+    plain_bwd = ed.edge_decoder_batched_plain_bwd if batched \
+        else ed.edge_decoder_plain_bwd
+    args = [x[k] for k in KERNEL_ARGS[:6]] + [x["edges"], x["seed"]]
+    dtype, rate = torch.bfloat16, 0.3
+    launches = dict(ed.LAUNCHES)
+    t = {"fwd": _time_ms(lambda: fwd(*args, rate, True, dtype)),
+         "bwd": _time_ms(lambda: bwd(*args, rate, True, dtype, x["g"],
+                                     x["csr"]))}
+    ed.LAUNCHES.update(launches)
+    with torch.no_grad():
+        tp = {"fwd": _time_ms(lambda: plain(*args, rate, True, dtype), reps=3),
+              "bwd": _time_ms(lambda: plain_bwd(*args, rate, True, dtype,
+                                                x["g"]), reps=3)}
+    return t, tp
+
+
+def phase_edge_kernels(ds):
+    """Rows 5-6 on fold 0's real train list; returns their table rows
+    without launches."""
+    from dream_gnn_tpu_torch.kernels import edge_decoder as ed
+    from dream_gnn_tpu_torch.kernels import grid_decoder as gd
+
+    x = _edge_inputs(ds)
+    ne = x["edges"].shape[-1]
+    print(f"== edge kernels vs plain on fold 0's train list: E={ne} over "
+          f"{ND} x {NV} nodes")
+    err = {"fwd": 0.0, "bwd": 0.0}
+    args = _edge_checks(ed, x, False, "edges", err)
+    # An edge draws the masks of grid cell [src, dst]: in fp32 its logit is
+    # the grid kernel's cell.
+    out = ed.launch_fwd(*args, 0.3, True, torch.float32)
+    grid = gd.launch_fwd(*args[:6], x["seed"], 0.3, True, torch.float32)
+    cells = grid[x["edges"][0].long(), x["edges"][1].long()]
+    rel = float((out - cells).abs().max()) / float(cells.abs().max())
+    print(f"  fp32 rate=0.3 edge logits vs grid kernel cells [src, dst]: "
+          f"rel={rel:.3e} tol=1e-04 {'ok' if rel <= 1e-4 else 'FAIL'}")
+    if rel > 1e-4:
+        raise AssertionError("edge kernel disagrees with the grid kernel")
+    t, tp = _edge_times(ed, x, False)
+    # The CSR build, once per edge list (not in the step): its time and its
+    # kernels.
+    _profile("edge_csr (torch ops)",
+             lambda: ed.edge_csr(x["edges"][0], x["edges"][1], ND, NV), 5)
+    da1_bytes = ne * 128 * 4
+    print(f"  da1 buffer {da1_bytes / 1e6:.1f} MB, written once and read "
+          f"twice: {3 * da1_bytes / PEAK_BYTES_S * 1e3:.4f} ms at "
+          f"{PEAK_BYTES_S / 1e12:.2f} TB/s")
+    return [_edge_row(kind, False, err, t, tp, torch.bfloat16, ne)
+            for kind in ("fwd", "bwd")]
+
+
+def phase_edge_kernels_batched(ds):
+    """Rows 7-8: checks at F = 3 folds' real lists, fold f against the
+    single-fold kernel with seed[f], timing at F = 10; returns their table
+    rows without launches."""
+    from dream_gnn_tpu_torch.kernels import edge_decoder as ed
+
+    x = _edge_inputs(ds, NF_CHECK)
+    ne = x["edges"].shape[-1]
+    print(f"== batched edge kernels vs plain at F={NF_CHECK}, E={ne}")
+    err = {"fwd": 0.0, "bwd": 0.0}
+    args = _edge_checks(ed, x, True, "batched edges", err)
+    for dtype in (torch.float32, torch.bfloat16):
+        out = ed.launch_fwd_batched(*args, 0.3, True, dtype)
+        grads = ed.launch_bwd_batched(*args, 0.3, True, dtype, x["g"],
+                                      x["csr"])
+        # The forward of fold f is the single-fold kernel's bit for bit.  The
+        # backward splits each fold into another number of blocks (the split
+        # depends on F), so its partial sums add in another order.
+        for f in range(NF_CHECK):
+            one = [a[f].contiguous() for a in args[:7]] \
+                + [args[7][f:f + 1].contiguous()]
+            if not torch.equal(ed.launch_fwd(*one, 0.3, True, dtype), out[f]):
+                raise AssertionError(f"batched edges fold {f} ({dtype}) != "
+                                     f"single-fold kernel")
+            single = ed.launch_bwd(*one, 0.3, True, dtype,
+                                   x["g"][f].contiguous())
+            for name, a, b in zip(GRAD_NAMES, grads, single):
+                rel = float((a[f] - b).abs().max()) / max(
+                    float(b.abs().max()), 1e-30)
+                if rel > TOL[dtype]:
+                    raise AssertionError(f"batched edges fold {f} {name} "
+                                         f"({dtype}): rel {rel:.3e} from the "
+                                         f"single-fold kernel")
+        print(f"  batched edges {str(dtype)[6:]:8s} rate=0.3 every fold's "
+              f"forward equals the single-fold kernel bit for bit, its "
+              f"backward within {TOL[dtype]:.0e}")
+    del x, args
+    x = _edge_inputs(ds, NF)
+    ne = x["edges"].shape[-1]
+    t, tp = _edge_times(ed, x, True)
+    return [_edge_row(kind, True, err, t, tp, torch.bfloat16, ne, NF)
+            for kind in ("fwd", "bwd")]
+
+
 def phase_model():
-    """Eval forward at full default width: card (kernel) vs CPU (plain)."""
+    """Eval forward at full default width, grid and edges mode: card
+    (kernels) vs CPU (plain versions)."""
     from dream_gnn_tpu_torch.config import TrainConfig
     from dream_gnn_tpu_torch.data.loader import DreamDataset
     from dream_gnn_tpu_torch.model.dream_gnn import (forward, init_params,
@@ -331,86 +538,66 @@ def phase_model():
     params_cpu = None
     for dev in ("cpu", "cuda:0"):
         ds = DreamDataset.load("Gdataset", k=cfg.num_neighbor, device=dev)
-        mcfg = dataclasses.replace(derive_model_cfg(cfg, ds), **MAIN_PATH)
-        if params_cpu is None:
-            params_cpu = init_params(torch.Generator().manual_seed(0), mcfg)
-        params = map_params(lambda t: t.to(dev), params_cpu)
-        train_inputs, _ = fold_inputs(ds, 0)
-        with torch.no_grad():
-            pred, *_ = forward(params, train_inputs, mcfg, train=False)
-        outs[dev] = pred.cpu()
-    a, b = outs["cuda:0"], outs["cpu"]
-    if a.shape != (ND, NV) or not bool(torch.isfinite(a).all()):
-        raise AssertionError(f"model logits: shape {tuple(a.shape)} or "
-                             f"non-finite values")
-    rel = float((a - b).abs().max()) / float(b.abs().max())
-    print(f"  logits {tuple(a.shape)} rel_err={rel:.3e} tol=1e-02")
-    if rel > 1e-2:
-        raise AssertionError("model logits on the card disagree with the CPU")
+        train_inputs, *_ = fold_inputs(ds, 0)
+        for path in (MAIN_PATH, EDGES_PATH):
+            mcfg = dataclasses.replace(derive_model_cfg(cfg, ds), **path)
+            if params_cpu is None:
+                params_cpu = init_params(torch.Generator().manual_seed(0),
+                                         mcfg)
+            params = map_params(lambda t: t.to(dev), params_cpu)
+            with torch.no_grad():
+                pred, *_ = forward(params, train_inputs, mcfg, train=False)
+            outs[dev, path["decode_mode"]] = pred.cpu()
+    for mode, shape in (("grid", (ND, NV)),
+                        ("edges", tuple(train_inputs.dec_src.shape))):
+        a, b = outs["cuda:0", mode], outs["cpu", mode]
+        if a.shape != shape or not bool(torch.isfinite(a).all()):
+            raise AssertionError(f"{mode} model logits: shape "
+                                 f"{tuple(a.shape)} or non-finite values")
+        rel = float((a - b).abs().max()) / float(b.abs().max())
+        print(f"  {mode} logits {tuple(a.shape)} rel_err={rel:.3e} tol=1e-02")
+        if rel > 1e-2:
+            raise AssertionError(f"{mode} model logits on the card disagree "
+                                 f"with the CPU")
 
 
-def phase_trainer():
-    """Trainer steps through the CLI; returns the kernels' launch counts."""
+def _launches():
+    from dream_gnn_tpu_torch.kernels import edge_decoder as ed
     from dream_gnn_tpu_torch.kernels import grid_decoder as gd
+
+    return {"grid": dict(gd.LAUNCHES), "edge": dict(ed.LAUNCHES)}
+
+
+def _zero_launches():
+    from dream_gnn_tpu_torch.kernels import edge_decoder as ed
+    from dream_gnn_tpu_torch.kernels import grid_decoder as gd
+
+    for counts in (gd.LAUNCHES, ed.LAUNCHES):
+        for k in counts:
+            counts[k] = 0
+
+
+def _run_trainer(label: str, flags, n_folds: int, n_intervals: int = 2):
+    """The CLI at Gdataset defaults plus ``flags``, with every launch count
+    set to 0 just before and read just after; checks the artifacts of
+    ``n_folds`` folds with ``n_intervals`` evals each and finite metrics.
+    Returns (summary, launches)."""
     from dream_gnn_tpu_torch.train.cli import main
 
-    print("== trainer: python -m dream_gnn_tpu_torch.train.cli "
-          "(Gdataset defaults)")
+    print(f"== {label}: python -m dream_gnn_tpu_torch.train.cli "
+          f"{' '.join(flags)}")
     with tempfile.TemporaryDirectory() as save_dir:
-        for k in gd.LAUNCHES:
-            gd.LAUNCHES[k] = 0
+        _zero_launches()
         summary = main(["--data_name", "Gdataset", "--seeds", "77",
-                        "--folds", "0", "--train_max_iter", "41",
-                        "--train_valid_interval", "20",
-                        "--save_dir", save_dir])
+                        *flags, "--save_dir", save_dir])
         torch.cuda.synchronize()
-        launches = dict(gd.LAUNCHES)
+        launches = _launches()
         seed_dir = Path(save_dir, "seed_77")
-        rows = (seed_dir / "test_metric1.csv").read_text().split()
-        last = dict(zip(rows[0].split(","), map(float, rows[-1].split(","))))
-        if len(rows) != 3:
-            raise AssertionError(f"expected 2 eval intervals, got {rows}")
-        for name in ("loss", "train_auroc", "test_auroc"):
-            if not np.isfinite(last[name]):
-                raise AssertionError(f"trainer {name} is not finite: {last}")
-        if not np.isfinite(summary["mean_auroc"]):
-            raise AssertionError(f"summary AUROC is not finite: {summary}")
-        for f in (seed_dir / "test_metric1.csv", seed_dir / "best_metric1.csv",
-                  seed_dir / "experiment_results.csv",
-                  Path(save_dir, "summary_results.csv")):
-            if not f.exists():
-                raise AssertionError(f"missing artifact {f.name}")
-    print(f"  launches on the trainer path: {launches}")
-    for k in ("fwd", "bwd"):
-        if launches[k] <= 0:
-            raise AssertionError(f"grid_decoder_{k} never launched on the "
-                                 f"trainer path")
-    return launches
-
-
-def phase_trainer_stacked():
-    """The fold-parallel trainer through the CLI: all folds of one seed as
-    one stack; returns the batched kernels' launch counts."""
-    from dream_gnn_tpu_torch.kernels import grid_decoder as gd
-    from dream_gnn_tpu_torch.train.cli import main
-
-    print("== fold-parallel trainer: python -m dream_gnn_tpu_torch.train.cli "
-          "--fold_parallel (Gdataset defaults, 10 folds)")
-    with tempfile.TemporaryDirectory() as save_dir:
-        for k in gd.LAUNCHES:
-            gd.LAUNCHES[k] = 0
-        summary = main(["--data_name", "Gdataset", "--fold_parallel",
-                        "--seeds", "77", "--train_max_iter", "41",
-                        "--train_valid_interval", "20",
-                        "--save_dir", save_dir])
-        torch.cuda.synchronize()
-        launches = dict(gd.LAUNCHES)
-        seed_dir = Path(save_dir, "seed_77")
-        for cv in range(NF):
+        for cv in range(n_folds):
             rows = (seed_dir / f"test_metric{cv + 1}.csv").read_text().split()
-            if len(rows) != 3:
-                raise AssertionError(f"fold {cv}: expected 2 eval intervals, "
-                                     f"got {rows}")
+            if len(rows) != n_intervals + 1:
+                raise AssertionError(f"fold {cv}: expected {n_intervals} eval "
+                                     f"intervals, got {rows}")
             last = dict(zip(rows[0].split(","),
                             map(float, rows[-1].split(","))))
             for name in ("loss", "train_auroc", "test_auroc"):
@@ -425,18 +612,80 @@ def phase_trainer_stacked():
                 raise AssertionError(f"missing artifact {f.name}")
         if not np.isfinite(summary["mean_auroc"]):
             raise AssertionError(f"summary AUROC is not finite: {summary}")
+    print(f"  launches on this path: {launches}")
+    return summary, launches
+
+
+def _expect_launches(launches, module: str, kinds, label: str):
+    """Every ``kinds`` count of ``module`` launched; every other count of
+    either module is 0."""
+    for mod, counts in launches.items():
+        for k, n in counts.items():
+            if mod == module and k in kinds:
+                if n <= 0:
+                    raise AssertionError(f"{mod} decoder {k} never launched "
+                                         f"on the {label} path")
+            elif n:
+                raise AssertionError(f"the {label} path launched the {mod} "
+                                     f"decoder's {k} kernel")
+
+
+def _print_stacked_ms(summary):
     ms = summary["results"][0]["ms_per_step"]
     print(f"  {ms:.3f} ms per stacked step of {NF} folds (mean of all 40 "
           f"steps, CUDA events), {ms / NF:.3f} ms per fold-step")
-    print(f"  launches on the fold-parallel path: {launches}")
-    for k in ("fwd_b", "bwd_b"):
-        if launches[k] <= 0:
-            raise AssertionError(f"grid_decoder_{k} never launched on the "
-                                 f"fold-parallel path")
-    if launches["fwd"] or launches["bwd"]:
-        raise AssertionError("the fold-parallel path launched a single-fold "
-                             "kernel")
+
+
+TRAIN_41 = ["--train_max_iter", "41", "--train_valid_interval", "20"]
+
+
+def phase_trainer():
+    """Trainer steps through the CLI; returns the kernels' launch counts."""
+    _, launches = _run_trainer("trainer (Gdataset defaults)",
+                               ["--folds", "0", *TRAIN_41], 1)
+    _expect_launches(launches, "grid", ("fwd", "bwd"), "trainer")
     return launches
+
+
+def phase_trainer_stacked():
+    """The fold-parallel trainer through the CLI: all folds of one seed as
+    one stack; returns the batched kernels' launch counts."""
+    summary, launches = _run_trainer(
+        f"fold-parallel trainer (Gdataset defaults, {NF} folds)",
+        ["--fold_parallel", *TRAIN_41], NF)
+    _print_stacked_ms(summary)
+    _expect_launches(launches, "grid", ("fwd_b", "bwd_b"), "fold-parallel")
+    return launches
+
+
+def phase_trainer_edges():
+    """The edges decode mode through the CLI, one fold."""
+    _, launches = _run_trainer("edges trainer",
+                               ["--decode_mode", "edges", "--folds", "0",
+                                *TRAIN_41], 1)
+    _expect_launches(launches, "edge", ("fwd", "bwd"), "edges")
+    return launches
+
+
+def phase_trainer_edges_stacked():
+    """The edges decode mode with ``--fold_parallel``: the 10 folds of one
+    seed as one stack."""
+    summary, launches = _run_trainer(
+        f"edges fold-parallel trainer ({NF} folds)",
+        ["--decode_mode", "edges", "--fold_parallel", *TRAIN_41], NF)
+    _print_stacked_ms(summary)
+    _expect_launches(launches, "edge", ("fwd_b", "bwd_b"),
+                     "edges fold-parallel")
+    return launches
+
+
+def phase_plain_backend():
+    """``--decoder_backend xla``: the plain edge decoder, no kernel."""
+    _, launches = _run_trainer(
+        "plain decoder backend",
+        ["--decoder_backend", "xla", "--decode_mode", "edges", "--folds", "0",
+         "--train_max_iter", "21", "--train_valid_interval", "10"], 1)
+    _expect_launches(launches, "none", (), "plain backend")
 
 
 def _profile(label: str, step, n_steps: int) -> float:
@@ -477,7 +726,7 @@ def _profile(label: str, step, n_steps: int) -> float:
     return kernels
 
 
-def phase_profile(n_steps: int = 10) -> float:
+def phase_profile(path, n_steps: int = 10) -> float:
     """Where a default training step's time goes; returns kernels/step."""
     from dream_gnn_tpu_torch.config import TrainConfig
     from dream_gnn_tpu_torch.data.loader import DreamDataset
@@ -485,18 +734,22 @@ def phase_profile(n_steps: int = 10) -> float:
     from dream_gnn_tpu_torch.train.loop import derive_model_cfg, fold_inputs
     from dream_gnn_tpu_torch.train.step import init_state, make_one_step
 
-    print(f"== profile: {n_steps} training steps, Gdataset defaults")
+    mode = path["decode_mode"]
+    print(f"== profile: {n_steps} training steps, Gdataset defaults, "
+          f"{mode} mode")
     cfg = TrainConfig()
     ds = DreamDataset.load("Gdataset", k=cfg.num_neighbor, device="cuda:0")
-    mcfg = dataclasses.replace(derive_model_cfg(cfg, ds), **MAIN_PATH)
+    mcfg = dataclasses.replace(derive_model_cfg(cfg, ds), **path)
     gen = torch.Generator(device="cuda:0").manual_seed(0)
     state = init_state(init_params(gen, mcfg), gen, cfg)
     step = make_one_step(mcfg, cfg)
-    inputs, _ = fold_inputs(ds, 0)
-    return _profile("sequential", lambda: step(state, inputs), n_steps)
+    inputs, _, labels, _ = fold_inputs(ds, 0)
+    w = ds.fold(0).train_w
+    return _profile(f"sequential {mode}",
+                    lambda: step(state, inputs, labels, w), n_steps)
 
 
-def phase_profile_stacked(seq_kernels: float, n_steps: int = 10):
+def phase_profile_stacked(path, seq_kernels: float, n_steps: int = 10):
     """The same profile for a stacked step of the 10 folds of one seed; its
     kernels per step must stay within twice the sequential step's."""
     from dream_gnn_tpu_torch.config import TrainConfig
@@ -508,19 +761,21 @@ def phase_profile_stacked(seq_kernels: float, n_steps: int = 10):
                                                    make_one_step_stacked,
                                                    stack_seed)
 
+    mode = path["decode_mode"]
     print(f"== profile: {n_steps} stacked training steps of {NF} folds, "
-          f"Gdataset defaults")
+          f"Gdataset defaults, {mode} mode")
     cfg = TrainConfig()
     ds = DreamDataset.load("Gdataset", k=cfg.num_neighbor, device="cuda:0")
-    mcfg = dataclasses.replace(derive_model_cfg(cfg, ds), **MAIN_PATH)
+    mcfg = dataclasses.replace(derive_model_cfg(cfg, ds), **path)
     folds = list(range(NF))
     gen = torch.Generator(device="cuda:0").manual_seed(stack_seed([0], folds))
     state = init_state_stacked(init_params_stacked(mcfg, [0], folds,
                                                    "cuda:0"), gen, cfg)
     step = make_one_step_stacked(mcfg, cfg)
-    inputs = stack_folds(ds, folds).inputs
-    kernels = _profile(f"stacked F={NF}", lambda: step(state, inputs),
-                       n_steps)
+    stacked = stack_folds(ds, folds)
+    kernels = _profile(f"stacked {mode} F={NF}",
+                       lambda: step(state, stacked.inputs, stacked.labels,
+                                    stacked.edge_weight), n_steps)
     if kernels > 2 * seq_kernels:
         raise AssertionError(f"stacked step launches {kernels:.0f} kernels, "
                              f"more than twice the sequential "
@@ -533,6 +788,7 @@ def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
         return 1
+    from dream_gnn_tpu_torch.data.loader import DreamDataset
     from dream_gnn_tpu_torch.utils.device import set_numerics
 
     set_numerics()
@@ -541,16 +797,28 @@ def main() -> int:
           f"(count {torch.cuda.device_count()})")
     phase_build()
     rows = phase_kernels()
-    rows_b = phase_kernels_batched()
+    rows += phase_kernels_batched()
+    ds = DreamDataset.load("Gdataset", device="cuda:0")
+    rows += phase_edge_kernels(ds)
+    rows += phase_edge_kernels_batched(ds)
+    del ds
+    torch.cuda.empty_cache()
     phase_model()
     launches = phase_trainer()
     launches_b = phase_trainer_stacked()
-    seq_kernels = phase_profile()
-    phase_profile_stacked(seq_kernels)
+    launches_e = phase_trainer_edges()
+    launches_eb = phase_trainer_edges_stacked()
+    phase_plain_backend()
+    for path in (MAIN_PATH, EDGES_PATH):
+        phase_profile_stacked(path, phase_profile(path))
     # Each kernel's launches on the path that runs it.
-    rows += rows_b
-    for row, n in zip(rows, (launches["fwd"], launches["bwd"],
-                             launches_b["fwd_b"], launches_b["bwd_b"])):
+    for row, n in zip(rows, (launches["grid"]["fwd"], launches["grid"]["bwd"],
+                             launches_b["grid"]["fwd_b"],
+                             launches_b["grid"]["bwd_b"],
+                             launches_e["edge"]["fwd"],
+                             launches_e["edge"]["bwd"],
+                             launches_eb["edge"]["fwd_b"],
+                             launches_eb["edge"]["bwd_b"])):
         row["launches"] = n
     print(gpu)
     print(json.dumps({"kernels": rows}))

@@ -57,9 +57,10 @@ class ModelConfig:
     # Params, accumulation, and outputs stay float32 either way.
     compute_dtype: str = "float32"
 
-    # Decoder backend: 'pallas' names the fused kernel (in this package the
-    # CUDA kernel of kernels/grid_decoder.py); 'xla' the plain decoder,
-    # which the port's trainer does not take yet.
+    # Decoder backend: 'pallas' names the fused kernels (in this package the
+    # CUDA kernels of kernels/edge_decoder.py and kernels/grid_decoder.py);
+    # 'xla' the plain decoders of nn/decoder.py, which launch no kernel of
+    # their own.
     decoder_backend: str = "xla"
 
     # Decode mode: 'edges' scores the candidate pair list (works at any

@@ -39,20 +39,14 @@
 //
 // Every entry point returns cudaGetLastError() after its launch.
 
-#include <cuda_bf16.h>
-#include <cuda_runtime.h>
-#include <stdint.h>
+#include "decoder_common.cuh"
 
 namespace {
 
-constexpr int H1 = 128;          // decoder hidden1; one thread per unit in reductions
-constexpr int H2 = 64;           // decoder hidden2
 constexpr int TI = 4;            // drugs per tile
 constexpr int TJ = 32;           // diseases per tile (one warp per drug row)
 constexpr int NT = TI * TJ;      // threads per block, one per cell of a tile
 static_assert(NT == H1, "the backward's reductions map one thread to one H1 unit");
-constexpr int LD1 = H1 + 4;      // padded row stride of H1-wide tiles (16-byte aligned)
-constexpr int LD2 = H2 + 4;      // padded row stride of H2-wide tiles
 
 // Shared memory, in floats.
 constexpr int FWD_SMEM = H1 * H2 + TJ * LD1 + TI * H1 + H1 + 2 * H2;
@@ -66,74 +60,6 @@ constexpr int BWD_SMEM = H1 * H2          // w2 (rounded)
                        + 2 * (NT / 32) * H2   // per-warp sums for db2, dw3
                        + H1 * LD2         // dW2 accumulator
                        + TJ * H1;         // dPv accumulator
-
-__device__ __forceinline__ uint32_t fmix32(uint32_t x) {
-  x ^= x >> 16;
-  x *= 0x85EBCA6Bu;
-  x ^= x >> 13;
-  x *= 0xC2B2AE35u;
-  x ^= x >> 16;
-  return x;
-}
-
-// Hash prefix of one cell and layer; the unit's bits are fmix32(key ^ k).
-__device__ __forceinline__ uint32_t cell_key(uint32_t seed, uint32_t layer,
-                                             uint32_t i, uint32_t j) {
-  return fmix32(fmix32(fmix32(seed ^ layer) ^ i) ^ j);
-}
-
-template <bool BF16>
-__device__ __forceinline__ float rnd(float x) {
-  if constexpr (BF16) {
-    return __bfloat162float(__float2bfloat16_rn(x));
-  } else {
-    return x;
-  }
-}
-
-__device__ __forceinline__ float warp_sum(float v) {
-#pragma unroll
-  for (int o = 16; o > 0; o >>= 1) v += __shfl_xor_sync(0xffffffffu, v, o);
-  return v;
-}
-
-// Layer 1 and the a2 product of one cell.  acc[n] receives rnd(h1d) @ rnd(w2)
-// without b2.  When hrow is given, rnd(h1d) is stored there.
-template <bool BF16>
-__device__ __forceinline__ void cell_layer1(
-    const float* pd_row, const float* pv_row, const float* b1s,
-    const float* w2s, uint32_t key1, bool drop, uint32_t thresh, float scale,
-    float (&acc)[H2], float* hrow) {
-#pragma unroll
-  for (int n = 0; n < H2; ++n) acc[n] = 0.f;
-#pragma unroll 1
-  for (int k = 0; k < H1; k += 4) {
-    const float4 a = *reinterpret_cast<const float4*>(pd_row + k);
-    const float4 b = *reinterpret_cast<const float4*>(pv_row + k);
-    const float4 c = *reinterpret_cast<const float4*>(b1s + k);
-    float h[4] = {(a.x + b.x) + c.x, (a.y + b.y) + c.y,
-                  (a.z + b.z) + c.z, (a.w + b.w) + c.w};
-#pragma unroll
-    for (int u = 0; u < 4; ++u) {
-      float x = fmaxf(h[u], 0.f);
-      if (drop) x = x * (fmix32(key1 ^ (uint32_t)(k + u)) >= thresh ? scale : 0.f);
-      h[u] = rnd<BF16>(x);
-    }
-    if (hrow) *reinterpret_cast<float4*>(hrow + k) = make_float4(h[0], h[1], h[2], h[3]);
-#pragma unroll
-    for (int u = 0; u < 4; ++u) {
-      const float4* wr = reinterpret_cast<const float4*>(w2s + (k + u) * H2);
-#pragma unroll
-      for (int q = 0; q < H2 / 4; ++q) {
-        const float4 w = wr[q];
-        acc[4 * q + 0] += h[u] * w.x;
-        acc[4 * q + 1] += h[u] * w.y;
-        acc[4 * q + 2] += h[u] * w.z;
-        acc[4 * q + 3] += h[u] * w.w;
-      }
-    }
-  }
-}
 
 template <bool BF16>
 __global__ void __launch_bounds__(NT) grid_fwd_kernel(
@@ -409,37 +335,12 @@ __global__ void __launch_bounds__(NT) grid_bwd_kernel(
   }
 }
 
-template <typename K>
-cudaError_t prepare(K kernel, int smem_floats) {
-  return cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-                              smem_floats * (int)sizeof(float));
-}
-
-// A backward wave: one block per SM of an H100 (a block holds 204 KB of
-// shared memory).  The split of the drug tiles aims at whole waves: it is
-// the smallest split whose nf * n_jt * split blocks fill their last wave
-// to at least 15/16 of the waves they take, else the split that fills
-// them best.  For one fold at Gdataset width (n_jt = 10) that is 13, one
-// wave of 130 blocks; for 10 folds it is 5, 500 blocks in 4 waves, where
-// a split of 1 would leave 32 of 132 SMs idle through the whole kernel.
-// It depends on the shapes only, so the order of the partial sums, and
-// with it the result, is the same on every run and every card.
-constexpr int BWD_BLOCKS = 132;
-
+// The backward's split of the drug tiles: whole waves of blocks (see
+// wave_split).  For one fold at Gdataset width (n_jt = 10) it is 13, one
+// wave of 130 blocks; for 10 folds it is 5, 500 blocks in 4 waves, where a
+// split of 1 would leave 32 of 132 SMs idle through the whole kernel.
 int bwd_split(int n_it, int n_jt, int nf) {
-  int best = 1;
-  double best_fill = 0.0;
-  for (int s = 1; s <= n_it; ++s) {
-    const long blocks = (long)nf * n_jt * s;
-    const long waves = (blocks + BWD_BLOCKS - 1) / BWD_BLOCKS;
-    const double fill = (double)blocks / (double)(waves * BWD_BLOCKS);
-    if (fill >= 15.0 / 16.0) return s;
-    if (fill > best_fill) {
-      best = s;
-      best_fill = fill;
-    }
-  }
-  return best;
+  return wave_split(n_it, (long)nf * n_jt);
 }
 
 int launch_fwd(const float* pd, const float* pv, const float* b1,

@@ -49,21 +49,16 @@ launches: ``fwd``/``bwd`` single-fold, ``fwd_b``/``bwd_b`` batched.
 from __future__ import annotations
 
 import ctypes
-import os
-import shutil
-import subprocess
-from pathlib import Path
 
 import numpy as np
 import torch
+
+from dream_gnn_tpu_torch.kernels import cuda_build
 
 H1, H2 = 128, 64          # widths the CUDA kernel is built for
 
 LAUNCHES = {"fwd": 0, "bwd": 0, "fwd_b": 0, "bwd_b": 0}
 
-_SRC = Path(__file__).resolve().parent / "csrc" / "grid_decoder.cu"
-BUILD_DIR = Path(__file__).resolve().parents[2] / "build"
-_LIB_PATH = BUILD_DIR / "libgrid_decoder.so"
 _lib = None
 
 _M32 = 0xFFFFFFFF
@@ -87,19 +82,26 @@ def fmix32(x: torch.Tensor) -> torch.Tensor:
     return x ^ (x >> 16)
 
 
+def hash_bits(seed: torch.Tensor, layer: int, i: torch.Tensor,
+              j: torch.Tensor, k: torch.Tensor) -> torch.Tensor:
+    """int64 tensor of the uint32 hash bits defined above, for int64
+    ``seed``, ``i``, ``j`` and ``k`` that broadcast together."""
+    x = fmix32((seed & _M32) ^ layer)
+    x = fmix32(x ^ i)
+    x = fmix32(x ^ j)
+    return fmix32(x ^ k)
+
+
 def dropout_bits(seed: torch.Tensor, layer: int, nd: int, nv: int,
                  h: int) -> torch.Tensor:
-    """int64 tensor of the uint32 hash bits defined above: (nd, nv, h) for
-    a seed of shape (1,), and (F, nd, nv, h) for one of shape (F, 1)."""
+    """The hash bits of every grid cell: (nd, nv, h) for a seed of shape
+    (1,), and (F, nd, nv, h) for one of shape (F, 1)."""
     dev = seed.device
     i = torch.arange(nd, device=dev, dtype=torch.int64).view(nd, 1, 1)
     j = torch.arange(nv, device=dev, dtype=torch.int64).view(1, nv, 1)
     k = torch.arange(h, device=dev, dtype=torch.int64).view(1, 1, h)
     s = seed.reshape(*seed.shape[:-1], 1, 1, 1).to(torch.int64)
-    x = fmix32((s & _M32) ^ layer)
-    x = fmix32(x ^ i)
-    x = fmix32(x ^ j)
-    return fmix32(x ^ k)
+    return hash_bits(s, layer, i, j, k)
 
 
 def keep_threshold(rate: float) -> int:
@@ -208,42 +210,10 @@ def grid_decoder_batched_plain_bwd(pd, pv, b1, w2, b2, w3, seed, rate: float,
 # ---------------------------------------------------------------------------
 # The CUDA kernel: build, load, launch.
 
-def _nvcc() -> str:
-    for cand in (os.environ.get("CUDA_HOME"), "/usr/local/cuda"):
-        if cand and Path(cand, "bin", "nvcc").exists():
-            return str(Path(cand, "bin", "nvcc"))
-    found = shutil.which("nvcc")
-    if found is None:
-        raise RuntimeError("nvcc not found: the grid decoder kernel cannot "
-                           "be built")
-    return found
-
-
-def build(force: bool = False) -> str:
-    """Compile csrc/grid_decoder.cu into a shared library, when ``force``
-    or when the source is newer than the library, and return nvcc's
-    output (its -Xptxas -v report of registers and shared memory)."""
-    BUILD_DIR.mkdir(parents=True, exist_ok=True)
-    if not force and _LIB_PATH.exists() \
-            and _LIB_PATH.stat().st_mtime >= _SRC.stat().st_mtime:
-        return ""
-    tmp = _LIB_PATH.with_suffix(f".{os.getpid()}.tmp")
-    cmd = [_nvcc(), "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
-           "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
-           "-o", str(tmp), str(_SRC)]
-    proc = subprocess.run(cmd, capture_output=True, text=True)
-    if proc.returncode != 0:
-        raise RuntimeError(f"nvcc failed ({proc.returncode}):\n"
-                           f"{proc.stdout}\n{proc.stderr}")
-    os.replace(tmp, _LIB_PATH)
-    return proc.stdout + proc.stderr
-
-
 def _load():
     global _lib
     if _lib is None:
-        build()
-        lib = ctypes.CDLL(str(_LIB_PATH))
+        lib = cuda_build.load("grid_decoder")
         p, i, u, f = (ctypes.c_void_p, ctypes.c_int, ctypes.c_uint,
                       ctypes.c_float)
         lib.grid_decoder_fwd.argtypes = [p] * 8 + [i, i, u, f, i, i, p]
@@ -264,9 +234,11 @@ def _load():
     return _lib
 
 
-def _check(pd, pv, b1, w2, b2, w3, seed, dtype, folds=()):
-    """Device, type, shape and contiguity of the kernel's inputs; ``folds``
-    is () for a single-fold call and (F,) for a batched one."""
+def check_inputs(pd, pv, b1, w2, b2, w3, seed, dtype, folds=(),
+                 kernel="grid decoder kernel"):
+    """Device, type, shape and contiguity of a decoder kernel's tables,
+    weights and seeds; ``folds`` is () for a single-fold call and (F,) for
+    a batched one.  Raises ValueError naming ``kernel``."""
     dev = pd.device
     nd = pd.shape[-2] if pd.dim() >= 2 else -1
     nv = pv.shape[-2] if pv.dim() >= 2 else -1
@@ -277,37 +249,36 @@ def _check(pd, pv, b1, w2, b2, w3, seed, dtype, folds=()):
                            ("b2", b2, (*folds, H2)), ("w3", w3, (*folds, H2))):
         if x.device != dev or x.dtype != torch.float32 \
                 or tuple(x.shape) != shape or not x.is_contiguous():
-            raise ValueError(f"grid decoder kernel: {name} must be a "
+            raise ValueError(f"{kernel}: {name} must be a "
                              f"contiguous f32 {shape} tensor on {dev}, got "
                              f"{x.dtype} {tuple(x.shape)} on {x.device}")
     n_seeds = folds[0] if folds else 1
     if seed.device != dev or seed.dtype != torch.int32 \
             or tuple(seed.shape) != (n_seeds,):
-        raise ValueError(f"grid decoder kernel: seed must be ({n_seeds},) "
-                         f"int32 on {dev}")
+        raise ValueError(f"{kernel}: seed must be ({n_seeds},) int32 on {dev}")
     if dtype not in (torch.float32, torch.bfloat16):
-        raise ValueError(f"grid decoder kernel: dtype {dtype} unsupported")
+        raise ValueError(f"{kernel}: dtype {dtype} unsupported")
 
 
-def _stream(dev) -> int:
+def stream_ptr(dev) -> int:
     return torch.cuda.current_stream(dev).cuda_stream
 
 
-def _drop_args(rate, train):
+def drop_args(rate, train):
     use_drop = bool(train and rate > 0.0)
     return (keep_threshold(rate) if use_drop else 0,
             keep_scale(rate) if use_drop else 1.0, int(use_drop))
 
 
 def _launch_fwd(pd, pv, b1, w2, b2, w3, seed, rate, train, dtype, folds):
-    _check(pd, pv, b1, w2, b2, w3, seed, dtype, folds)
+    check_inputs(pd, pv, b1, w2, b2, w3, seed, dtype, folds)
     lib = _load()
     nd, nv = pd.shape[-2], pv.shape[-2]
     out = torch.empty((*folds, nd, nv), dtype=torch.float32,
                       device=pd.device)
     ptrs = [x.data_ptr() for x in (pd, pv, b1, w2, b2, w3, seed, out)]
-    tail = (nd, nv, *_drop_args(rate, train), int(dtype == torch.bfloat16),
-            _stream(pd.device))
+    tail = (nd, nv, *drop_args(rate, train), int(dtype == torch.bfloat16),
+            stream_ptr(pd.device))
     if folds:
         err = lib.grid_decoder_fwd_batched(*ptrs, folds[0], *tail)
     else:
@@ -320,7 +291,7 @@ def _launch_fwd(pd, pv, b1, w2, b2, w3, seed, rate, train, dtype, folds):
 
 
 def _launch_bwd(pd, pv, b1, w2, b2, w3, seed, rate, train, dtype, g, folds):
-    _check(pd, pv, b1, w2, b2, w3, seed, dtype, folds)
+    check_inputs(pd, pv, b1, w2, b2, w3, seed, dtype, folds)
     nd, nv = pd.shape[-2], pv.shape[-2]
     if g.device != pd.device or g.dtype != torch.float32 \
             or tuple(g.shape) != (*folds, nd, nv) or not g.is_contiguous():
@@ -340,8 +311,8 @@ def _launch_bwd(pd, pv, b1, w2, b2, w3, seed, rate, train, dtype, g, folds):
         (n_jt, nd_pad, H1), (n_split, nv_pad, H1), (n_blk, H1),
         (n_blk, H1, H2), (n_blk, H2), (n_blk, H2))]
     ptrs = [x.data_ptr() for x in (pd, pv, b1, w2, b2, w3, seed, g, *parts)]
-    tail = (nd, nv, *_drop_args(rate, train), int(dtype == torch.bfloat16),
-            _stream(pd.device))
+    tail = (nd, nv, *drop_args(rate, train), int(dtype == torch.bfloat16),
+            stream_ptr(pd.device))
     if folds:
         err = lib.grid_decoder_bwd_batched(*ptrs, folds[0], *tail)
     else:
@@ -463,6 +434,19 @@ def node_projections(params, drug_feat, dis_feat, dtype):
                          round_to(w1[..., d:, :], dtype)))
 
 
+def dropout_seeds(n: int, device, rate: float, train: bool,
+                  generator=None) -> torch.Tensor:
+    """(n,) int32 dropout seeds: one draw from ``generator`` when training
+    with dropout, else zeros (no draw)."""
+    if train and rate > 0.0:
+        if generator is None:
+            raise ValueError("dropout in training needs a generator")
+        return torch.randint(0, np.iinfo(np.int32).max, (n,),
+                             generator=generator, device=device,
+                             dtype=torch.int32)
+    return torch.zeros((n,), dtype=torch.int32, device=device)
+
+
 def decoder_apply_grid_fused(params, drug_feat, dis_feat, *,
                              dropout_rate: float, train: bool = False,
                              generator=None, dtype=torch.bfloat16):
@@ -470,15 +454,7 @@ def decoder_apply_grid_fused(params, drug_feat, dis_feat, *,
     projections in PyTorch, the per-cell MLP in the kernel, plus b3.
     Returns (Nd, Nv) logits."""
     proj_drug, proj_dis = node_projections(params, drug_feat, dis_feat, dtype)
-    dev = proj_drug.device
-    if train and dropout_rate > 0.0:
-        if generator is None:
-            raise ValueError("dropout in training needs a generator")
-        seed = torch.randint(0, np.iinfo(np.int32).max, (1,),
-                             generator=generator, device=dev,
-                             dtype=torch.int32)
-    else:
-        seed = torch.zeros((1,), dtype=torch.int32, device=dev)
+    seed = dropout_seeds(1, proj_drug.device, dropout_rate, train, generator)
     logits = fused_grid_decoder(proj_drug, proj_dis, params["b1"],
                                 params["w2"], params["b2"],
                                 params["w3"][:, 0], seed, dropout_rate,
@@ -495,15 +471,8 @@ def decoder_apply_grid_fused_batched(params, drug_feat, dis_feat, *,
     fold axis; the F dropout seeds come from one draw of ``generator``.
     Returns (F, Nd, Nv) logits."""
     proj_drug, proj_dis = node_projections(params, drug_feat, dis_feat, dtype)
-    n_folds, dev = proj_drug.shape[0], proj_drug.device
-    if train and dropout_rate > 0.0:
-        if generator is None:
-            raise ValueError("dropout in training needs a generator")
-        seed = torch.randint(0, np.iinfo(np.int32).max, (n_folds,),
-                             generator=generator, device=dev,
-                             dtype=torch.int32)
-    else:
-        seed = torch.zeros((n_folds,), dtype=torch.int32, device=dev)
+    seed = dropout_seeds(proj_drug.shape[0], proj_drug.device, dropout_rate,
+                         train, generator)
     logits = fused_grid_decoder_batched(
         proj_drug, proj_dis, params["b1"], params["w2"], params["b2"],
         params["w3"][..., 0], seed, dropout_rate, train, dtype)

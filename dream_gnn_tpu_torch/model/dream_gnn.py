@@ -1,7 +1,8 @@
 """DREAM-GNN dual-route model composition.
 
 Port of ``dream_gnn_tpu/model/dream_gnn.py`` (reference ``Net``,
-model.py:4-103), grid decode mode:
+model.py:4-103) without the scale decoder layout (ROADMAP.md queue A,
+item 9):
 
 - **GCMC route**: L stacked relation-typed bipartite conv layers with
   decayed residual accumulation ``out = h1 + h2/2 + h3/3``
@@ -10,8 +11,12 @@ model.py:4-103), grid decode mode:
   and feature-kNN graphs (model.py:79-83);
 - one **shared** attention module fuses the two routes for drugs and
   diseases alike (model.py:55,93-97 — parity trap §7.3.7);
-- the fused grid decoder scores every (drug, disease) cell and returns
-  logits, with no sigmoid.
+- the decoder returns logits, with no sigmoid.  ``decode_mode='edges'``
+  scores the candidate edge list (``dec_src``, ``dec_dst``), 'grid' every
+  (drug, disease) cell; ``decoder_backend='pallas'`` runs the fused CUDA
+  kernels (kernels/edge_decoder.py, kernels/grid_decoder.py), 'xla' the
+  plain decoders of nn/decoder.py.  The kernels gather node rows, so unlike
+  the JAX package's one-hot gathers they take any node count.
 
 Parameters are plain dicts of tensors with the JAX package's keys
 (``tgcn[i]``, ``fgcn``, ``attention``, ``decoder``) and its (in, out)
@@ -20,7 +25,8 @@ Randomness comes from one ``torch.Generator``, drawn in a fixed order.
 
 ``forward_stacked`` runs a stack of F folds: every param leaf, input and
 mask carries a leading fold axis, the encoder runs each op once over it,
-and the decoder is one launch of the fold-batched kernel.
+and the decoder is one launch of the fold-batched kernel (or one plain
+decode over the fold axis).
 """
 
 from __future__ import annotations
@@ -32,14 +38,26 @@ import torch
 
 from dream_gnn_tpu_torch.config import ModelConfig
 from dream_gnn_tpu_torch.graph.bipartite import BipartiteGraph
+from dream_gnn_tpu_torch.kernels.edge_decoder import (
+    EdgeCSR, decoder_apply_fused, decoder_apply_fused_batched)
 from dream_gnn_tpu_torch.kernels.grid_decoder import (
     decoder_apply_grid_fused, decoder_apply_grid_fused_batched)
 from dream_gnn_tpu_torch.nn.attention import attention_apply, attention_init
-from dream_gnn_tpu_torch.nn.decoder import decoder_init
+from dream_gnn_tpu_torch.nn.decoder import (decoder_apply, decoder_apply_grid,
+                                            decoder_init)
 from dream_gnn_tpu_torch.nn.fgcn import fgcn_apply, fgcn_init
 from dream_gnn_tpu_torch.nn.gcmc import gcmc_layer_apply, gcmc_layer_init
 
 _DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16}
+
+# (decode_mode, decoder_backend) -> (decoder of one fold, of a fold stack).
+_DECODERS = {
+    ("grid", "pallas"): (decoder_apply_grid_fused,
+                         decoder_apply_grid_fused_batched),
+    ("grid", "xla"): (decoder_apply_grid, decoder_apply_grid),
+    ("edges", "pallas"): (decoder_apply_fused, decoder_apply_fused_batched),
+    ("edges", "xla"): (decoder_apply, decoder_apply),
+}
 
 
 @dataclasses.dataclass(frozen=True)
@@ -58,6 +76,10 @@ class ModelInputs:
     dis_feat: torch.Tensor
     drug_feature_graph: Any = None
     dis_feature_graph: Any = None
+    # The edge list's CSR orderings for the fused edge decoder's backward,
+    # built once per list (train/loop.py:fold_inputs); the counterpart of
+    # the JAX package's dec_layout.  Built in each backward when None.
+    dec_csr: Optional[EdgeCSR] = None
 
 
 def init_params(gen: torch.Generator, cfg: ModelConfig):
@@ -141,14 +163,14 @@ def _encode(params, inputs: ModelInputs, cfg: ModelConfig, *, train: bool,
 def forward(params, inputs: ModelInputs, cfg: ModelConfig, *,
             train: bool = False, generator: Optional[torch.Generator] = None,
             edge_masks=None):
-    """Full dual-route forward, grid decode mode.
+    """Full dual-route forward.
 
-    Returns (pred_logits (n_drug, n_dis), drug_out, drug_sim_out,
-    dis_out, dis_sim_out) — the intermediates feed the covariance common
-    loss (train.py:289).
+    Returns (pred_logits, drug_out, drug_sim_out, dis_out, dis_sim_out):
+    pred is (E,) in edges mode, (n_drug, n_dis) in grid mode; the
+    intermediates feed the covariance common loss (train.py:289).
     """
-    return _forward(decoder_apply_grid_fused, params, inputs, cfg,
-                    train=train, generator=generator, edge_masks=edge_masks)
+    return _forward(params, inputs, cfg, stacked=False, train=train,
+                    generator=generator, edge_masks=edge_masks)
 
 
 def forward_stacked(params, inputs: ModelInputs, cfg: ModelConfig, *,
@@ -156,35 +178,40 @@ def forward_stacked(params, inputs: ModelInputs, cfg: ModelConfig, *,
                     generator: Optional[torch.Generator] = None,
                     edge_masks=None):
     """Fold-batched forward, the counterpart of the JAX ``forward_stacked``
-    (dream_gnn.py:224-283) in grid mode: every param leaf, input leaf and
+    (dream_gnn.py:224-308): every param leaf, input leaf and
     ``edge_masks`` leaf carries a leading fold axis F.  Each op runs once
-    over the stack; the decoder is one fold-batched kernel launch with one
-    dropout seed per fold, all F drawn at once from ``generator``.
+    over the stack; the fused decoder is one fold-batched kernel launch
+    with one dropout seed per fold, all F drawn at once from ``generator``.
 
-    Returns (pred (F, n_drug, n_dis), drug_out, drug_sim_out, dis_out,
-    dis_sim_out) with leading fold axes.
+    Returns (pred (F, E) or (F, n_drug, n_dis), drug_out, drug_sim_out,
+    dis_out, dis_sim_out) with leading fold axes.
     """
-    return _forward(decoder_apply_grid_fused_batched, params, inputs, cfg,
-                    train=train, generator=generator, edge_masks=edge_masks)
+    return _forward(params, inputs, cfg, stacked=True, train=train,
+                    generator=generator, edge_masks=edge_masks)
 
 
-def _forward(decode, params, inputs, cfg, *, train, generator, edge_masks):
-    if cfg.decode_mode != "grid":
-        raise NotImplementedError(
-            "decode_mode='edges' is not ported yet (ROADMAP.md queue B, "
-            "items 3-4: the per-edge fused decoders)")
-    if cfg.decoder_backend != "pallas":
-        raise NotImplementedError(
-            "decoder_backend='xla' is not wired into the port's trainer yet "
-            "(ROADMAP.md queue A, item 3: the plain decoder backend)")
+def _forward(params, inputs, cfg, *, stacked, train, generator, edge_masks):
+    decoders = _DECODERS.get((cfg.decode_mode, cfg.decoder_backend))
+    if decoders is None:
+        raise ValueError(
+            f"decode_mode={cfg.decode_mode!r} with decoder_backend="
+            f"{cfg.decoder_backend!r}: the modes are 'edges' and 'grid', the "
+            f"backends 'pallas' and 'xla'")
     if train and generator is None:
         raise ValueError("a training forward needs a generator")
     (drug_feats, dis_feats, drug_out, drug_sim_out, dis_out,
      dis_sim_out) = _encode(params, inputs, cfg, train=train,
                             generator=generator, edge_masks=edge_masks)
-    # pred is the (..., n_drug, n_dis) logit grid; the loss/metrics mask
-    # out-of-fold cells with enc_graph.mask (labels = enc_graph.a1).
-    pred = decode(
-        params["decoder"], drug_feats, dis_feats, dropout_rate=cfg.dropout,
-        train=train, generator=generator, dtype=_DTYPES[cfg.compute_dtype])
+    kw = dict(dropout_rate=cfg.dropout, train=train, generator=generator,
+              dtype=_DTYPES[cfg.compute_dtype])
+    decode = decoders[stacked]
+    if cfg.decode_mode == "grid":
+        # pred is the (..., n_drug, n_dis) logit grid; the loss/metrics mask
+        # out-of-fold cells with enc_graph.mask (labels = enc_graph.a1).
+        pred = decode(params["decoder"], drug_feats, dis_feats, **kw)
+    else:
+        if cfg.decoder_backend == "pallas":
+            kw["csr"] = inputs.dec_csr
+        pred = decode(params["decoder"], inputs.dec_src, inputs.dec_dst,
+                      drug_feats, dis_feats, **kw)
     return pred, drug_out, drug_sim_out, dis_out, dis_sim_out

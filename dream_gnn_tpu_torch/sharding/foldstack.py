@@ -18,6 +18,7 @@ from typing import Sequence
 import torch
 
 from dream_gnn_tpu_torch.data.loader import DreamDataset
+from dream_gnn_tpu_torch.kernels.edge_decoder import edge_csr
 from dream_gnn_tpu_torch.model.dream_gnn import ModelInputs
 from dream_gnn_tpu_torch.train.loop import fold_inputs
 
@@ -79,7 +80,7 @@ def stack_folds(dataset: DreamDataset, folds: Sequence[int],
         raise ValueError(f"side must be 'train' or 'test', got {side!r}")
     sel = []
     for cv in folds:
-        train_in, test_in = fold_inputs(dataset, cv)
+        train_in, test_in, *_ = fold_inputs(dataset, cv)
         fold = dataset.fold(cv)
         if side == "train":
             sel.append((train_in, fold.train_labels, fold.train_w))
@@ -93,9 +94,11 @@ def stack_folds(dataset: DreamDataset, folds: Sequence[int],
         e = int(fold_in.dec_src.shape[0])
         # Padding edges point at node 0 (gathers stay in bounds) and get
         # zero loss weight; the loader's own padding carries its weights.
+        src = _pad_1d(fold_in.dec_src, e_pad)
+        dst = _pad_1d(fold_in.dec_dst, e_pad)
         stacked_inputs.append(dataclasses.replace(
-            fold_in, dec_src=_pad_1d(fold_in.dec_src, e_pad),
-            dec_dst=_pad_1d(fold_in.dec_dst, e_pad)))
+            fold_in, dec_src=src, dec_dst=dst,
+            dec_csr=edge_csr(src, dst, dataset.n_drug, dataset.n_dis)))
         labels.append(_pad_1d(fold_lab, e_pad))
         w = torch.zeros((e_pad,), dtype=torch.float32,
                         device=fold_lab.device)

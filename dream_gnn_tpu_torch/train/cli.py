@@ -88,7 +88,8 @@ def build_parser() -> argparse.ArgumentParser:
                    help="decoder matmul operand dtype (f32 accumulation)")
     p.add_argument("--decoder_backend", type=str, default="pallas",
                    choices=["xla", "pallas"],
-                   help="'pallas': the fused grid decoder kernel")
+                   help="'pallas': the fused CUDA decoder kernels; "
+                        "'xla': the plain PyTorch decoders")
     p.add_argument("--decode_mode", type=str, default="grid",
                    choices=["edges", "grid"])
     p.add_argument("--rng_impl", type=str, default="rbg",
@@ -109,10 +110,6 @@ _NOT_PORTED = (
      "5: checkpoint and resume"),
     (lambda a: a.generate_top_predictions, "--generate_top_predictions",
      "5: novel predictions"),
-    (lambda a: a.decode_mode == "edges", "--decode_mode edges",
-     "3: edges decode mode"),
-    (lambda a: a.decoder_backend == "xla", "--decoder_backend xla",
-     "3: the plain decoder backend"),
     (lambda a: a.data_path is not None
      or a.data_name.endswith(".mat"), "--data_path (.mat)",
      "11: .mat and embedding loaders"),

@@ -21,6 +21,7 @@ import torch
 
 from dream_gnn_tpu_torch.config import ModelConfig, TrainConfig
 from dream_gnn_tpu_torch.data.loader import DreamDataset
+from dream_gnn_tpu_torch.kernels.edge_decoder import edge_csr
 from dream_gnn_tpu_torch.model.dream_gnn import (ModelInputs, init_params,
                                                  map_params)
 from dream_gnn_tpu_torch.train.optim import PlateauScheduler
@@ -50,7 +51,9 @@ def fold_generator(seed: int, cv: int, device) -> torch.Generator:
 
 
 def fold_inputs(dataset: DreamDataset, cv: int):
-    """(train_inputs, test_eval_inputs) of fold ``cv``."""
+    """(train_inputs, test_eval_inputs, train_labels, test_labels) of fold
+    ``cv``, as the JAX package's; each side's inputs carry its edge list's
+    CSR orderings for the fused edge decoder."""
     fold = dataset.fold(cv)
     common = dict(
         drug_graph=dataset.drug_graph,
@@ -61,13 +64,16 @@ def fold_inputs(dataset: DreamDataset, cv: int):
         dis_feat=dataset.dis_feat,
         drug_feature_graph=dataset.drug_feature_graph,
         dis_feature_graph=dataset.dis_feature_graph)
+    n = (dataset.n_drug, dataset.n_dis)
     train_inputs = ModelInputs(
         enc_graph=fold.train_enc, dec_src=fold.train_src,
-        dec_dst=fold.train_dst, **common)
+        dec_dst=fold.train_dst,
+        dec_csr=edge_csr(fold.train_src, fold.train_dst, *n), **common)
     test_inputs = ModelInputs(
         enc_graph=fold.test_enc, dec_src=fold.test_src,
-        dec_dst=fold.test_dst, **common)
-    return train_inputs, test_inputs
+        dec_dst=fold.test_dst,
+        dec_csr=edge_csr(fold.test_src, fold.test_dst, *n), **common)
+    return train_inputs, test_inputs, fold.train_labels, fold.test_labels
 
 
 class IntervalTimer:
@@ -108,9 +114,10 @@ def train_fold(dataset: DreamDataset, cv: int, cfg: TrainConfig,
                save_id: int = 0, verbose: bool = True):
     """Train one fold; returns a result dict with best metrics."""
     model_cfg = derive_model_cfg(cfg, dataset)
-    train_inputs, test_inputs = fold_inputs(dataset, cv)
-    return train_on_inputs(model_cfg, cfg, train_inputs, test_inputs,
-                           generator, save_dir=save_dir, save_id=save_id,
+    fold = dataset.fold(cv)
+    return train_on_inputs(model_cfg, cfg, *fold_inputs(dataset, cv),
+                           fold.train_w, fold.test_w, generator,
+                           save_dir=save_dir, save_id=save_id,
                            verbose=verbose)
 
 
@@ -134,12 +141,16 @@ def save_params(path: str, params) -> None:
 
 def train_on_inputs(model_cfg: ModelConfig, cfg: TrainConfig,
                     train_inputs: ModelInputs, test_inputs: ModelInputs,
+                    train_labels, test_labels, train_w, test_w,
                     generator: torch.Generator, *,
                     save_dir: Optional[str] = None, save_id: int = 0,
                     verbose: bool = True):
     """The fold-training core on explicit inputs: interval loops, plateau
-    LR, best-by-test-AUPR and the CSV contract.  ``generator`` (on the
-    inputs' device) draws the params and every training random number."""
+    LR, best-by-test-AUPR and the CSV contract.  ``train_w``/``test_w``
+    (1/0 per edge) weight the edges mode's loss and masked metrics with
+    ``train_labels``/``test_labels``; grid mode scores the grid's cells.
+    ``generator`` (on the inputs' device) draws the params and every
+    training random number."""
     device = train_inputs.enc_graph.a1.device
     params = init_params(generator, model_cfg)
     state = init_state(params, generator, cfg)
@@ -167,14 +178,18 @@ def train_on_inputs(model_cfg: ModelConfig, cfg: TrainConfig,
     while done < total_iters:
         chunk = min(cfg.train_valid_interval, total_iters - done)
         timer.start()
-        losses = run_steps(one_step, state, train_inputs, chunk)
+        losses = run_steps(one_step, state, chunk, train_inputs,
+                           train_labels, train_w)
         ms = timer.stop(chunk)
         done += chunk
         if chunk != cfg.train_valid_interval:
             break   # trailing partial chunk: the reference never evals there
         loss, tr_auroc, tr_aupr, te_auroc, te_aupr = [float(x) for x in (
-            losses[-1], *evaluate(state.params, train_inputs, model_cfg),
-            *evaluate(state.params, test_inputs, model_cfg))]
+            losses[-1],
+            *evaluate(state.params, train_inputs, model_cfg, train_labels,
+                      train_w),
+            *evaluate(state.params, test_inputs, model_cfg, test_labels,
+                      test_w))]
 
         new_lr = plateau.step(te_aupr)
         for group in state.opt.param_groups:

@@ -6,8 +6,8 @@ Port of ``dream_gnn_tpu/train/stacked.py`` without checkpointing
 sequentially (train.py:500).  At reference dataset scale one fold's step
 is a few hundred small kernels that leave the card mostly idle, so a
 stack of F folds runs each op of the step once over a leading fold axis:
-batched matrix products, one launch of the fold-batched grid decoder
-kernel forward and one backward, the per-fold clip and Adam over stacked
+batched matrix products, one launch of the fold-batched decoder kernel
+forward and one backward (or the plain decoder over the fold axis), the per-fold clip and Adam over stacked
 leaves.  No Python loop over folds runs inside the step.
 
 Randomness.  Each item's params are drawn as the sequential path draws
@@ -42,14 +42,15 @@ from dream_gnn_tpu_torch.data.loader import DreamDataset
 from dream_gnn_tpu_torch.model.dream_gnn import (ModelInputs, forward_stacked,
                                                  init_params, map_params,
                                                  param_leaves)
-from dream_gnn_tpu_torch.sharding.foldstack import stack_folds, tile, tree_map
+from dream_gnn_tpu_torch.sharding.foldstack import (StackedFolds, stack_folds,
+                                                    tile, tree_map)
 from dream_gnn_tpu_torch.train.loop import (IntervalTimer, derive_model_cfg,
                                             fold_generator, fold_seed,
                                             save_params)
 from dream_gnn_tpu_torch.train.losses import total_loss
 from dream_gnn_tpu_torch.train.optim import (PlateauScheduler, StackedAdam,
                                              clip_by_global_norm_per_fold_)
-from dream_gnn_tpu_torch.train.step import run_steps
+from dream_gnn_tpu_torch.train.step import decoder_targets, run_steps
 from dream_gnn_tpu_torch.utils.logging import MetricLogger
 from dream_gnn_tpu_torch.utils.metrics import aupr_masked, auroc_masked
 
@@ -96,22 +97,23 @@ def init_state_stacked(params, generator: torch.Generator,
 
 
 def stacked_loss(params, inputs: ModelInputs, model_cfg: ModelConfig,
-                 train_cfg: TrainConfig,
-                 generator: torch.Generator) -> torch.Tensor:
+                 train_cfg: TrainConfig, generator: torch.Generator,
+                 labels=None, weight=None) -> torch.Tensor:
     """Augment, stacked training forward and the (F,) per-fold losses on
-    the grid targets (labels ``enc_graph.a1``, weights ``enc_graph.mask``
-    of each fold)."""
+    each fold's targets: its edge ``labels`` and ``weight``
+    (``StackedFolds.labels``, ``.edge_weight``) in edges mode, its grid's
+    (``enc_graph.a1``, ``enc_graph.mask``) in grid mode."""
     aug, edge_masks = augment_inputs(generator, inputs, train_cfg.augment,
                                      num_ratings=model_cfg.num_ratings)
     pred, drug_out, drug_sim_out, dis_out, dis_sim_out = forward_stacked(
         params, aug, model_cfg, train=True, generator=generator,
         edge_masks=edge_masks)
-    n_folds = pred.shape[0]
+    pred, labels, weight = decoder_targets(pred, aug, model_cfg, labels,
+                                           weight)
     losses, _ = total_loss(
-        pred.reshape(n_folds, -1), aug.enc_graph.a1.reshape(n_folds, -1),
-        drug_out, drug_sim_out, dis_out, dis_sim_out, beta=train_cfg.beta,
-        smoothing=train_cfg.label_smoothing,
-        weight=aug.enc_graph.mask.reshape(n_folds, -1))
+        pred, labels, drug_out, drug_sim_out, dis_out, dis_sim_out,
+        beta=train_cfg.beta, smoothing=train_cfg.label_smoothing,
+        weight=weight)
     return losses
 
 
@@ -119,13 +121,14 @@ def make_one_step_stacked(model_cfg: ModelConfig, train_cfg: TrainConfig):
     """One iteration of every fold of the stack.  The folds are
     independent, so the gradient of the summed losses is each fold's own
     gradient (stacked.py:69-85 of the JAX package); then the per-fold clip
-    and the per-fold-lr Adam.  ``one_step(state, inputs)`` returns the
-    (F,) losses."""
+    and the per-fold-lr Adam.  ``one_step(state, inputs, labels, weight)``
+    returns the (F,) losses."""
     clip = train_cfg.train_grad_clip
 
-    def one_step(state: StackedState, inputs: ModelInputs) -> torch.Tensor:
+    def one_step(state: StackedState, inputs: ModelInputs, labels=None,
+                 weight=None) -> torch.Tensor:
         losses = stacked_loss(state.params, inputs, model_cfg, train_cfg,
-                              state.generator)
+                              state.generator, labels, weight)
         for p in state.opt.params:
             p.grad = None
         losses.sum().backward()
@@ -139,16 +142,15 @@ def make_one_step_stacked(model_cfg: ModelConfig, train_cfg: TrainConfig):
 
 
 @torch.no_grad()
-def evaluate_stacked(params, inputs: ModelInputs,
+def evaluate_stacked(params, stacked: StackedFolds,
                      model_cfg: ModelConfig) -> torch.Tensor:
     """Eval forward of the stack and each fold's (AUROC, AUPR) over its
-    in-fold cells; returns (F, 2).  The metrics loop over folds: eval runs
-    once an interval, outside the step."""
-    pred, *_ = forward_stacked(params, inputs, model_cfg, train=False)
-    n_folds = pred.shape[0]
-    pred = pred.reshape(n_folds, -1)
-    labels = inputs.enc_graph.a1.reshape(n_folds, -1)
-    weight = inputs.enc_graph.mask.reshape(n_folds, -1)
+    weighted edges (edges mode) or in-fold cells (grid mode); returns
+    (F, 2).  The metrics loop over folds: eval runs once an interval,
+    outside the step."""
+    pred, *_ = forward_stacked(params, stacked.inputs, model_cfg, train=False)
+    pred, labels, weight = decoder_targets(pred, stacked.inputs, model_cfg,
+                                           stacked.labels, stacked.edge_weight)
     return torch.stack([torch.stack([auroc_masked(y, p, w),
                                      aupr_masked(y, p, w)])
                         for y, p, w in zip(labels, pred, weight)])
@@ -217,15 +219,16 @@ def train_stacked_protocol(dataset: DreamDataset, cfg: TrainConfig,
     while done < total_iters:
         chunk = min(cfg.train_valid_interval, total_iters - done)
         timer.start()
-        losses = run_steps(one_step, state, train_stacked.inputs, chunk)
+        losses = run_steps(one_step, state, chunk, train_stacked.inputs,
+                           train_stacked.labels, train_stacked.edge_weight)
         ms = timer.stop(chunk)
         done += chunk
         if chunk != cfg.train_valid_interval:
             break   # trailing partial chunk: the reference never evals there
         metrics = torch.cat([
             losses[-1][:, None],
-            evaluate_stacked(state.params, train_stacked.inputs, model_cfg),
-            evaluate_stacked(state.params, test_stacked.inputs, model_cfg)],
+            evaluate_stacked(state.params, train_stacked, model_cfg),
+            evaluate_stacked(state.params, test_stacked, model_cfg)],
             dim=1).cpu().numpy()                            # (items, 5)
 
         new_lrs = [p.step(float(m[4])) for p, m in zip(plateaus, metrics)]

@@ -6,10 +6,13 @@ loop of eager steps: augment -> dual-route forward -> loss -> backward
 -> clip -> Adam, with the learning rate held by the optimizer so the
 host-side plateau scheduler can change it between intervals.
 
-Grid decode mode: pred is the (n_drug, n_dis) logit grid; the BCE
-targets are the association grid (``enc_graph.a1``) weighted by the
-in-fold cell mask (``enc_graph.mask``) — the same cells and the same
-mean as the candidate edge list.
+Targets.  Edges decode mode: pred is the (E,) logit list of the fold's
+candidate edges; the BCE targets and the metrics take the fold's edge
+labels weighted by its 1/0 edge weights (padding edges weigh 0).  Grid
+decode mode: pred is the (n_drug, n_dis) logit grid; the targets are the
+association grid (``enc_graph.a1``) weighted by the in-fold cell mask
+(``enc_graph.mask``) — the same cells and the same mean as the candidate
+edge list.
 """
 
 from __future__ import annotations
@@ -47,26 +50,40 @@ def init_state(params, generator: torch.Generator,
     return TrainState(params=params, opt=opt, generator=generator)
 
 
-def _grid_targets(inputs: ModelInputs):
-    return (inputs.enc_graph.a1.reshape(-1),
-            inputs.enc_graph.mask.reshape(-1))
+def decoder_targets(pred, inputs: ModelInputs, model_cfg: ModelConfig,
+                    labels=None, weight=None):
+    """(logits, labels, weights) of the loss and the metrics, flat per fold
+    (an optional leading fold axis stays).  Grid mode takes the grid's
+    targets from ``inputs.enc_graph``; edges mode needs the edge list's
+    ``labels`` and ``weight``."""
+    if model_cfg.decode_mode == "grid":
+        return (pred.flatten(-2), inputs.enc_graph.a1.flatten(-2),
+                inputs.enc_graph.mask.flatten(-2))
+    if labels is None or weight is None:
+        raise ValueError("decode_mode='edges' needs the edge labels and "
+                         "weights")
+    return pred, labels, weight
 
 
 def make_one_step(model_cfg: ModelConfig, train_cfg: TrainConfig):
     """Single iteration: augment -> forward -> loss -> grads -> Adam.
-    ``one_step(state, inputs)`` returns the loss (a device scalar)."""
+    ``one_step(state, inputs, labels, weight)`` returns the loss (a device
+    scalar); ``labels`` and ``weight`` are the edge list's, which grid mode
+    does not need."""
     augment = train_cfg.augment
 
-    def one_step(state: TrainState, inputs: ModelInputs) -> torch.Tensor:
+    def one_step(state: TrainState, inputs: ModelInputs, labels=None,
+                 weight=None) -> torch.Tensor:
         aug_inputs, edge_masks = augment_inputs(
             state.generator, inputs, augment,
             num_ratings=model_cfg.num_ratings)
         pred, drug_out, drug_sim_out, dis_out, dis_sim_out = forward(
             state.params, aug_inputs, model_cfg, train=True,
             generator=state.generator, edge_masks=edge_masks)
-        labels, weight = _grid_targets(aug_inputs)
+        pred, labels, weight = decoder_targets(pred, aug_inputs, model_cfg,
+                                               labels, weight)
         loss, _ = total_loss(
-            pred.reshape(-1), labels, drug_out, drug_sim_out, dis_out,
+            pred, labels, drug_out, drug_sim_out, dis_out,
             dis_sim_out, beta=train_cfg.beta,
             smoothing=train_cfg.label_smoothing, weight=weight)
         state.opt.zero_grad()
@@ -83,19 +100,21 @@ def make_one_step(model_cfg: ModelConfig, train_cfg: TrainConfig):
 
 
 @torch.no_grad()
-def evaluate(params, inputs: ModelInputs, model_cfg: ModelConfig):
+def evaluate(params, inputs: ModelInputs, model_cfg: ModelConfig,
+             labels=None, weight=None):
     """Eval forward (dropout off) and on-device (AUROC, AUPR) over the
-    in-fold cells of ``inputs.enc_graph``.  Parity trap §7.3.1: the
-    caller passes the *test* encoder graph for test-set evaluation."""
+    weighted edges (edges mode) or the in-fold cells of ``inputs.enc_graph``
+    (grid mode).  Parity trap §7.3.1: the caller passes the *test* encoder
+    graph for test-set evaluation."""
     pred, *_ = forward(params, inputs, model_cfg, train=False)
-    labels, weight = _grid_targets(inputs)
-    pred = pred.reshape(-1)
+    pred, labels, weight = decoder_targets(pred, inputs, model_cfg, labels,
+                                           weight)
     return auroc_masked(labels, pred, weight), aupr_masked(labels, pred,
                                                            weight)
 
 
-def run_steps(one_step, state: TrainState, inputs: ModelInputs,
-              n_steps: int) -> torch.Tensor:
-    """``n_steps`` training iterations; returns their losses (n_steps,)."""
-    return torch.stack([one_step(state, inputs) for _ in range(n_steps)])
+def run_steps(one_step, state, n_steps: int, *args) -> torch.Tensor:
+    """``n_steps`` iterations of ``one_step(state, *args)``; returns their
+    losses stacked on a leading axis."""
+    return torch.stack([one_step(state, *args) for _ in range(n_steps)])
 

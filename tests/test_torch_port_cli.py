@@ -1,12 +1,14 @@
 """The port's CLI on the CPU (``--device -1``): a smoke run writes the CSV
 artifacts that tests/test_train_smoke.py pins for the JAX package, in
-sequence and with ``--fold_parallel`` / ``--seed_parallel``, the flag
-surface matches the JAX CLI, parts not ported yet raise, and a card that
-is not there is an error."""
+sequence and with ``--fold_parallel`` / ``--seed_parallel``, in grid and
+edges decode mode and with either decoder backend, the flag surface
+matches the JAX CLI, parts not ported yet raise, and a card that is not
+there is an error."""
 
 import os
 
 import jax  # noqa: F401
+import numpy as np
 import pytest
 import torch
 
@@ -52,7 +54,6 @@ def test_cli_save_model_writes_params(tiny_preset, tmp_path):
           "--folds", "0", "--train_max_iter", "3",
           "--train_valid_interval", "2", "--save_model",
           "--save_dir", str(tmp_path), *SMALL])
-    import numpy as np
     with np.load(tmp_path / "seed_1" / "best_model_fold1.npz") as f:
         assert "tgcn.0.basis" in f.files and "decoder.w2" in f.files
 
@@ -100,9 +101,41 @@ def test_cli_stacked_writes_per_fold_artifacts(tiny_preset, tmp_path, capsys,
 
 
 @pytest.mark.parametrize("flags", [
+    ["--decode_mode", "edges"], ["--decode_mode", "edges", "--fold_parallel"],
+    ["--decoder_backend", "xla"],
+    ["--decoder_backend", "xla", "--decode_mode", "edges",
+     "--fold_parallel"],
+    ["--decode_mode", "edges", "--seed_parallel", "--seeds", "77", "78"]])
+def test_cli_decode_paths_write_artifacts(tiny_preset, tmp_path, capsys,
+                                          flags):
+    """The edges decode mode, in sequence, fold-parallel and seed-parallel
+    (two seeds' stacks tiled, CSR orderings included), and the plain
+    decoder backend write the CSV contract with finite metrics."""
+    save_dir = str(tmp_path)
+    summary = main(["--data_name", tiny_preset, "--device", "-1",
+                    "--seeds", "77", "--folds", "0", "1",
+                    "--train_max_iter", "5", "--train_valid_interval", "2",
+                    "--save_dir", save_dir, *flags, *SMALL])
+    assert "Test: AUROC=" in capsys.readouterr().out
+    seed_dir = os.path.join(save_dir, "seed_77")
+    for cv in (1, 2):
+        with open(os.path.join(seed_dir, f"test_metric{cv}.csv")) as f:
+            lines = f.read().strip().split("\n")
+        assert lines[0] == ("iter,loss,train_auroc,train_aupr,test_auroc,"
+                            "test_aupr")
+        assert [int(x.split(",")[0]) for x in lines[1:]] == [2, 4]
+        assert all(np.isfinite(float(v)) for x in lines[1:]
+                   for v in x.split(","))
+        assert os.path.exists(os.path.join(seed_dir, f"best_metric{cv}.csv"))
+    with open(os.path.join(seed_dir, "experiment_results.csv")) as f:
+        assert len(f.read().strip().split("\n")) == 4
+    assert os.path.exists(os.path.join(save_dir, "summary_results.csv"))
+    assert 0.0 <= summary["mean_auroc"] <= 1.0
+
+
+@pytest.mark.parametrize("flags", [
     ["--resume"], ["--resume", "--fold_parallel"],
     ["--checkpoint_every", "250"], ["--generate_top_predictions"],
-    ["--decode_mode", "edges"], ["--decoder_backend", "xla"],
     ["--data_path", "x.mat"], ["--profile_dir", "trace"]])
 def test_unported_flags_raise(flags):
     with pytest.raises(NotImplementedError, match="ROADMAP.md queue A"):

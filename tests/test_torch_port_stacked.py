@@ -1,7 +1,8 @@
 """The port's fold-parallel protocol against the JAX package and against
 the port's own sequential path: ``stack_folds``, ``forward_stacked``, the
 stacked step with its per-fold clip and per-fold learning rate, the
-stacked protocol's artifacts, ``--seed_parallel``, and the stacked draws.
+stacked protocol's artifacts, ``--seed_parallel``, and the stacked draws,
+in grid mode (edges mode: tests/test_torch_port_stacked_edges.py).
 
 F = 3 folds throughout, with widths and node counts that are all other
 than 3 (tests/_torch_port_setup.py), so a per-fold bias or lr that
@@ -48,6 +49,7 @@ from dream_gnn_tpu_torch.config import TrainConfig as TTrain
 from dream_gnn_tpu_torch.convert import params_from_jax
 from dream_gnn_tpu_torch.data.loader import DreamDataset as TDataset
 from dream_gnn_tpu_torch.data.synthetic import synthetic_raw_data as t_raw
+from dream_gnn_tpu_torch.kernels.edge_decoder import edge_csr
 from dream_gnn_tpu_torch.model.dream_gnn import forward, forward_stacked
 from dream_gnn_tpu_torch.model.dream_gnn import param_leaves
 from dream_gnn_tpu_torch.nn.dropout import dropout
@@ -108,7 +110,8 @@ def _j_stacked_params(jcfg):
 
 def _leaves_equal(port_tree, jax_tree, what):
     """Every tensor of a port dataclass tree equals the JAX array of the
-    same field: shape, dtype and values."""
+    same field: shape, dtype and values.  ``dec_csr``, the port's index
+    preparation for its edge kernel, has no JAX field."""
     if port_tree is None:
         assert jax_tree is None, what
         return
@@ -118,8 +121,9 @@ def _leaves_equal(port_tree, jax_tree, what):
         np.testing.assert_array_equal(a, b, err_msg=what)
         return
     for f in dataclasses.fields(port_tree):
-        _leaves_equal(getattr(port_tree, f.name), getattr(jax_tree, f.name),
-                      f"{what}.{f.name}")
+        if f.name != "dec_csr":
+            _leaves_equal(getattr(port_tree, f.name),
+                          getattr(jax_tree, f.name), f"{what}.{f.name}")
 
 
 @pytest.mark.parametrize("side", ["train", "test"])
@@ -135,6 +139,11 @@ def test_stack_folds_equal_jax(preset, side):
     ref = j_stack_folds(jds, FOLDS, side=side)
     assert ours.n_folds == F
     _leaves_equal(ours, ref, f"{preset}/{side}")
+    csr = edge_csr(ours.inputs.dec_src, ours.inputs.dec_dst, tds.n_drug,
+                   tds.n_dis)
+    for name in ("src_perm", "src_off", "dst_perm", "dst_off"):
+        assert torch.equal(getattr(ours.inputs.dec_csr, name),
+                           getattr(csr, name)), name
     if side == "test":
         train = stack_folds(tds, FOLDS, side="train")
         for i, cv in enumerate(FOLDS):
@@ -172,14 +181,15 @@ def test_forward_stacked_matches_jax(data, dtype, side):
                 _close(a[f], b, 1e-5, 1e-6, f"fold {f} {name}")
 
 
-def _steps_setup(data):
+def _steps_setup(data, **overrides):
     """fp32 configs with randomness off, JAX stacked params whose fold 1
     has its decoder output weights scaled up, and a clip between fold 1's
     initial gradient norm and the other folds' norms."""
     jds, tds = data
     jtrain, ttrain = JTrain(augment=JAug(methods=())), \
         TTrain(augment=TAug(methods=()))
-    jcfg, tcfg = model_cfgs(jds, tds, jtrain, ttrain, **NO_RANDOMNESS)
+    jcfg, tcfg = model_cfgs(jds, tds, jtrain, ttrain,
+                            **dict(NO_RANDOMNESS, **overrides))
     jparams = _j_stacked_params(jcfg)
     jparams["decoder"]["w3"] = jparams["decoder"]["w3"].at[1].multiply(30.0)
     np_params = numpy_tree(jparams)
@@ -188,9 +198,9 @@ def _steps_setup(data):
     leaves = param_leaves(tparams)
     for p in leaves:
         p.requires_grad_(True)
-    tin = stack_folds(tds, FOLDS).inputs
-    stacked_loss(tparams, tin, tcfg, ttrain, torch.Generator()).sum() \
-        .backward()
+    stack = stack_folds(tds, FOLDS)
+    stacked_loss(tparams, stack.inputs, tcfg, ttrain, torch.Generator(),
+                 stack.labels, stack.edge_weight).sum().backward()
     norms = _np(global_norm_per_fold([p.grad for p in leaves]))
     top = np.sort(norms)
     clip = float(np.sqrt(top[-1] * top[-2]))
@@ -204,7 +214,12 @@ def _steps_setup(data):
 def test_stacked_steps_match_jax(data, n_steps):
     """n stacked steps against JAX make_one_step_stacked: per-fold
     learning rates, and fold 1 alone over the clip at the first step."""
-    jds, tds, jcfg, tcfg, np_params, jtrain, ttrain = _steps_setup(data)
+    _check_stacked_steps(data, n_steps)
+
+
+def _check_stacked_steps(data, n_steps, **overrides):
+    jds, tds, jcfg, tcfg, np_params, jtrain, ttrain = _steps_setup(
+        data, **overrides)
 
     init_j, run_steps_j, _ = make_stacked_train_fns(jcfg, jtrain)
     keys = jnp.stack([jax.random.fold_in(jax.random.key(0), cv)
@@ -223,8 +238,9 @@ def test_stacked_steps_match_jax(data, n_steps):
                                torch.Generator(), ttrain)
     state.opt.lr.copy_(torch.tensor(LRS))
     one_step = make_one_step_stacked(tcfg, ttrain)
-    tin = stack_folds(tds, FOLDS).inputs
-    tlosses = [_np(one_step(state, tin)) for _ in range(n_steps)]
+    tr = stack_folds(tds, FOLDS)
+    tlosses = [_np(one_step(state, tr.inputs, tr.labels, tr.edge_weight))
+               for _ in range(n_steps)]
     np.testing.assert_allclose(np.stack(tlosses), np.stack(jlosses),
                                rtol=1e-5)
 
@@ -305,8 +321,8 @@ def test_losses_are_per_fold(data, rng):
     assert torch.equal(moved[1:], losses[1:])
 
 
-def _cfg(**kw):
-    model = TModel(**dict(SMALL_MODEL, **NO_RANDOMNESS))
+def _cfg(model_kw=(), **kw):
+    model = TModel(**dict(SMALL_MODEL, **NO_RANDOMNESS, **dict(model_kw)))
     return TTrain(model=model, augment=TAug(methods=()), train_max_iter=11,
                   train_valid_interval=5, **kw)
 
@@ -332,8 +348,12 @@ def test_stacked_protocol_matches_sequential(data, tmp_path):
     sequential port run of that fold (same initial params, drawn from
     fold_generator(seed, cv)): CSV columns and best metrics within 2e-4,
     and the same files."""
+    _check_protocol_matches_sequential(data, tmp_path, _cfg())
+
+
+def _check_protocol_matches_sequential(data, tmp_path, cfg):
     _, tds = data
-    cfg, seed = _cfg(), 123
+    seed = 123
     seq_dir, par_dir = tmp_path / "seq", tmp_path / "par"
     seq = [train_fold(tds, cv, cfg, fold_generator(seed, cv, "cpu"),
                       save_dir=str(seq_dir), save_id=cv + 1, verbose=False)
