@@ -43,10 +43,23 @@ Phases, each of which fails the run if it fails:
     and the kernels that take the device's time;
 13. the same profile of ten stacked steps of the 10 folds, whose kernels
     per step must stay within twice the sequential step's;
-14-15. the profiles of 12 and 13 in edges mode.
+14-15. the profiles of 12 and 13 in edges mode;
+16. the scale path's kernels against their plain versions at its shapes
+    (the planted 100k x 100k problem of ``train.scale``: the ~9M-edge
+    rating-0 and ~1M-edge rating-1 relations, forward and transposed,
+    d = 128; 1M candidates over the 100k-row tables), fp32 and bf16,
+    dropout 0 and 0.3, every output within a stated tolerance, two launches
+    the same bits, the bf16 control; then each kernel's time beside its
+    bound, its plain version's and one PyTorch call's where there is one;
+17. the scale model's eval forward on the card (kernels) against the CPU
+    (plain versions) at 10k x 10k nodes, 1M edges, 100k candidates;
+18. the scale trainer through ``train.scale`` at full size, 20 steps with an
+    eval every 10: ms/step, peak memory, the layout build time and the
+    launch counts the path implies;
+19. a profile of ten scale training steps.
 
-Each trainer phase sets every launch count to 0 just before it drives the
-CLI and reads the counts just after.
+Each trainer phase sets every launch count to 0 just before it drives its
+entry point and reads the counts just after.
 
 The line before the last is the JSON kernel table; the last line is
 ``{"ok": true, "device": {...}}``.  Without a CUDA device the script exits
@@ -561,18 +574,23 @@ def phase_model():
                                  f"with the CPU")
 
 
-def _launches():
+def _counters():
     from dream_gnn_tpu_torch.kernels import edge_decoder as ed
     from dream_gnn_tpu_torch.kernels import grid_decoder as gd
+    from dream_gnn_tpu_torch.kernels import scale_decoder as sd
+    from dream_gnn_tpu_torch.kernels import seq_scatter as sq
+    from dream_gnn_tpu_torch.kernels import spmm_slab as sp
 
-    return {"grid": dict(gd.LAUNCHES), "edge": dict(ed.LAUNCHES)}
+    return {"grid": gd.LAUNCHES, "edge": ed.LAUNCHES, "spmm": sp.LAUNCHES,
+            "seq": sq.LAUNCHES, "scale": sd.LAUNCHES}
+
+
+def _launches():
+    return {mod: dict(counts) for mod, counts in _counters().items()}
 
 
 def _zero_launches():
-    from dream_gnn_tpu_torch.kernels import edge_decoder as ed
-    from dream_gnn_tpu_torch.kernels import grid_decoder as gd
-
-    for counts in (gd.LAUNCHES, ed.LAUNCHES):
+    for counts in _counters().values():
         for k in counts:
             counts[k] = 0
 
@@ -618,16 +636,16 @@ def _run_trainer(label: str, flags, n_folds: int, n_intervals: int = 2):
 
 def _expect_launches(launches, module: str, kinds, label: str):
     """Every ``kinds`` count of ``module`` launched; every other count of
-    either module is 0."""
+    every module is 0."""
     for mod, counts in launches.items():
         for k, n in counts.items():
             if mod == module and k in kinds:
                 if n <= 0:
-                    raise AssertionError(f"{mod} decoder {k} never launched "
+                    raise AssertionError(f"{mod} kernel {k} never launched "
                                          f"on the {label} path")
             elif n:
                 raise AssertionError(f"the {label} path launched the {mod} "
-                                     f"decoder's {k} kernel")
+                                     f"kernel {k}")
 
 
 def _print_stacked_ms(summary):
@@ -784,6 +802,400 @@ def phase_profile_stacked(path, seq_kernels: float, n_steps: int = 10):
           f"{seq_kernels:.0f}")
 
 
+# ---------------------------------------------------------------------------
+# The single-device scale path (dream_gnn_tpu_torch/train/scale.py).
+
+SCALE_N = 100_000            # train.scale's drugs and diseases at full size
+# Tolerance on max|kernel - plain| / max|plain| for the scale kernels.  Each
+# kernel and its plain version compute the same messages and the same MLP
+# with the same roundings, and differ in the order of their f32 sums (the
+# plain SpMM's index_add runs in no fixed order on the card).  The largest
+# error measured on the H100 was below 2e-6 (PERF.md).
+SCALE_TOL = 1e-4
+# Operations per candidate slot of the decoder MLP (H1 = 128, H2 = 64):
+# forward: the a2 product, a1 and the logit dot; B1: the recomputed forward,
+# the dh1 and dW2 products, g * w3 and the db2, dw3, db1 sums; the mirror:
+# the recomputed forward, the dh1 product, g * w3 and the da1 mask.
+OPS_K2 = 2 * 128 * 64 + 2 * 128 + 2 * 64
+OPS_B1 = OPS_K2 + 2 * (2 * 128 * 64) + 4 * 64 + 3 * 128
+OPS_MIRROR = OPS_K2 + 2 * 128 * 64 + 2 * 64 + 128
+
+
+def _nbytes(*tensors) -> int:
+    return sum(t.numel() * t.element_size() for t in tensors if t is not None)
+
+
+def _scale_row(name, replaces, err, ms, plain_ms, nbytes, flops, dtype,
+               library_ms=None, library="no single PyTorch call computes "
+                                         "this function"):
+    """A kernel-table row for a scale kernel: the bound is the larger of
+    ``nbytes`` over the memory rate and ``flops`` over the peak for
+    ``dtype``."""
+    t_bytes = nbytes / PEAK_BYTES_S * 1e3
+    t_ops = flops / PEAK_FLOPS_S[dtype] * 1e3
+    bound, by = (t_ops, "operations") if t_ops >= t_bytes \
+        else (t_bytes, "bytes")
+    src = "spmm" if name in ("spmm_slab", "seq_scatter") else "scale_decoder"
+    print(f"  {name}: {ms:.4f} ms, bound {bound:.5f} ms ({by}; "
+          f"{nbytes / 1e6:.1f} MB, {flops / 1e9:.3f} GFLOP), plain "
+          f"{plain_ms:.4f} ms, "
+          + (library if library_ms is None
+             else f"{library}: {library_ms:.4f} ms"))
+    return dict(name=name, route="cuda",
+                source=f"dream_gnn_tpu_torch/kernels/csrc/{src}.cu",
+                replaces=f"dream_gnn_tpu/kernels/{replaces}", launches=0,
+                max_abs_err=err, ms=ms, plain_ms=plain_ms, bound_ms=bound,
+                bound_by=by, library_ms=library_ms)
+
+
+def _hold(label, pairs, tol=SCALE_TOL) -> float:
+    """Hold (name, kernel, plain) outputs to ``tol``; returns the largest
+    absolute error."""
+    worst = 0.0
+    for name, a, b in pairs:
+        if a.shape != b.shape or a.dtype != b.dtype:
+            raise AssertionError(f"{label} {name}: {a.dtype} {tuple(a.shape)}"
+                                 f" != {b.dtype} {tuple(b.shape)}")
+        a, b = a.float(), b.float()
+        abs_err = float((a - b).abs().max())
+        rel = abs_err / max(float(b.abs().max()), 1e-30)
+        ok = rel <= tol and bool(torch.isfinite(a).all())
+        print(f"  {label} {name:6s} max_abs_err={abs_err:.3e} rel={rel:.3e} "
+              f"tol={tol:.0e} {'ok' if ok else 'FAIL'}")
+        if not ok:
+            raise AssertionError(f"{label} {name} disagrees with the plain "
+                                 f"version")
+        worst = max(worst, abs_err)
+    return worst
+
+
+def _scale_problem():
+    """train.scale's planted problem at full size (numpy, on the host) and
+    its training inputs on the card."""
+    from dream_gnn_tpu_torch.train import scale
+
+    t0 = time.perf_counter()
+    prob = scale.build_problem(np.random.default_rng(scale.SEED))
+    t1 = time.perf_counter()
+    tin, _, lab, _, w, _, layout_s = scale.build_inputs(
+        prob, SCALE_N, SCALE_N, torch.device("cuda", 0))
+    print(f"== scale problem: {t1 - t0:.1f} s on the host (numpy); encoder "
+          f"graph and both decoder layouts on the card in {layout_s:.3f} s")
+    return tin, lab, w
+
+
+def _spmm_rows(graph, dev):
+    """Row 9: the SpMM over both relations of each rating, forward and
+    transposed, fp32 and bf16, edge dropout 0 and 0.3."""
+    from dream_gnn_tpu_torch.augment.masks import prf_mask_pair
+    from dream_gnn_tpu_torch.kernels import spmm_slab as sp
+
+    gen = torch.Generator(device=dev).manual_seed(1)
+    err = 0.0
+    for r, pair in enumerate(graph.fwd):
+        for rate in (0.0, 0.3):
+            p = prf_mask_pair(pair, 12345, rate) if rate else pair
+            for kind, g in (("fwd", p.fwd), ("bwd", p.bwd)):
+                x = torch.randn(g.n_src, 128, device=dev, generator=gen)
+                for dtype in (torch.float32, torch.bfloat16):
+                    rnd, xr = dtype == torch.bfloat16, x.to(dtype)
+                    out = sp.launch_segment_sum(g.row_ptr, g.src, g.val, xr,
+                                                rnd)
+                    ref = sp.segment_sum_plain(g.row_ptr, g.src, g.val, xr,
+                                               rnd)
+                    err = max(err, _hold(
+                        f"spmm rating {r} {kind} E={g.n_live} "
+                        f"{str(dtype)[6:]} rate={rate}", [("out", out, ref)]))
+                    again = sp.launch_segment_sum(g.row_ptr, g.src, g.val, xr,
+                                                  rnd)
+                    if not torch.equal(out, again):
+                        raise AssertionError("two SpMM launches differ")
+                    del ref
+    # Control: without the bf16 rounding the SpMM misses the bf16 tolerance.
+    g = graph.fwd[0].fwd
+    x = torch.randn(g.n_src, 128, device=dev, generator=gen)
+    ref = sp.segment_sum_plain(g.row_ptr, g.src, g.val, x.bfloat16(), True)
+    out = sp.launch_segment_sum(g.row_ptr, g.src, g.val, x, False)
+    rel = float((out - ref).abs().max()) / float(ref.abs().max())
+    print(f"  control: fp32 SpMM vs bf16 plain rel={rel:.3e}")
+    if rel <= SCALE_TOL:
+        raise AssertionError("control: the SpMM without bf16 rounding passes "
+                             "the bf16 tolerance")
+    print("  SpMM: two launches give identical bits; times in bf16 (the "
+          "path's dtype):")
+    t = {}
+    for r, pair in enumerate(graph.fwd):
+        for kind in ("fwd", "bwd"):
+            g = getattr(pair, kind)
+            x = torch.randn(g.n_src, 128, device=dev).bfloat16()
+            t[r, kind] = _time_ms(lambda g=g, x=x: sp.launch_segment_sum(
+                g.row_ptr, g.src, g.val, x, True))
+            print(f"    rating {r} {kind}: E={g.n_live}, {g.n_src} -> "
+                  f"{g.n_dst} rows: {t[r, kind]:.4f} ms")
+    g = graph.fwd[0].fwd
+    x = torch.randn(g.n_src, 128, device=dev).bfloat16()
+    with torch.no_grad():
+        plain_ms = _time_ms(lambda: sp.segment_sum_plain(
+            g.row_ptr, g.src, g.val, x, True), reps=3)
+    csr = torch.sparse_csr_tensor(g.row_ptr, g.src, g.val,
+                                  size=(g.n_dst, g.n_src))
+    xf = x.float()
+    lib = torch.sparse.mm(csr, xf)
+    ours = sp.launch_segment_sum(g.row_ptr, g.src, g.val, x, False)
+    print(f"  torch.sparse.mm (CSR, f32) vs the kernel without rounding: "
+          f"rel={float((lib - ours).abs().max()) / float(ours.abs().max()):.3e}")
+    lib_ms = _time_ms(lambda: torch.sparse.mm(csr, xf))
+    nbytes = _nbytes(g.row_ptr, g.src, g.val, x) + g.n_dst * 128 * 4
+    return _scale_row("spmm_slab", "pallas_spmm_slab.py:61", err,
+                      t[0, "fwd"], plain_ms, nbytes, 2 * g.n_live * 128,
+                      torch.bfloat16, lib_ms,
+                      "torch.sparse.mm on the CSR in f32")
+
+
+def _seq_row(layout, dev):
+    """Row 12: the scatter of a (1M, 128) da1 stream into the drug table.
+    The scale layout's slots carry no weights (``g.val`` is None): the
+    kernel reads no ``val``, as on the path."""
+    from dream_gnn_tpu_torch.kernels import spmm_slab as sp
+
+    g = layout.seq_drug
+    if g.val is not None:
+        raise AssertionError("the scale layout's scatter should carry no "
+                             "slot weights")
+    val = None
+    err = 0.0
+    for x_dtype in (torch.float32, torch.bfloat16):
+        x = torch.randn(g.n_slots, 128, device=dev).to(x_dtype)
+        for dtype in (torch.float32, torch.bfloat16):
+            rnd = dtype == torch.bfloat16
+            out = sp.launch_segment_sum(g.offsets, None, val, x, rnd)
+            ref = sp.segment_sum_plain(g.offsets, None, val, x, rnd)
+            err = max(err, _hold(f"seq_scatter x {str(x_dtype)[6:]} mode "
+                                 f"{str(dtype)[6:]}", [("out", out, ref)]))
+            if not torch.equal(out, sp.launch_segment_sum(g.offsets, None,
+                                                          val, x, rnd)):
+                raise AssertionError("two seq_scatter launches differ")
+    x = torch.randn(g.n_slots, 128, device=dev).bfloat16()
+    ms = _time_ms(lambda: sp.launch_segment_sum(g.offsets, None, val, x, True))
+    with torch.no_grad():
+        plain_ms = _time_ms(lambda: sp.segment_sum_plain(
+            g.offsets, None, val, x, True), reps=3)
+    node, xf = layout.drug_of_slot.long(), x.float()
+    out = torch.zeros(g.n_dst, 128, device=dev)
+    lib_ms = _time_ms(lambda: out.zero_().index_add_(0, node, xf))
+    nbytes = _nbytes(g.offsets, val, x) + g.n_dst * 128 * 4
+    return _scale_row("seq_scatter", "pallas_seq_scatter.py:144", err, ms,
+                      plain_ms, nbytes, g.n_slots * 128, torch.bfloat16,
+                      lib_ms, "index_add_ in f32")
+
+
+def _decoder_rows(layout, dev):
+    """Rows 13-15: K2, B1 and the mirror over 1M candidates and the
+    100k-row tables, fp32 and bf16, dropout 0 and 0.3."""
+    from dream_gnn_tpu_torch.kernels import scale_decoder as sd
+
+    rng = np.random.default_rng(2)
+
+    def t(x):
+        return torch.tensor(np.asarray(x, np.float32), device=dev)
+
+    pd, pv = t(rng.normal(0, 0.5, (SCALE_N, 128))), \
+        t(rng.normal(0, 0.5, (SCALE_N, 128)))
+    b1, w2 = t(rng.uniform(-.06, .06, 128)), t(rng.uniform(-.09, .09,
+                                                             (128, 64)))
+    b2, w3 = t(rng.uniform(-.09, .09, 64)), t(rng.uniform(-.12, .12, 64))
+    seed = torch.tensor([918273], dtype=torch.int32, device=dev)
+    g = t(rng.normal(0, 1e-3, layout.n_pos))
+    g_m = g[layout.gout_perm.long()]
+    fwd = (layout.drug_of_slot, layout.dis_of_slot, layout.fwd_eid)
+    mir = (layout.drug_of_mslot, layout.dis_of_mslot, layout.mirror_eid)
+
+    def run(kernel, rate, dtype):
+        common = (w2, b2, w3, seed, rate, True, dtype)
+        if kernel:
+            out, a1 = sd.launch_k2(pd, pv, b1, w2, b2, w3, *fwd, seed, rate,
+                                   True, dtype, True)
+            return (out, a1, *sd.launch_b1(a1, pd, pv, layout, g, b1,
+                                           *common),
+                    sd.launch_mirror(pd, pv, layout, g_m, b1, *common))
+        out, a1 = sd.scale_fwd_plain(pd, pv, b1, w2, b2, w3, *fwd, seed,
+                                     rate, True, dtype, True)
+        return (out, a1, *sd.scale_bwd_plain(a1, pd, pv, *fwd, g, b1, *common,
+                                             True),
+                sd.scale_bwd_plain(None, pd, pv, *mir, g_m, b1, *common,
+                                   False))
+
+    names = ("logits", "a1", "da1", "dW2", "db2", "dw3", "db1", "da1_m")
+    err = {"k2": 0.0, "b1": 0.0, "mirror": 0.0}
+    for dtype in (torch.float32, torch.bfloat16):
+        for rate in (0.0, 0.3):
+            got, want = run(True, rate, dtype), run(False, rate, dtype)
+            torch.cuda.synchronize()
+            label = f"scale {str(dtype)[6:]} rate={rate}"
+            err["k2"] = max(err["k2"], _hold(label, zip(names[:2], got[:2],
+                                                         want[:2])))
+            err["b1"] = max(err["b1"], _hold(label, zip(names[2:7], got[2:7],
+                                                         want[2:7])))
+            err["mirror"] = max(err["mirror"], _hold(label, [
+                (names[7], got[7], want[7])]))
+            del got, want
+    for rate in (0.0, 0.3):
+        got = run(True, rate, torch.float32)
+        want = run(False, rate, torch.bfloat16)
+        for i in (0, 2, 7):
+            a, b = got[i].float(), want[i].float()
+            rel = float((a - b).abs().max()) / float(b.abs().max())
+            print(f"  control fp32 scale kernels vs bf16 plain rate={rate} "
+                  f"{names[i]:6s} rel={rel:.3e}")
+            if rel <= SCALE_TOL:
+                raise AssertionError(f"control: {names[i]} without bf16 "
+                                     f"rounding passes the bf16 tolerance")
+        del got, want
+    a, b = run(True, 0.3, torch.bfloat16), run(True, 0.3, torch.bfloat16)
+    if not all(torch.equal(x, y) for x, y in zip(a, b)):
+        raise AssertionError("two runs of the scale kernels differ")
+    print("  scale kernels: two runs give identical bits")
+    del a, b
+
+    dtype, rate = torch.bfloat16, 0.3
+    out, a1 = sd.launch_k2(pd, pv, b1, w2, b2, w3, *fwd, seed, rate, True,
+                           dtype, True)
+    common = (w2, b2, w3, seed, rate, True, dtype)
+    da1 = sd.launch_b1(a1, pd, pv, layout, g, b1, *common)[0]
+    weights = (b1, w2, b2, w3, seed)
+    ms = {"k2": _time_ms(lambda: sd.launch_k2(pd, pv, b1, w2, b2, w3, *fwd,
+                                                seed, rate, True, dtype,
+                                                True)),
+          "b1": _time_ms(lambda: sd.launch_b1(a1, pd, pv, layout, g, b1,
+                                                *common)),
+          "mirror": _time_ms(lambda: sd.launch_mirror(pd, pv, layout, g_m,
+                                                        b1, *common))}
+    with torch.no_grad():
+        plain = {"k2": _time_ms(lambda: sd.scale_fwd_plain(
+                     pd, pv, b1, w2, b2, w3, *fwd, seed, rate, True, dtype,
+                     True), reps=3),
+                 "b1": _time_ms(lambda: sd.scale_bwd_plain(
+                     a1, pd, pv, *fwd, g, b1, *common, True), reps=3),
+                 "mirror": _time_ms(lambda: sd.scale_bwd_plain(
+                     None, pd, pv, *mir, g_m, b1, *common, False), reps=3)}
+    e = layout.n_pos
+    return [
+        _scale_row("scale_decoder_k2", "pallas_scale_decoder.py:460",
+                   err["k2"], ms["k2"], plain["k2"],
+                   _nbytes(pd, pv, *fwd, *weights, out, a1), OPS_K2 * e,
+                   dtype),
+        _scale_row("scale_decoder_b1", "pallas_scale_decoder.py:579",
+                   err["b1"], ms["b1"], plain["b1"],
+                   _nbytes(a1, fwd[2], g, *weights, da1)
+                   + _nbytes(w2, b1, b2, w3),          # the weight gradients
+                   OPS_B1 * e, dtype),
+        _scale_row("scale_decoder_mirror", "pallas_scale_decoder.py:679",
+                   err["mirror"], ms["mirror"], plain["mirror"],
+                   _nbytes(pd, pv, *mir, g_m, *weights, da1), OPS_MIRROR * e,
+                   dtype)]
+
+
+def phase_scale_kernels(tin):
+    """Rows 9 and 12-15 at the scale path's shapes; returns their table
+    rows without launches."""
+    dev = torch.device("cuda", 0)
+    graph, layout = tin.enc_graph, tin.dec_layout
+    print(f"== scale kernels vs plain: relations of "
+          f"{[p.fwd.n_live for p in graph.fwd]} edges over {SCALE_N} x "
+          f"{SCALE_N} nodes, d 128; {layout.n_pos} candidates")
+    rows = [_spmm_rows(graph, dev), _seq_row(layout, dev)]
+    torch.cuda.empty_cache()
+    return rows + _decoder_rows(layout, dev)
+
+
+def phase_scale_profile(tin, lab, w, n_steps: int = 10):
+    """Where a scale training step's time goes."""
+    from dream_gnn_tpu_torch.config import TrainConfig
+    from dream_gnn_tpu_torch.model.dream_gnn import init_params
+    from dream_gnn_tpu_torch.train.scale import model_config
+    from dream_gnn_tpu_torch.train.step import init_state, make_one_step
+
+    print(f"== profile: {n_steps} scale training steps at full size")
+    mcfg = model_config()
+    cfg = TrainConfig(model=mcfg, beta=0.0)
+    gen = torch.Generator(device="cuda:0").manual_seed(0)
+    state = init_state(init_params(gen, mcfg), gen, cfg)
+    step = make_one_step(mcfg, cfg)
+    _profile("scale step", lambda: step(state, tin, lab, w), n_steps)
+
+
+def phase_scale_model():
+    """The scale model's eval forward, card vs CPU, at 10k x 10k nodes, 1M
+    encoder edges and 100k candidates."""
+    from dream_gnn_tpu_torch.model.dream_gnn import (forward, init_params,
+                                                     map_params)
+    from dream_gnn_tpu_torch.train import scale
+
+    n, n_enc, n_cand = 10_000, 1_000_000, 100_000
+    print(f"== scale model eval forward, card vs CPU: {n} x {n} nodes, "
+          f"{n_enc} edges, {n_cand} candidates")
+    prob = scale.build_problem(np.random.default_rng(7), n_drug=n, n_dis=n,
+                               n_enc=n_enc, n_cand=n_cand)
+    cfg = scale.model_config()
+    params = init_params(torch.Generator().manual_seed(0), cfg)
+    outs = {}
+    for dev in ("cpu", "cuda:0"):
+        tin, *_ = scale.build_inputs(prob, n, n, torch.device(dev))
+        with torch.no_grad():
+            pred, *_ = forward(map_params(lambda x: x.to(dev), params), tin,
+                               cfg, train=False)
+        outs[dev] = pred.cpu()
+    a, b = outs["cuda:0"], outs["cpu"]
+    if a.shape != (n_cand,) or not bool(torch.isfinite(a).all()):
+        raise AssertionError(f"scale logits: shape {tuple(a.shape)} or "
+                             f"non-finite values")
+    rel = float((a - b).abs().max()) / float(b.abs().max())
+    print(f"  scale logits {tuple(a.shape)} rel_err={rel:.3e} tol=1e-02")
+    if rel > 1e-2:
+        raise AssertionError("scale model logits on the card disagree with "
+                             "the CPU")
+
+
+def phase_scale_trainer():
+    """The scale trainer through its entry point at full size, 20 steps
+    with an eval every 10; returns the launch counts."""
+    from dream_gnn_tpu_torch.train import scale
+
+    argv = ["--iters", "21", "--valid_interval", "10"]
+    print(f"== scale trainer: python -m dream_gnn_tpu_torch.train.scale "
+          f"{' '.join(argv)} (full size)")
+    with tempfile.TemporaryDirectory() as save_dir:
+        _zero_launches()
+        rc = scale.main([*argv, "--save_dir", save_dir])
+        torch.cuda.synchronize()
+        launches = _launches()
+        summary = json.loads(Path(save_dir, "summary.json").read_text())
+        rows = Path(save_dir, "test_metric0.csv").read_text().split()
+        if rc not in (0, 1) or len(rows) != 3 \
+                or not Path(save_dir, "best_metric0.csv").exists():
+            raise AssertionError(f"scale trainer: rc {rc}, rows {rows}")
+    last = dict(zip(rows[0].split(","), map(float, rows[-1].split(","))))
+    for name in ("loss", "train_auroc", "test_auroc", "test_aupr"):
+        if not np.isfinite(last[name]):
+            raise AssertionError(f"scale trainer {name} is not finite: {last}")
+    steps, evals = 20, 2 * 2
+    want = {"grid": {k: 0 for k in launches["grid"]},
+            "edge": {k: 0 for k in launches["edge"]},
+            "spmm": {"fwd": 12 * (steps + evals), "bwd": 12 * steps},
+            "seq": {"seq_scatter": 2 * steps},
+            "scale": {"k2": steps + evals, "b1": steps, "mirror": steps}}
+    print(f"  launches on this path: {launches}")
+    if launches != want:
+        raise AssertionError(f"scale trainer launches {launches}, the path "
+                             f"implies {want}")
+    print(f"  {summary['ms_per_step']:.3f} ms/step (mean of the 20 steps, "
+          f"CUDA events); peak device memory "
+          f"{summary['peak_memory_bytes'] / 2 ** 30:.2f} GiB; layout build "
+          f"{summary['layout_build_s']:.3f} s; best test AUROC "
+          f"{summary['best_test_auroc']}, AUPR {summary['best_test_aupr']}")
+    return launches
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
@@ -811,6 +1223,13 @@ def main() -> int:
     phase_plain_backend()
     for path in (MAIN_PATH, EDGES_PATH):
         phase_profile_stacked(path, phase_profile(path))
+    scale_in = _scale_problem()
+    rows += phase_scale_kernels(scale_in[0])
+    phase_scale_profile(*scale_in)
+    del scale_in
+    torch.cuda.empty_cache()
+    phase_scale_model()
+    launches_s = phase_scale_trainer()
     # Each kernel's launches on the path that runs it.
     for row, n in zip(rows, (launches["grid"]["fwd"], launches["grid"]["bwd"],
                              launches_b["grid"]["fwd_b"],
@@ -818,7 +1237,12 @@ def main() -> int:
                              launches_e["edge"]["fwd"],
                              launches_e["edge"]["bwd"],
                              launches_eb["edge"]["fwd_b"],
-                             launches_eb["edge"]["bwd_b"])):
+                             launches_eb["edge"]["bwd_b"],
+                             sum(launches_s["spmm"].values()),
+                             launches_s["seq"]["seq_scatter"],
+                             launches_s["scale"]["k2"],
+                             launches_s["scale"]["b1"],
+                             launches_s["scale"]["mirror"])):
         row["launches"] = n
     print(gpu)
     print(json.dumps({"kernels": rows}))

@@ -1,10 +1,12 @@
-// Device code shared by the decoder kernels (grid_decoder.cu, edge_decoder.cu):
-// the dropout hash, bf16 rounding, a warp sum, the first layer of the
-// per-cell MLP, and the backward's block-count rule.
+// Device code shared by the decoder kernels (grid_decoder.cu, edge_decoder.cu,
+// scale_decoder.cu): the dropout hash, bf16 rounding, a warp sum, the first
+// layer of the per-cell MLP, and the backward's block-count rule.
 //
-// Dropout bits are fmix32(cell_key(seed, layer, i, j) ^ k) for drug i,
-// disease j and unit k; dream_gnn_tpu_torch/kernels/grid_decoder.py defines
-// the same hash for the plain PyTorch versions, bit for bit.
+// The grid and per-edge kernels' dropout bits are fmix32(cell_key(seed,
+// layer, i, j) ^ k) for drug i, disease j and unit k;
+// dream_gnn_tpu_torch/kernels/grid_decoder.py defines the same hash for the
+// plain PyTorch versions, bit for bit.  The scale kernels draw theirs from
+// another hash (scale_decoder.cu), through the same layer1.
 
 #pragma once
 
@@ -49,32 +51,42 @@ __device__ __forceinline__ float warp_sum(float v) {
   return v;
 }
 
-// Layer 1 and the a2 product of one cell.  acc[n] receives rnd(h1d) @ rnd(w2)
-// without b2.  When hrow is given, rnd(h1d) is stored there.  ROUND_ROWS
-// rounds the two table rows before their sum (the per-edge kernels do, the
-// grid kernels do not).  The rows may lie in shared or in global memory.
-template <bool BF16, bool ROUND_ROWS = false>
-__device__ __forceinline__ void cell_layer1(
-    const float* pd_row, const float* pv_row, const float* b1s,
-    const float* w2s, uint32_t key1, bool drop, uint32_t thresh, float scale,
-    float (&acc)[H2], float* hrow) {
+// a1[k .. k+3] = (rnd(pd_row) + rnd(pv_row)) + b1 when ROUND_ROWS, else
+// without the rounding: the per-edge and scale kernels round the table rows
+// before their sum, the grid kernels do not.  The rows may lie in shared or
+// in global memory.
+template <bool BF16, bool ROUND_ROWS>
+__device__ __forceinline__ float4 rows_a1(const float* pd_row, const float* pv_row,
+                                          const float* b1s, int k) {
+  float4 a = *reinterpret_cast<const float4*>(pd_row + k);
+  float4 b = *reinterpret_cast<const float4*>(pv_row + k);
+  if constexpr (ROUND_ROWS) {
+    a = make_float4(rnd<BF16>(a.x), rnd<BF16>(a.y), rnd<BF16>(a.z), rnd<BF16>(a.w));
+    b = make_float4(rnd<BF16>(b.x), rnd<BF16>(b.y), rnd<BF16>(b.z), rnd<BF16>(b.w));
+  }
+  const float4 c = *reinterpret_cast<const float4*>(b1s + k);
+  return make_float4((a.x + b.x) + c.x, (a.y + b.y) + c.y, (a.z + b.z) + c.z,
+                     (a.w + b.w) + c.w);
+}
+
+// Layer 1 and the a2 product of one cell, edge or slot.  a1_at(k) returns
+// a1[k .. k+3]; bits(k) the dropout hash bits of unit k.  acc[n] receives
+// rnd(h1d) @ rnd(w2) without b2.  When hrow is given, rnd(h1d) is stored
+// there.
+template <bool BF16, class A1, class Bits>
+__device__ __forceinline__ void layer1(A1 a1_at, Bits bits, const float* w2s,
+                                       bool drop, uint32_t thresh, float scale,
+                                       float (&acc)[H2], float* hrow) {
 #pragma unroll
   for (int n = 0; n < H2; ++n) acc[n] = 0.f;
 #pragma unroll 1
   for (int k = 0; k < H1; k += 4) {
-    float4 a = *reinterpret_cast<const float4*>(pd_row + k);
-    float4 b = *reinterpret_cast<const float4*>(pv_row + k);
-    if constexpr (ROUND_ROWS) {
-      a = make_float4(rnd<BF16>(a.x), rnd<BF16>(a.y), rnd<BF16>(a.z), rnd<BF16>(a.w));
-      b = make_float4(rnd<BF16>(b.x), rnd<BF16>(b.y), rnd<BF16>(b.z), rnd<BF16>(b.w));
-    }
-    const float4 c = *reinterpret_cast<const float4*>(b1s + k);
-    float h[4] = {(a.x + b.x) + c.x, (a.y + b.y) + c.y,
-                  (a.z + b.z) + c.z, (a.w + b.w) + c.w};
+    const float4 a = a1_at(k);
+    float h[4] = {a.x, a.y, a.z, a.w};
 #pragma unroll
     for (int u = 0; u < 4; ++u) {
       float x = fmaxf(h[u], 0.f);
-      if (drop) x = x * (fmix32(key1 ^ (uint32_t)(k + u)) >= thresh ? scale : 0.f);
+      if (drop) x = x * (bits((uint32_t)(k + u)) >= thresh ? scale : 0.f);
       h[u] = rnd<BF16>(x);
     }
     if (hrow) *reinterpret_cast<float4*>(hrow + k) = make_float4(h[0], h[1], h[2], h[3]);
@@ -91,6 +103,18 @@ __device__ __forceinline__ void cell_layer1(
       }
     }
   }
+}
+
+// layer1 of one grid cell or edge: a1 from the two table rows, the grid
+// hash keyed by cell_key (key1).
+template <bool BF16, bool ROUND_ROWS = false>
+__device__ __forceinline__ void cell_layer1(
+    const float* pd_row, const float* pv_row, const float* b1s,
+    const float* w2s, uint32_t key1, bool drop, uint32_t thresh, float scale,
+    float (&acc)[H2], float* hrow) {
+  layer1<BF16>([=](int k) { return rows_a1<BF16, ROUND_ROWS>(pd_row, pv_row, b1s, k); },
+               [=](uint32_t k) { return fmix32(key1 ^ k); }, w2s, drop, thresh,
+               scale, acc, hrow);
 }
 
 template <typename K>

@@ -67,7 +67,7 @@ _M32 = 0xFFFFFFFF
 # ---------------------------------------------------------------------------
 # Dropout hash, plain version (int64 holding uint32 values).
 
-def _mul32(x: torch.Tensor, c: int) -> torch.Tensor:
+def mul32(x: torch.Tensor, c: int) -> torch.Tensor:
     """(x * c) mod 2**32 for 0 <= x < 2**32, without int64 overflow."""
     lo = x & 0xFFFF
     hi = x >> 16
@@ -76,9 +76,9 @@ def _mul32(x: torch.Tensor, c: int) -> torch.Tensor:
 
 def fmix32(x: torch.Tensor) -> torch.Tensor:
     x = x ^ (x >> 16)
-    x = _mul32(x, 0x85EBCA6B)
+    x = mul32(x, 0x85EBCA6B)
     x = x ^ (x >> 13)
-    x = _mul32(x, 0xC2B2AE35)
+    x = mul32(x, 0xC2B2AE35)
     return x ^ (x >> 16)
 
 

@@ -1,8 +1,7 @@
 """DREAM-GNN dual-route model composition.
 
 Port of ``dream_gnn_tpu/model/dream_gnn.py`` (reference ``Net``,
-model.py:4-103) without the scale decoder layout (ROADMAP.md queue A,
-item 9):
+model.py:4-103):
 
 - **GCMC route**: L stacked relation-typed bipartite conv layers with
   decayed residual accumulation ``out = h1 + h2/2 + h3/3``
@@ -16,7 +15,15 @@ item 9):
   (drug, disease) cell; ``decoder_backend='pallas'`` runs the fused CUDA
   kernels (kernels/edge_decoder.py, kernels/grid_decoder.py), 'xla' the
   plain decoders of nn/decoder.py.  The kernels gather node rows, so unlike
-  the JAX package's one-hot gathers they take any node count.
+  the JAX package's one-hot gathers they take any node count.  With a
+  ``dec_layout`` (the scale path, scripts/train_scale.py of the JAX package)
+  the 'pallas' backend runs the scale decoder (kernels/scale_decoder.py),
+  whose logits come in the layout's slot order.
+
+The encoder graph is dense (``BipartiteGraph``) or, on the scale path,
+slabbed (``BipartiteSlabbed``); a slabbed graph's PRF edge dropout is
+applied once per forward, since every layer draws the same masks from the
+same salts.
 
 Parameters are plain dicts of tensors with the JAX package's keys
 (``tgcn[i]``, ``fgcn``, ``attention``, ``decoder``) and its (in, out)
@@ -36,12 +43,15 @@ from typing import Any, Optional
 
 import torch
 
+from dream_gnn_tpu_torch.augment.masks import prf_mask_graph
 from dream_gnn_tpu_torch.config import ModelConfig
-from dream_gnn_tpu_torch.graph.bipartite import BipartiteGraph
+from dream_gnn_tpu_torch.graph.slabbed import BipartiteSlabbed
 from dream_gnn_tpu_torch.kernels.edge_decoder import (
     EdgeCSR, decoder_apply_fused, decoder_apply_fused_batched)
 from dream_gnn_tpu_torch.kernels.grid_decoder import (
     decoder_apply_grid_fused, decoder_apply_grid_fused_batched)
+from dream_gnn_tpu_torch.kernels.scale_decoder import (ScaleDecoderLayout,
+                                                        decoder_apply_scale)
 from dream_gnn_tpu_torch.nn.attention import attention_apply, attention_init
 from dream_gnn_tpu_torch.nn.decoder import (decoder_apply, decoder_apply_grid,
                                             decoder_init)
@@ -65,10 +75,10 @@ class ModelInputs:
     """One forward pass's graph and feature inputs (Net.forward's
     argument list, model.py:60-64)."""
 
-    enc_graph: BipartiteGraph
+    enc_graph: Any                     # BipartiteGraph | BipartiteSlabbed
     dec_src: torch.Tensor              # (E,) drug ids, candidate-pair order
     dec_dst: torch.Tensor              # (E,) disease ids
-    drug_graph: Any                    # NormAdj
+    drug_graph: Any                    # NormAdj | CooGraph
     drug_sim_feat: torch.Tensor        # (n_drug, fdim_drug) similarity rows
     drug_feat: torch.Tensor            # (n_drug, src_in_units) embeddings
     dis_graph: Any
@@ -80,6 +90,10 @@ class ModelInputs:
     # built once per list (train/loop.py:fold_inputs); the counterpart of
     # the JAX package's dec_layout.  Built in each backward when None.
     dec_csr: Optional[EdgeCSR] = None
+    # The scale decoder's ScaleDecoderLayout of the candidate list
+    # (kernels/scale_decoder.py), static per list like the reference's dec
+    # graph (data_loader.py:492-509).
+    dec_layout: Any = None
 
 
 def init_params(gen: torch.Generator, cfg: ModelConfig):
@@ -132,11 +146,16 @@ def _encode(params, inputs: ModelInputs, cfg: ModelConfig, *, train: bool,
     Returns (drug_feats, dis_feats, drug_out, drug_sim_out, dis_out,
     dis_sim_out).
     """
+    enc_graph = inputs.enc_graph
+    # The salts are per relation, not per layer: one masked graph serves
+    # every layer (the JAX layer masks it anew in each).
+    if isinstance(enc_graph, BipartiteSlabbed) and edge_masks is not None:
+        enc_graph, edge_masks = prf_mask_graph(enc_graph, edge_masks), None
     drug_feat, dis_feat = inputs.drug_feat, inputs.dis_feat
     drug_out = dis_out = 0.0
     for i in range(cfg.layers):
         drug_o, dis_o = gcmc_layer_apply(
-            params["tgcn"][i], inputs.enc_graph, drug_feat, dis_feat,
+            params["tgcn"][i], enc_graph, drug_feat, dis_feat,
             dropout_rate=cfg.dropout, agg_act=cfg.model_activation,
             share_param=cfg.share_param, train=train, generator=generator,
             edge_masks=edge_masks)
@@ -209,6 +228,14 @@ def _forward(params, inputs, cfg, *, stacked, train, generator, edge_masks):
         # pred is the (..., n_drug, n_dis) logit grid; the loss/metrics mask
         # out-of-fold cells with enc_graph.mask (labels = enc_graph.a1).
         pred = decode(params["decoder"], drug_feats, dis_feats, **kw)
+    elif cfg.decoder_backend == "pallas" and inputs.dec_layout is not None:
+        if stacked or not isinstance(inputs.dec_layout, ScaleDecoderLayout):
+            raise NotImplementedError(
+                f"the scale decoder on a {type(inputs.dec_layout).__name__}"
+                f"{' of a fold stack' if stacked else ''} is not ported yet "
+                f"(ROADMAP.md queue A, item 10: multi-device)")
+        pred = decoder_apply_scale(params["decoder"], inputs.dec_layout,
+                                   drug_feats, dis_feats, **kw)
     else:
         if cfg.decoder_backend == "pallas":
             kw["csr"] = inputs.dec_csr

@@ -1,12 +1,21 @@
-"""GCMC layer: relation-typed bipartite graph convolution, dense layout.
+"""GCMC layer: relation-typed bipartite graph convolution.
 
-Port of the dense branch of ``dream_gnn_tpu/nn/gcmc.py`` (reference
-``GCMCLayer`` + ``GCMCGraphConv``, layers.py:18-236).  Per rating r and
-direction: ``feat @ W_r``, times a *node-dropped* source norm
-``dropout(cj)`` (layers.py:224-225), aggregation over the dense
-adjacency mask (one matrix product), then the dst norm ``ci``.  Outputs
-are summed over relations ('sum' accumulation), activated, dropped out
-and projected by a shared Linear (layers.py:133-141).
+Port of the dense and slabbed branches of ``dream_gnn_tpu/nn/gcmc.py``
+(reference ``GCMCLayer`` + ``GCMCGraphConv``, layers.py:18-236).  Per rating
+r and direction: ``feat @ W_r``, times a *node-dropped* source norm
+``dropout(cj)`` (layers.py:224-225), aggregation over the graph, then the
+dst norm ``ci``.  Outputs are summed over relations ('sum' accumulation),
+activated, dropped out and projected by a shared Linear
+(layers.py:133-141).
+
+Aggregation by layout:
+- dense (``BipartiteGraph``): one matrix product over the adjacency mask,
+  times the per-etype edge keep masks of augmentation;
+- slabbed (``BipartiteSlabbed``, the scale path): the SpMM kernel of
+  kernels/spmm_slab.py over each relation's CSR layouts (gcmc.py:185-205 of
+  the JAX package).  The PRF edge dropout is applied to the graph before
+  the layer (augment/masks.py:prf_mask_graph, once for all layers in
+  model/dream_gnn.py:_encode), so the layer takes no edge masks.
 
 Weight parity notes:
 - basis decomposition ``W = att @ basis`` ties the relations' weights
@@ -19,7 +28,7 @@ Params, features, graphs and masks may carry a leading fold axis F
 (a stack of folds, train/stacked.py): every product is batched over it and
 every bias broadcasts as ``b[..., None, :]``.
 
-The COO, grouped, slabbed and sharded layouts are still to be ported
+The COO, grouped and sharded encoder layouts are still to be ported
 (ROADMAP.md queue A, items 7, 8 and 10).
 """
 
@@ -30,6 +39,8 @@ from typing import Optional
 import torch
 
 from dream_gnn_tpu_torch.graph.bipartite import BipartiteGraph
+from dream_gnn_tpu_torch.graph.slabbed import BipartiteSlabbed
+from dream_gnn_tpu_torch.kernels.spmm_slab import spmm_slab
 from dream_gnn_tpu_torch.nn import init as init_lib
 from dream_gnn_tpu_torch.nn.dropout import dropout
 from dream_gnn_tpu_torch.utils.activations import get_activation
@@ -69,7 +80,41 @@ def _relation_weights(params, num_ratings: int, share_param: bool):
     return conv_w[..., 0, :, :], conv_w[..., 1, :, :]
 
 
-def gcmc_layer_apply(params, graph: BipartiteGraph,
+def _aggregator(graph, edge_masks):
+    """``aggregate(r, hd, hv)`` -> (messages into diseases, into drugs) of
+    rating r over ``graph``'s layout, with the augmentation's edge masks."""
+    if isinstance(graph, BipartiteGraph):
+        if edge_masks is not None and "fwd_add" in edge_masks:
+            raise NotImplementedError(
+                "add_random_edges masks are not ported yet (ROADMAP.md "
+                "queue A, item 4: the other augment methods)")
+        adjs = [graph.a0(), graph.a1]  # rating order = rating_vals [0, 1]
+
+        def aggregate(r, hd, hv):
+            a_f, a_r = adjs[r], adjs[r]
+            if edge_masks is not None:
+                a_f = a_f * edge_masks["fwd"][..., r, :, :]
+                a_r = a_r * edge_masks["rev"][..., r, :, :]
+            return torch.matmul(a_f.mT, hd), torch.matmul(a_r, hv)
+        return aggregate
+    if isinstance(graph, BipartiteSlabbed):
+        if edge_masks is not None:
+            raise ValueError(
+                "a slabbed graph comes with its PRF edge dropout applied: "
+                "pass augment.masks.prf_mask_graph(graph, masks) and no "
+                "edge_masks")
+
+        def aggregate(r, hd, hv):
+            # The JAX layer calls spmm_slab with its default bf16 dtype
+            # whatever the compute dtype (gcmc.py:204-205).
+            return spmm_slab(graph.fwd[r], hd), spmm_slab(graph.rev[r], hv)
+        return aggregate
+    raise NotImplementedError(
+        f"encoder layout {type(graph).__name__} is not ported yet "
+        f"(ROADMAP.md queue A, items 7, 8 and 10)")
+
+
+def gcmc_layer_apply(params, graph,
                      drug_feat: torch.Tensor, dis_feat: torch.Tensor, *,
                      dropout_rate: float, agg_act: str = "leaky",
                      share_param: bool = True, train: bool = False,
@@ -78,25 +123,19 @@ def gcmc_layer_apply(params, graph: BipartiteGraph,
     """One GCMC layer forward.
 
     Args:
-      edge_masks: optional dict with 'fwd'/'rev' tensors of shape
-        (..., R, n_drug, n_dis) — per-etype edge keep-masks from
-        augmentation.  The graph's ci/cj stay *stale* by construction
-        (parity trap, SURVEY.md §7.3.3).
+      graph: a ``BipartiteGraph`` or a ``BipartiteSlabbed``.
+      edge_masks: optional augmentation masks of the dense layout, a dict
+        with 'fwd'/'rev' tensors of shape (..., R, n_drug, n_dis), per-etype
+        edge keep-masks; None for a slabbed graph, which arrives already
+        masked.  The graph's ci/cj stay *stale* by construction (parity
+        trap, SURVEY.md §7.3.3).
     Returns (drug_out, dis_out), each (..., N, out_units).
     """
-    if not isinstance(graph, BipartiteGraph):
-        raise NotImplementedError(
-            f"encoder layout {type(graph).__name__} is not ported yet "
-            f"(ROADMAP.md queue A, items 7, 8 and 10)")
-    if edge_masks is not None and "fwd_add" in edge_masks:
-        raise NotImplementedError(
-            "add_random_edges masks are not ported yet (ROADMAP.md queue A, "
-            "item 4: the other augment methods)")
+    aggregate = _aggregator(graph, edge_masks)
     num_ratings = params["att"].shape[-2]
     act = get_activation(agg_act)
     w_fwd, w_rev = _relation_weights(params, num_ratings, share_param)
 
-    adjs = [graph.a0(), graph.a1]  # rating order = rating_vals [0, 1]
     msg_dis = 0.0
     msg_drug = 0.0
     for r in range(num_ratings):
@@ -108,14 +147,11 @@ def gcmc_layer_apply(params, graph: BipartiteGraph,
             cj_d = dropout(generator, cj_d, dropout_rate, train)
             cj_v = dropout(generator, cj_v, dropout_rate, train)
         hd = torch.matmul(drug_feat, w_fwd[..., r, :, :])
-        hv = torch.matmul(dis_feat, w_rev[..., r, :, :])
-        a_f, a_r = adjs[r], adjs[r]
-        if edge_masks is not None:
-            a_f = a_f * edge_masks["fwd"][..., r, :, :]
-            a_r = a_r * edge_masks["rev"][..., r, :, :]
-        msg_dis = msg_dis + torch.matmul(a_f.mT, hd * cj_d)
         # disease -> drug (etype rev-r) reuses W[r] (layers.py:126-127)
-        msg_drug = msg_drug + torch.matmul(a_r, hv * cj_v)
+        hv = torch.matmul(dis_feat, w_rev[..., r, :, :])
+        m_dis, m_drug = aggregate(r, hd * cj_d, hv * cj_v)
+        msg_dis = msg_dis + m_dis
+        msg_drug = msg_drug + m_drug
 
     drug_h = act(msg_drug * graph.ci_drug)
     dis_h = act(msg_dis * graph.ci_dis)

@@ -149,9 +149,12 @@ def train_on_inputs(model_cfg: ModelConfig, cfg: TrainConfig,
     LR, best-by-test-AUPR and the CSV contract.  ``train_w``/``test_w``
     (1/0 per edge) weight the edges mode's loss and masked metrics with
     ``train_labels``/``test_labels``; grid mode scores the grid's cells.
+    The scale path (train/scale.py) passes its layouts' slot-order labels
+    and weights (dream_gnn_tpu/train/loop.py:90-104).
     ``generator`` (on the inputs' device) draws the params and every
     training random number."""
-    device = train_inputs.enc_graph.a1.device
+    # Every encoder layout has the norms; only the dense one has a1.
+    device = train_inputs.enc_graph.ci_drug.device
     params = init_params(generator, model_cfg)
     state = init_state(params, generator, cfg)
     one_step = make_one_step(model_cfg, cfg)

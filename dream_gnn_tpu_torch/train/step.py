@@ -12,7 +12,9 @@ labels weighted by its 1/0 edge weights (padding edges weigh 0).  Grid
 decode mode: pred is the (n_drug, n_dis) logit grid; the targets are the
 association grid (``enc_graph.a1``) weighted by the in-fold cell mask
 (``enc_graph.mask``) — the same cells and the same mean as the candidate
-edge list.
+edge list.  On the scale path (a ``dec_layout``) pred is in the layout's
+slot order, and the labels and weights passed in are the slot-order ones of
+``ScaleDecoderLayout.slot_labels``.
 """
 
 from __future__ import annotations
@@ -57,6 +59,10 @@ def decoder_targets(pred, inputs: ModelInputs, model_cfg: ModelConfig,
     targets from ``inputs.enc_graph``; edges mode needs the edge list's
     ``labels`` and ``weight``."""
     if model_cfg.decode_mode == "grid":
+        if not hasattr(inputs.enc_graph, "mask"):
+            raise ValueError(
+                "decode_mode='grid' takes its targets from the dense encoder "
+                f"graph; a {type(inputs.enc_graph).__name__} has none")
         return (pred.flatten(-2), inputs.enc_graph.a1.flatten(-2),
                 inputs.enc_graph.mask.flatten(-2))
     if labels is None or weight is None:

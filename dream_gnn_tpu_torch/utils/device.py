@@ -2,6 +2,7 @@
 
 from __future__ import annotations
 
+import numpy as np
 import torch
 
 
@@ -20,3 +21,14 @@ def set_numerics() -> None:
     of the JAX package): TF32 off for matmuls and for cuDNN."""
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
+
+
+def as_tensor(x, dtype, device=None) -> torch.Tensor:
+    """``x`` (numpy, list or tensor) as a ``dtype`` tensor: on ``device``
+    when given, else where a tensor already lies, else on the card."""
+    if isinstance(x, torch.Tensor):
+        return x.to(dtype=dtype, device=device if device is not None
+                    else x.device)
+    return torch.as_tensor(np.asarray(x)).to(
+        dtype=dtype, device=resolve_device(device if device is not None
+                                           else "cuda"))

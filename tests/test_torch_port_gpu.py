@@ -1,6 +1,8 @@
 """Card-only checks of the port: the CUDA decoder kernels (grid and per
-edge, single-fold and fold-batched) against their plain versions at ragged
-shapes, their input checks, and the trainers' use of them.  Every test
+edge, single-fold and fold-batched) and the scale path's kernels (the
+segmented sum behind spmm_slab and seq_scatter, the scale decoder's K2, B1
+and mirror) against their plain versions at ragged shapes, their input
+checks, and the trainers' use of them.  Every test
 carries the ``gpu`` marker and skips without a CUDA device.  The file
 imports no JAX, so that it runs where the card is:
 
@@ -357,3 +359,242 @@ def test_edges_trainer_launches_edge_kernels(cuda, tmp_path, flags, edge):
           "32", "--nhid1", "64", "--nhid2", "32", "--save_dir", str(tmp_path),
           *flags])
     assert _decoder_launches() == {"grid": ZERO, "edge": edge}
+
+
+# ---------------------------------------------------------------------------
+# The scale path's kernels: the segmented sum behind spmm_slab and
+# seq_scatter (csrc/spmm.cu), and the scale decoder's K2, B1 and mirror
+# (csrc/scale_decoder.cu).
+
+def _csr_case(dev, n_src, n_dst, nnz, d, seed=0):
+    """A random relation with repeated, zero-weight and empty-row edges:
+    its layout pair on each of ``dev`` and the CPU, and x on ``dev``."""
+    from dream_gnn_tpu_torch.graph.slabbed import slabbed_pair_from_arrays
+
+    rng = np.random.default_rng(seed)
+    src = rng.integers(0, n_src, nnz)
+    dst = rng.integers(0, max(n_dst // 2, 1), nnz)     # rows past n_dst/2 empty
+    val = (rng.random(nnz) + 0.5).astype(np.float32)
+    val[rng.random(nnz) < 0.1] = 0.0
+    pairs = [slabbed_pair_from_arrays(src, dst, val, n_src, n_dst, device=d_)
+             for d_ in (dev, "cpu")]
+    x = torch.tensor(rng.normal(size=(n_src, d)).astype(np.float32),
+                     device=dev)
+    return pairs, x
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("shape", [(1, 1, 1, 16), (300, 250, 3000, 16),
+                                   (300, 250, 3000, 128), (70, 900, 5000, 3),
+                                   (2000, 1500, 40000, 128)])
+def test_spmm_kernel_matches_plain(cuda, dtype, shape):
+    """Forward and transposed layouts, d = 3 (the one-column path), 16 and
+    128, against segment_sum_plain on the same tensors; twice the same
+    bits."""
+    from dream_gnn_tpu_torch.kernels import spmm_slab as sp
+
+    (pair, _), x = _csr_case(cuda, *shape)
+    rounded = dtype == torch.bfloat16
+    for g in (pair.fwd, pair.bwd):
+        xr = torch.randn(g.n_src, x.shape[1], device=cuda).to(dtype)
+        out = sp.launch_segment_sum(g.row_ptr, g.src, g.val, xr, rounded)
+        ref = sp.segment_sum_plain(g.row_ptr, g.src, g.val, xr, rounded)
+        torch.cuda.synchronize()
+        assert out.shape == ref.shape == (g.n_dst, x.shape[1])
+        assert _rel(out, ref) <= TOL[dtype]
+        assert torch.equal(out, sp.launch_segment_sum(g.row_ptr, g.src,
+                                                      g.val, xr, rounded))
+
+
+def test_spmm_slab_autograd_matches_cpu(cuda):
+    """spmm_slab on the card (kernel, forward and backward) against the
+    same call on the CPU (plain version)."""
+    from dream_gnn_tpu_torch.kernels import spmm_slab as sp
+
+    pairs, x = _csr_case(cuda, 300, 250, 3000, 128, seed=4)
+    before = dict(sp.LAUNCHES)
+    res = []
+    for p, xx in zip(pairs, (x, x.cpu())):
+        xx = xx.clone().requires_grad_(True)
+        out = sp.spmm_slab(p, xx)
+        (out * out).sum().backward()
+        res.append((out.detach().cpu(), xx.grad.cpu()))
+    assert sp.LAUNCHES == {"fwd": before["fwd"] + 1, "bwd": before["bwd"] + 1}
+    for a, b in zip(*res):
+        assert _rel(a, b) <= 1e-4
+
+
+@pytest.mark.parametrize("x_dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_seq_scatter_kernel_matches_plain(cuda, x_dtype, dtype):
+    """Padding slots, empty nodes, random weights: the kernel against the
+    plain version on the same tensors, and twice the same bits."""
+    from dream_gnn_tpu_torch.kernels import seq_scatter as sq
+    from dream_gnn_tpu_torch.kernels.grid_decoder import round_to
+
+    rng = np.random.default_rng(5)
+    n_slots, n_dst = 5000, 3000
+    live = rng.random(n_slots) > 0.2
+    node = np.zeros(n_slots, np.int64)
+    node[live] = np.sort(rng.integers(0, n_dst, live.sum()))
+    g = sq.build_seq_scatter(node, live, rng.random(n_slots) + 0.5, n_dst,
+                             device=cuda)
+    x = torch.randn(n_slots, 128, device=cuda).to(x_dtype)
+    before = sq.LAUNCHES["seq_scatter"]
+    out = sq.seq_scatter(g, x, dtype)
+    assert sq.LAUNCHES["seq_scatter"] == before + 1
+    ref = sq.segment_sum_plain(g.offsets, None, round_to(g.val, dtype), x,
+                               dtype == torch.bfloat16)
+    assert _rel(out, ref) <= TOL[dtype]
+    assert torch.equal(out, sq.seq_scatter(g, x, dtype))
+
+
+def _scale_args(dev, nd, nv, ne, seed=0):
+    """Scale decoder inputs: tables, weights, seed, a layout over random
+    candidates, and a forward-slot cotangent."""
+    from dream_gnn_tpu_torch.kernels.scale_decoder import \
+        build_scale_decoder_layout
+
+    rng = np.random.default_rng(seed)
+
+    def t(x):
+        return torch.tensor(np.asarray(x, np.float32), device=dev)
+
+    layout = build_scale_decoder_layout(rng.integers(0, nd, ne),
+                                        rng.integers(0, nv, ne), nd, nv,
+                                        device=dev)
+    return ([t(rng.normal(0, 0.5, (nd, 128))), t(rng.normal(0, 0.5, (nv, 128))),
+             t(rng.uniform(-.1, .1, 128)), t(rng.uniform(-.1, .1, (128, 64))),
+             t(rng.uniform(-.1, .1, 64)), t(rng.uniform(-.2, .2, 64)),
+             torch.tensor([918273], dtype=torch.int32, device=dev)],
+            layout, t(rng.normal(0, 1, ne)))
+
+
+def _scale_run(sd, args, layout, g, rate, dtype, kernel):
+    """K2 (logits, a1), B1 (da1, dW2, db2, dw3, db1) and the mirror's da1,
+    by the kernels or by the plain versions."""
+    pd, pv, b1, w2, b2, w3, seed = args
+    fwd = (layout.drug_of_slot, layout.dis_of_slot, layout.fwd_eid)
+    mir = (layout.drug_of_mslot, layout.dis_of_mslot, layout.mirror_eid)
+    g_m = g[layout.gout_perm.long()]
+    common = (w2, b2, w3, seed, rate, True, dtype)
+    if kernel:
+        out, a1 = sd.launch_k2(pd, pv, b1, w2, b2, w3, *fwd, seed, rate, True,
+                               dtype, True)
+        b1_out = sd.launch_b1(a1, pd, pv, layout, g, b1, *common)
+        da1_m = sd.launch_mirror(pd, pv, layout, g_m, b1, *common)
+    else:
+        out, a1 = sd.scale_fwd_plain(pd, pv, b1, w2, b2, w3, *fwd, seed, rate,
+                                     True, dtype, True)
+        b1_out = sd.scale_bwd_plain(a1, pd, pv, *fwd, g, b1, *common, True)
+        da1_m = sd.scale_bwd_plain(None, pd, pv, *mir, g_m, b1, *common,
+                                   False)
+    return (out, a1, *b1_out, da1_m)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("rate", [0.0, 0.3])
+@pytest.mark.parametrize("shape", [(1, 1, 1), (130, 1, 1023), (1, 130, 1025),
+                                   (300, 250, 4000)])
+def test_scale_decoder_kernels_match_plain(cuda, dtype, rate, shape):
+    """K2's logits and a1, B1's da1 and four weight gradients, the mirror's
+    da1, against the plain versions; ragged slot counts and one-node
+    tables."""
+    from dream_gnn_tpu_torch.kernels import scale_decoder as sd
+
+    args, layout, g = _scale_args(cuda, *shape)
+    got = _scale_run(sd, args, layout, g, rate, dtype, True)
+    want = _scale_run(sd, args, layout, g, rate, dtype, False)
+    torch.cuda.synchronize()
+    for a, b in zip(got, want):
+        assert a.shape == b.shape and a.dtype == b.dtype
+        assert _rel(a.float(), b.float()) <= TOL[dtype]
+
+
+@pytest.mark.parametrize("rate", [0.0, 0.3])
+def test_scale_bf16_tolerance_sees_missing_rounding(cuda, rate):
+    """The fp32 scale kernels against the bf16 plain versions fail the bf16
+    tolerance in the logits and in da1 of B1 and of the mirror."""
+    from dream_gnn_tpu_torch.kernels import scale_decoder as sd
+
+    args, layout, g = _scale_args(cuda, 300, 250, 4000)
+    got = _scale_run(sd, args, layout, g, rate, torch.float32, True)
+    want = _scale_run(sd, args, layout, g, rate, torch.bfloat16, False)
+    for i in (0, 2, 7):
+        assert _rel(got[i].float(), want[i].float()) > TOL[torch.bfloat16]
+
+
+def test_scale_kernels_are_deterministic(cuda):
+    from dream_gnn_tpu_torch.kernels import scale_decoder as sd
+
+    args, layout, g = _scale_args(cuda, 300, 250, 20000, seed=1)
+    a = _scale_run(sd, args, layout, g, 0.3, torch.bfloat16, True)
+    b = _scale_run(sd, args, layout, g, 0.3, torch.bfloat16, True)
+    for x, y in zip(a, b):
+        assert torch.equal(x, y)
+
+
+def test_scale_decoder_autograd_matches_cpu(cuda):
+    """scale_decoder on the card (K2, B1, mirror, two seq_scatter launches)
+    against the same call on the CPU: logits and the seven gradients."""
+    from dream_gnn_tpu_torch.kernels import scale_decoder as sd
+    from dream_gnn_tpu_torch.kernels import seq_scatter as sq
+
+    args, layout, g = _scale_args(cuda, 300, 250, 4000, seed=2)
+    _, layout_cpu, _ = _scale_args("cpu", 300, 250, 4000, seed=2)
+    b3 = torch.tensor([0.1], device=cuda)
+    before = (dict(sd.LAUNCHES), sq.LAUNCHES["seq_scatter"])
+    res = []
+    for dev, lay in ((cuda, layout), ("cpu", layout_cpu)):
+        leaves = [x.to(dev).clone().requires_grad_(True)
+                  for x in (*args[:6], b3)]
+        out = sd.scale_decoder(*leaves, lay, args[6].to(dev), 0.3, True,
+                               torch.bfloat16)
+        (out * g.to(dev)).sum().backward()
+        res.append([out.detach().cpu()] + [x.grad.cpu() for x in leaves])
+    assert sd.LAUNCHES == {k: v + 1 for k, v in before[0].items()}
+    assert sq.LAUNCHES["seq_scatter"] == before[1] + 2
+    for a, b in zip(*res):
+        assert _rel(a, b) <= 1e-4
+
+
+def test_scale_wrappers_check_inputs(cuda):
+    from dream_gnn_tpu_torch.kernels import scale_decoder as sd
+    from dream_gnn_tpu_torch.kernels import spmm_slab as sp
+
+    args, layout, g = _scale_args(cuda, 8, 8, 50)
+    pd, pv, b1, w2, b2, w3, seed = args
+    with pytest.raises(ValueError, match="drug"):
+        sd.launch_k2(pd, pv, b1, w2, b2, w3, layout.drug_of_slot.long(),
+                     layout.dis_of_slot, layout.fwd_eid, seed, 0.0, False,
+                     torch.bfloat16, False)
+    with pytest.raises(ValueError, match="a1"):
+        sd.launch_b1(torch.zeros(50, 128, device=cuda), pd, pv, layout, g, b1,
+                     w2, b2, w3, seed, 0.0, True, torch.bfloat16)
+    (pair, _), x = _csr_case(cuda, 10, 10, 30, 16)
+    with pytest.raises(ValueError, match="ptr"):
+        sp.launch_segment_sum(pair.fwd.row_ptr.long(), pair.fwd.src,
+                              pair.fwd.val, x, True)
+
+
+def test_scale_trainer_launches_scale_kernels(cuda, tmp_path):
+    """A tiny run of the scale trainer on the card: per step 12 SpMM
+    forwards and 12 backwards (3 layers x 2 ratings x 2 directions), one
+    K2, B1 and mirror, two seq_scatter; K2 and the SpMM forwards also once
+    per evaluated candidate list."""
+    from dream_gnn_tpu_torch.kernels import scale_decoder as sd
+    from dream_gnn_tpu_torch.kernels import seq_scatter as sq
+    from dream_gnn_tpu_torch.kernels import spmm_slab as sp
+    from dream_gnn_tpu_torch.train import scale
+
+    for counts in (sd.LAUNCHES, sq.LAUNCHES, sp.LAUNCHES):
+        for k in counts:
+            counts[k] = 0
+    rc = scale.main(["--n_nodes", "400", "--n_enc", "6000", "--n_cand", "900",
+                     "--iters", "5", "--valid_interval", "2", "--save_dir",
+                     str(tmp_path)])
+    assert rc in (0, 1)
+    steps, evals = 4, 2 * 2
+    assert sd.LAUNCHES == {"k2": steps + evals, "b1": steps, "mirror": steps}
+    assert sq.LAUNCHES == {"seq_scatter": 2 * steps}
+    assert sp.LAUNCHES == {"fwd": 12 * (steps + evals), "bwd": 12 * steps}
