@@ -56,7 +56,26 @@ Phases, each of which fails the run if it fails:
 18. the scale trainer through ``train.scale`` at full size, 20 steps with an
     eval every 10: ms/step, peak memory, the layout build time and the
     launch counts the path implies;
-19. a profile of ten scale training steps.
+19. a profile of ten scale training steps;
+20. the scale benchmark's SpMMs, grouped (``spmm_gather``) and blocked
+    (``spmm_blocked``), against their plain versions at their paths'
+    shapes: the ~7M-edge rating-0 and ~3M-edge rating-1 relations of
+    ``scripts.bench_scale --grouped``, forward and transposed; both kernels
+    on ``scripts.bench_spmm``'s 10M-edge graph; the grouped SpMM as the
+    scale decoder's scatter of 1M slots into 100k rows.  fp32 and bf16,
+    with and without a PRF edge mask, two launches the same bits, the bf16
+    controls (among them that the blocked SpMM rounds val), and the
+    decoder's gradients with ``build_seq=False`` bit for bit those with
+    ``build_seq=True``; then each kernel's time beside its bound, its plain
+    version's and ``torch.sparse.mm``'s (``index_add_``'s for the scatter);
+21. the bench model's eval forward on the card against the CPU over
+    the padded-COO and over the grouped layout, 10k x 10k nodes, 1M edges;
+22. ``scripts.bench_scale`` at full size in both layouts: ms/step, edges/s,
+    peak memory and the layout build time; the grouped layout launches
+    exactly 12 forward and 12 backward ``spmm_gather`` per step, the COO
+    layout no kernel;
+23. ``scripts.bench_spmm`` at full size with its launch counts, then a
+    profile of ten ``bench_scale --grouped`` steps.
 
 Each trainer phase sets every launch count to 0 just before it drives its
 entry point and reads the counts just after.
@@ -579,10 +598,13 @@ def _counters():
     from dream_gnn_tpu_torch.kernels import grid_decoder as gd
     from dream_gnn_tpu_torch.kernels import scale_decoder as sd
     from dream_gnn_tpu_torch.kernels import seq_scatter as sq
+    from dream_gnn_tpu_torch.kernels import spmm_blocked as sb
+    from dream_gnn_tpu_torch.kernels import spmm_gather as sg
     from dream_gnn_tpu_torch.kernels import spmm_slab as sp
 
     return {"grid": gd.LAUNCHES, "edge": ed.LAUNCHES, "spmm": sp.LAUNCHES,
-            "seq": sq.LAUNCHES, "scale": sd.LAUNCHES}
+            "seq": sq.LAUNCHES, "scale": sd.LAUNCHES, "gather": sg.LAUNCHES,
+            "blocked": sb.LAUNCHES}
 
 
 def _launches():
@@ -706,9 +728,10 @@ def phase_plain_backend():
     _expect_launches(launches, "none", (), "plain backend")
 
 
-def _profile(label: str, step, n_steps: int) -> float:
+def _profile(label: str, step, n_steps: int, top: int = 12) -> float:
     """``n_steps`` steady calls of ``step`` under torch.profiler: step time,
-    device busy share and the top kernels; returns kernels per step."""
+    device busy share and the ``top`` kernels (all with ``top=None``);
+    returns kernels per step."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
@@ -722,8 +745,12 @@ def _profile(label: str, step, n_steps: int) -> float:
     for ev in prof.key_averages():
         # Device kernels only: host ops' kernels are listed themselves, and
         # record_function ranges (e.g. "Optimizer.step#Adam.step") would
-        # count their kernels twice.
-        if ev.device_type != DeviceType.CUDA or "#" in ev.key:
+        # count their kernels twice.  A kernel's own name may hold a "#"
+        # (a lambda's, as in every dtype cast), so the ranges are told by
+        # their flag, or by a "#" in a name that is not a kernel's.
+        if ev.device_type != DeviceType.CUDA \
+                or getattr(ev, "is_user_annotation", False) \
+                or ("#" in ev.key and not ev.key.startswith("void ")):
             continue
         dev_us = getattr(ev, "self_device_time_total", None)
         if dev_us is None:
@@ -737,9 +764,10 @@ def _profile(label: str, step, n_steps: int) -> float:
           f"device kernels {busy_ms:.3f} ms/step = "
           f"{100 * busy_ms / step_ms:.1f}% busy"
           + ("" if rows else " (profiler saw no device time: not measured)"))
-    print(f"  {kernels:.0f} kernels per step; top by device time (ms/step, "
-          f"calls/step, name):")
-    for ms, count, key in rows[:12]:
+    print(f"  {kernels:.0f} kernels per step; "
+          + ("all" if top is None else "top") + " by device time (ms/step, "
+          "calls/step, name):")
+    for ms, count, key in rows[:top]:
         print(f"    {ms:8.4f} {count:6.1f}  {key[:90]}")
     return kernels
 
@@ -835,7 +863,7 @@ def _scale_row(name, replaces, err, ms, plain_ms, nbytes, flops, dtype,
     t_ops = flops / PEAK_FLOPS_S[dtype] * 1e3
     bound, by = (t_ops, "operations") if t_ops >= t_bytes \
         else (t_bytes, "bytes")
-    src = "spmm" if name in ("spmm_slab", "seq_scatter") else "scale_decoder"
+    src = "scale_decoder" if name.startswith("scale_decoder") else "spmm"
     print(f"  {name}: {ms:.4f} ms, bound {bound:.5f} ms ({by}; "
           f"{nbytes / 1e6:.1f} MB, {flops / 1e9:.3f} GFLOP), plain "
           f"{plain_ms:.4f} ms, "
@@ -1121,7 +1149,9 @@ def phase_scale_profile(tin, lab, w, n_steps: int = 10):
     gen = torch.Generator(device="cuda:0").manual_seed(0)
     state = init_state(init_params(gen, mcfg), gen, cfg)
     step = make_one_step(mcfg, cfg)
-    _profile("scale step", lambda: step(state, tin, lab, w), n_steps)
+    # Every kernel, so that the step's kernel count can be accounted for.
+    _profile("scale step", lambda: step(state, tin, lab, w), n_steps,
+             top=None)
 
 
 def phase_scale_model():
@@ -1179,11 +1209,10 @@ def phase_scale_trainer():
         if not np.isfinite(last[name]):
             raise AssertionError(f"scale trainer {name} is not finite: {last}")
     steps, evals = 20, 2 * 2
-    want = {"grid": {k: 0 for k in launches["grid"]},
-            "edge": {k: 0 for k in launches["edge"]},
-            "spmm": {"fwd": 12 * (steps + evals), "bwd": 12 * steps},
-            "seq": {"seq_scatter": 2 * steps},
-            "scale": {"k2": steps + evals, "b1": steps, "mirror": steps}}
+    want = {mod: {k: 0 for k in counts} for mod, counts in launches.items()}
+    want.update(spmm={"fwd": 12 * (steps + evals), "bwd": 12 * steps},
+                seq={"seq_scatter": 2 * steps},
+                scale={"k2": steps + evals, "b1": steps, "mirror": steps})
     print(f"  launches on this path: {launches}")
     if launches != want:
         raise AssertionError(f"scale trainer launches {launches}, the path "
@@ -1193,6 +1222,317 @@ def phase_scale_trainer():
           f"{summary['peak_memory_bytes'] / 2 ** 30:.2f} GiB; layout build "
           f"{summary['layout_build_s']:.3f} s; best test AUROC "
           f"{summary['best_test_auroc']}, AUPR {summary['best_test_aupr']}")
+    return launches
+
+
+# ---------------------------------------------------------------------------
+# The scale benchmark's sparse encoders (dream_gnn_tpu_torch/scripts/).
+
+BENCH_N, BENCH_E = 100_000, 10_000_000   # bench_scale / bench_spmm full size
+BENCH_CAND = 1_000_000                   # bench_scale's decoder candidates
+
+
+def _hold_spmm(label, raw, plain, g, x, dtype) -> float:
+    """``raw`` (the kernel) against ``plain`` on the same tensors, within
+    SCALE_TOL, and twice the same bits; returns the largest abs error."""
+    out = raw(g, x, dtype)
+    err = _hold(label, [("out", out, plain(g, x, dtype))])
+    if not torch.equal(out, raw(g, x, dtype)):
+        raise AssertionError(f"{label}: two launches differ")
+    return err
+
+
+def _control(label, a, b):
+    """A kernel held against a plain version of another rounding must miss
+    SCALE_TOL, or the tolerance could not see that rounding."""
+    rel = float((a - b).abs().max()) / float(b.abs().max())
+    print(f"  control: {label} rel={rel:.3e}")
+    if rel <= SCALE_TOL:
+        raise AssertionError(f"control: {label} passes the tolerance")
+
+
+def _spmm_row(name, replaces, err, g, x, raw, plain):
+    """Kernel, plain and library times of one layout in bf16 (the path's
+    dtype), and its table row.  Bound: the CSR and x read once, the f32
+    output written once."""
+    ms = _time_ms(lambda: raw(g, x, torch.bfloat16))
+    with torch.no_grad():
+        plain_ms = _time_ms(lambda: plain(g, x, torch.bfloat16), reps=3)
+    csr = torch.sparse_csr_tensor(g.row_ptr, g.src, g.val,
+                                  size=(g.n_dst, g.n_src))
+    xf = x.float()
+    lib_ms = _time_ms(lambda: torch.sparse.mm(csr, xf))
+    nbytes = _nbytes(g.row_ptr, g.src, g.val, x.bfloat16()) \
+        + g.n_dst * x.shape[1] * 4
+    return _scale_row(name, replaces, err, ms, plain_ms, nbytes,
+                      2 * g.n_live * x.shape[1], torch.bfloat16, lib_ms,
+                      "torch.sparse.mm on the CSR in f32")
+
+
+def phase_sparse_kernels(dev):
+    """Rows 10 and 11 at their paths' shapes; returns (their table rows
+    without launches, bench_scale's grouped graph)."""
+    from dream_gnn_tpu_torch.augment.masks import prf_mask_pair
+    from dream_gnn_tpu_torch.graph.blocked import blocked_pair_from_arrays
+    from dream_gnn_tpu_torch.graph.grouped import grouped_pair_from_arrays
+    from dream_gnn_tpu_torch.kernels import spmm_blocked as sb
+    from dream_gnn_tpu_torch.kernels import spmm_gather as sg
+    from dream_gnn_tpu_torch.kernels.spmm_slab import segment_sum_plain
+    from dream_gnn_tpu_torch.scripts import bench_scale, bench_spmm
+
+    t0 = time.perf_counter()
+    graph = bench_scale.build_graph(BENCH_N, BENCH_E, True, dev)
+    torch.cuda.synchronize()
+    print(f"== sparse SpMM kernels vs plain: bench_scale --grouped's "
+          f"relations {[p.fwd.n_live for p in graph.fwd]} edges over "
+          f"{BENCH_N} x {BENCH_N} nodes, built in "
+          f"{time.perf_counter() - t0:.2f} s")
+    gen = torch.Generator(device=dev).manual_seed(3)
+    err = {"gather": 0.0, "blocked": 0.0}
+    dtypes = (torch.float32, torch.bfloat16)
+    for r, pair in enumerate(graph.fwd):
+        for rate in (0.0, 0.3):
+            p = prf_mask_pair(pair, 777, rate) if rate else pair
+            for kind, g in (("fwd", p.fwd), ("bwd", p.bwd)):
+                x = torch.randn(g.n_src, 128, device=dev, generator=gen)
+                for dtype in dtypes:
+                    err["gather"] = max(err["gather"], _hold_spmm(
+                        f"gather rating {r} {kind} E={g.n_live} "
+                        f"{str(dtype)[6:]} rate={rate}", sg.spmm_gather_raw,
+                        sg.spmm_gather_plain, g, x, dtype))
+    print("  times in bf16 at bench_scale's shapes:")
+    for r, pair in enumerate(graph.fwd):
+        for kind in ("fwd", "bwd"):
+            g = getattr(pair, kind)
+            x = torch.randn(g.n_src, 128, device=dev).bfloat16()
+            print(f"    gather rating {r} {kind}: E={g.n_live}: "
+                  f"{_time_ms(lambda: sg.spmm_gather_raw(g, x)):.4f} ms")
+
+    t0 = time.perf_counter()
+    src, dst, val, x_np = bench_spmm.draw_graph(BENCH_N, BENCH_E)
+    pairs = {"blocked": blocked_pair_from_arrays(src, dst, val, BENCH_N,
+                                                 BENCH_N, device=dev),
+             "gather": grouped_pair_from_arrays(src, dst, val, BENCH_N,
+                                                BENCH_N, device=dev)}
+    x = torch.from_numpy(x_np).to(dev)
+    del src, dst, val, x_np
+    torch.cuda.synchronize()
+    print(f"  bench_spmm's graph: {BENCH_E} edges, U[0.5, 1.5) weights, "
+          f"both layouts in {time.perf_counter() - t0:.2f} s")
+    fns = {"blocked": (sb.spmm_blocked_raw, sb.spmm_blocked_plain),
+           "gather": (sg.spmm_gather_raw, sg.spmm_gather_plain)}
+    for name, pair in pairs.items():
+        for rate in (0.0, 0.3):
+            p = prf_mask_pair(pair, 4242, rate) if rate else pair
+            for kind, g in (("fwd", p.fwd), ("bwd", p.bwd)):
+                for dtype in dtypes:
+                    err[name] = max(err[name], _hold_spmm(
+                        f"{name} bench_spmm {kind} {str(dtype)[6:]} "
+                        f"rate={rate}", *fns[name], g, x, dtype))
+    gb, gg = pairs["blocked"].fwd, pairs["gather"].fwd
+    _control("fp32 gather kernel vs bf16 plain",
+             sg.spmm_gather_raw(gg, x, torch.float32),
+             sg.spmm_gather_plain(gg, x, torch.bfloat16))
+    _control("fp32 blocked kernel vs bf16 plain",
+             sb.spmm_blocked_raw(gb, x, torch.float32),
+             sb.spmm_blocked_plain(gb, x, torch.bfloat16))
+    _control("bf16 blocked kernel vs the grouped rounding (val unrounded)",
+             sb.spmm_blocked_raw(gb, x),
+             segment_sum_plain(gb.row_ptr, gb.src, gb.val, x, True))
+    _control("bf16 gather kernel vs the blocked rounding (val rounded)",
+             sg.spmm_gather_raw(gg, x),
+             segment_sum_plain(gg.row_ptr, gg.src, gg.val, x, True,
+                               round_val=True))
+    print(f"  both kernels: two launches give identical bits; times at "
+          f"{BENCH_E} edges in bf16:")
+    rows = [_spmm_row("spmm_gather", "pallas_spmm_gather.py:117",
+                      err["gather"], gg, x, *fns["gather"]),
+            _spmm_row("spmm_blocked", "pallas_spmm.py:61", err["blocked"],
+                      gb, x, *fns["blocked"])]
+    del pairs, gb, gg, x
+    torch.cuda.empty_cache()
+    _grouped_scatter(dev)
+    return rows, graph
+
+
+def _grouped_scatter(dev):
+    """spmm_gather as the scale decoder's table-gradient scatter (a layout
+    built with ``build_seq=False``): 1M slots into 100k rows against its
+    plain version and bit for bit against seq_scatter; the decoder's
+    gradients equal with either layout."""
+    from dream_gnn_tpu_torch.kernels import scale_decoder as sd
+    from dream_gnn_tpu_torch.kernels import seq_scatter as sq
+    from dream_gnn_tpu_torch.kernels import spmm_gather as sg
+
+    rng = np.random.default_rng(4)
+    n_cand = BENCH_CAND
+    cand = [torch.from_numpy(rng.integers(0, BENCH_N, n_cand)).to(dev)
+            for _ in range(2)]
+    lay = sd.build_scale_decoder_layout(*cand, BENCH_N, BENCH_N, device=dev)
+    print(f"  the decoder's scatter: {n_cand} slots into {BENCH_N} rows")
+    for scat, seq in ((lay.scat_drug, lay.seq_drug),
+                      (lay.scat_dis, lay.seq_dis)):
+        for x_dtype in (torch.float32, torch.bfloat16):
+            x = torch.randn(n_cand, 128, device=dev).to(x_dtype)
+            for dtype in (torch.float32, torch.bfloat16):
+                out = sg.spmm_gather_raw(scat, x, dtype)
+                _hold_spmm(f"scatter x {str(x_dtype)[6:]} mode "
+                           f"{str(dtype)[6:]}", sg.spmm_gather_raw,
+                           sg.spmm_gather_plain, scat, x, dtype)
+                if not torch.equal(out, sq.seq_scatter(seq, x, dtype)):
+                    raise AssertionError("the grouped scatter differs from "
+                                         "seq_scatter")
+    print("  grouped scatter == seq_scatter bit for bit")
+    x = torch.randn(n_cand, 128, device=dev).bfloat16()
+    g = lay.scat_drug
+    ms = _time_ms(lambda: sg.spmm_gather_raw(g, x))
+    node, xf = lay.drug_of_slot.long(), x.float()
+    out = torch.zeros(BENCH_N, 128, device=dev)
+    lib_ms = _time_ms(lambda: out.zero_().index_add_(0, node, xf))
+    nbytes = _nbytes(g.row_ptr, g.src, g.val, x) + BENCH_N * 128 * 4
+    print(f"  scatter: {ms:.4f} ms, bound {nbytes / PEAK_BYTES_S * 1e3:.5f} "
+          f"ms (bytes), index_add_ in f32: {lib_ms:.4f} ms")
+
+    # The whole decoder with either layout: the same bits.
+    f = torch.float32
+    pd, pv = torch.randn(BENCH_N, 128, device=dev) * 0.5, \
+        torch.randn(BENCH_N, 128, device=dev) * 0.5
+    wts = [torch.rand(128, device=dev) * 0.1, torch.rand(128, 64,
+                                                         device=dev) * 0.1,
+           torch.rand(64, device=dev) * 0.1, torch.rand(64, device=dev) * 0.2,
+           torch.zeros(1, device=dev)]
+    seed = torch.tensor([918273], dtype=torch.int32, device=dev)
+    gout = torch.randn(n_cand, device=dev)
+    lay_g = sd.build_scale_decoder_layout(*cand, BENCH_N, BENCH_N,
+                                          build_seq=False, device=dev)
+    for dtype in (f, torch.bfloat16):
+        res = []
+        for layout in (lay, lay_g):
+            leaves = [t.clone().requires_grad_(True) for t in (pd, pv, *wts)]
+            out = sd.scale_decoder(*leaves, layout, seed, 0.3, True, dtype)
+            (out * gout).sum().backward()
+            res.append([out.detach()] + [t.grad for t in leaves])
+        if not all(torch.equal(a, b) for a, b in zip(*res)):
+            raise AssertionError(f"scale decoder ({dtype}): build_seq=False "
+                                 f"differs from build_seq=True")
+    print(f"  scale decoder fwd+bwd at {n_cand} candidates: build_seq=False "
+          f"gives the bits of build_seq=True (fp32, bf16)")
+
+
+def phase_bench_model():
+    """The bench model's eval forward, card vs CPU, over the padded-COO
+    and the grouped layout at 10k x 10k nodes and 1M edges."""
+    from dream_gnn_tpu_torch.model.dream_gnn import (forward, init_params,
+                                                     map_params)
+    from dream_gnn_tpu_torch.scripts import bench_scale
+
+    n, n_edges, n_cand = 10_000, 1_000_000, 100_000
+    print(f"== bench model eval forward, card vs CPU: {n} x {n} nodes, "
+          f"{n_edges} edges, {n_cand} candidates")
+    cfg = bench_scale.model_config()
+    params = init_params(torch.Generator().manual_seed(0), cfg)
+    for grouped in (False, True):
+        outs = {}
+        for dev in ("cpu", "cuda:0"):
+            graph = bench_scale.build_graph(n, n_edges, grouped, dev)
+            inputs, _ = bench_scale.build_inputs(graph, n, n_cand, dev)
+            with torch.no_grad():
+                pred, *_ = forward(map_params(lambda x: x.to(dev), params),
+                                   inputs, cfg, train=False)
+            outs[dev] = pred.cpu()
+        a, b = outs["cuda:0"], outs["cpu"]
+        name = "grouped" if grouped else "coo"
+        if a.shape != (n_cand,) or not bool(torch.isfinite(a).all()):
+            raise AssertionError(f"{name} bench logits: shape "
+                                 f"{tuple(a.shape)} or non-finite values")
+        rel = float((a - b).abs().max()) / float(b.abs().max())
+        print(f"  {name} logits {tuple(a.shape)} rel_err={rel:.3e} "
+              f"tol=1e-02")
+        if rel > 1e-2:
+            raise AssertionError(f"{name} bench logits on the card disagree "
+                                 f"with the CPU")
+
+
+def phase_bench_scale():
+    """scripts.bench_scale at full size in both layouts, each with every
+    launch count set to 0 just before; returns the grouped run's counts."""
+    from dream_gnn_tpu_torch.scripts import bench_scale
+
+    steps = bench_scale.STEPS * (1 + bench_scale.REPEATS)
+    out = {}
+    for flags in ([], ["--grouped"]):
+        label = " ".join(["bench_scale", *flags])
+        print(f"== {label}: python -m dream_gnn_tpu_torch.scripts."
+              f"{label} (full size)")
+        torch.cuda.empty_cache()
+        _zero_launches()
+        res = bench_scale.main(flags)
+        torch.cuda.synchronize()
+        launches = _launches()
+        print(f"  launches on this path: {launches}")
+        if flags:
+            _expect_launches(launches, "gather", ("fwd", "bwd"), label)
+            want = {"fwd": 12 * steps, "bwd": 12 * steps, "raw": 0}
+            if launches["gather"] != want:
+                raise AssertionError(f"{label}: spmm_gather launches "
+                                     f"{launches['gather']}, the path "
+                                     f"implies {want} ({steps} steps)")
+        else:
+            _expect_launches(launches, "none", (), label)
+        if not np.isfinite(res["loss"]):
+            raise AssertionError(f"{label}: loss {res['loss']}")
+        print(f"  loss after {bench_scale.STEPS} steps {res['loss']:.4f}; "
+              f"{res['ms_per_step']:.3f} ms/step (best of "
+              f"{bench_scale.REPEATS} x {bench_scale.STEPS}, CUDA events), "
+              f"{res['edges_per_s']:.4e} edges/s; peak device memory "
+              f"{res['peak_memory_bytes'] / 2 ** 30:.2f} GiB; layout build "
+              f"{res['layout_build_s']:.3f} s")
+        out[bool(flags)] = launches
+    return out[True]
+
+
+def phase_bench_spmm(graph, n_steps: int = 10):
+    """scripts.bench_spmm at full size with its launch counts; then a
+    profile of ten bench_scale --grouped steps over ``graph``.  Returns
+    bench_spmm's counts."""
+    from dream_gnn_tpu_torch.config import AugmentConfig, TrainConfig
+    from dream_gnn_tpu_torch.model.dream_gnn import init_params
+    from dream_gnn_tpu_torch.scripts import bench_scale, bench_spmm
+    from dream_gnn_tpu_torch.train.step import init_state, make_one_step
+
+    print("== bench_spmm: python -m dream_gnn_tpu_torch.scripts.bench_spmm "
+          "(full size)")
+    torch.cuda.empty_cache()
+    _zero_launches()
+    res = bench_spmm.main([])
+    torch.cuda.synchronize()
+    launches = _launches()
+    print(f"  launches on this path: {launches}")
+    for mod, counts in launches.items():
+        for k, n in counts.items():
+            if mod in ("gather", "blocked") and k in ("fwd", "bwd"):
+                if n <= 0:
+                    raise AssertionError(f"bench_spmm never launched {mod} "
+                                         f"{k}")
+            elif n:
+                raise AssertionError(f"bench_spmm launched {mod} {k}")
+    for name in ("rel err blocked", "rel err gather"):
+        if not res[name] <= 1e-5:
+            raise AssertionError(f"bench_spmm {name} {res[name]}")
+
+    print(f"== profile: {n_steps} bench_scale --grouped steps at full size")
+    torch.cuda.empty_cache()
+    dev = torch.device("cuda", 0)
+    inputs, labels = bench_scale.build_inputs(graph, BENCH_N, BENCH_CAND, dev)
+    model = bench_scale.model_config()
+    cfg = TrainConfig(model=model, beta=0.0,
+                      augment=AugmentConfig(methods=()))
+    gen = torch.Generator(device=dev).manual_seed(0)
+    state = init_state(init_params(gen, model), gen, cfg)
+    step = make_one_step(model, cfg)
+    w = torch.ones_like(labels)
+    _profile("bench_scale --grouped step",
+             lambda: step(state, inputs, labels, w), n_steps, top=None)
     return launches
 
 
@@ -1230,6 +1570,14 @@ def main() -> int:
     torch.cuda.empty_cache()
     phase_scale_model()
     launches_s = phase_scale_trainer()
+    dev = torch.device("cuda", 0)
+    sparse_rows, graph = phase_sparse_kernels(dev)
+    phase_bench_model()
+    launches_g = phase_bench_scale()
+    launches_sp = phase_bench_spmm(graph)
+    del graph
+    # Rows 10 and 11 after row 9, as in the table of the TPU kernels.
+    rows = rows[:9] + sparse_rows + rows[9:]
     # Each kernel's launches on the path that runs it.
     for row, n in zip(rows, (launches["grid"]["fwd"], launches["grid"]["bwd"],
                              launches_b["grid"]["fwd_b"],
@@ -1239,11 +1587,15 @@ def main() -> int:
                              launches_eb["edge"]["fwd_b"],
                              launches_eb["edge"]["bwd_b"],
                              sum(launches_s["spmm"].values()),
+                             sum(launches_g["gather"].values()),
+                             sum(launches_sp["blocked"].values()),
                              launches_s["seq"]["seq_scatter"],
                              launches_s["scale"]["k2"],
                              launches_s["scale"]["b1"],
                              launches_s["scale"]["mirror"])):
         row["launches"] = n
+    if len(rows) != 15:
+        raise AssertionError(f"the kernel table has {len(rows)} rows, not 15")
     print(gpu)
     print(json.dumps({"kernels": rows}))
     print(json.dumps({"ok": True, "device": {

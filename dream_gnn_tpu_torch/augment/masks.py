@@ -1,8 +1,8 @@
 """Per-step stochastic augmentation as masks and noise.
 
 Port of ``edge_dropout`` and ``feature_noise`` of
-``dream_gnn_tpu/augment/masks.py``, for the dense and the slabbed encoder
-graph: every
+``dream_gnn_tpu/augment/masks.py``, for the dense, padded-COO, slabbed and
+grouped encoder graphs: every
 augmentation is a random mask or noise drawn per step; shapes stay
 fixed and no graph is rebuilt.  The randomness is drawn first
 (``draw_augment``) and applied second (``apply_augment``), so that the
@@ -23,12 +23,16 @@ Inputs stacked over folds (sharding/foldstack.py) get stacked draws:
 each draw is one call that makes the whole (F, ...) tensor, so no two
 folds share a mask or a noise tensor.
 
-The scale path's slabbed encoder graph (graph/slabbed.py) drops edges by a
-stateless PRF of (salt, physical edge id), ``prf_keep_mask``, so that a
-relation's forward and transposed layouts drop the same edges: the draw is
-two salts per rating (``edge_dropout_masks_grouped``), and the masks are
-applied to the layouts' weights (``prf_mask_pair``).  Its identity
-``CooGraph`` similarity graphs drop entries of ``val``.
+The slabbed and grouped encoder graphs (graph/slabbed.py, graph/grouped.py)
+drop edges by a stateless PRF of (salt, physical edge id),
+``prf_keep_mask``, so that a relation's forward and transposed layouts drop
+the same edges: the draw is two salts per rating
+(``edge_dropout_masks_grouped``), and the masks are applied to the layouts'
+weights (``prf_mask_pair``).  The padded-COO encoder graph
+(graph/bipartite_coo.py) draws one Bernoulli keep mask per relation and
+direction over its padded edges (``edge_dropout_masks_coo``), which the
+GCMC layer multiplies into ``val``.  Identity ``CooGraph`` similarity
+graphs drop entries of ``val``.
 
 The other four methods (add_random_edges, graph_noise, feature_masking,
 mix_up) are still to be ported (ROADMAP.md queue A, item 4).
@@ -43,11 +47,15 @@ import torch
 
 from dream_gnn_tpu_torch.config import AugmentConfig
 from dream_gnn_tpu_torch.graph.bipartite import BipartiteGraph
+from dream_gnn_tpu_torch.graph.bipartite_coo import BipartiteCoo
 from dream_gnn_tpu_torch.graph.coo import CooGraph
+from dream_gnn_tpu_torch.graph.grouped import BipartiteGrouped
 from dream_gnn_tpu_torch.graph.knn import NormAdj
 from dream_gnn_tpu_torch.graph.slabbed import BipartiteSlabbed
 from dream_gnn_tpu_torch.kernels.grid_decoder import fmix32
 
+# The encoder layouts whose edge dropout is the PRF of physical edge ids.
+PRF_LAYOUTS = (BipartiteSlabbed, BipartiteGrouped)
 GRAPH_FIELDS = ("drug_graph", "dis_graph", "drug_feature_graph",
                 "dis_feature_graph")
 FEATURE_FIELDS = ("drug_feat", "dis_feat", "drug_sim_feat", "dis_sim_feat")
@@ -69,6 +77,17 @@ def edge_dropout_masks(gen, n_drug: int, n_dis: int, num_ratings: int,
             "rev": _bernoulli(gen, 1.0 - rate, shape, device)}
 
 
+def edge_dropout_masks_coo(gen, graph: BipartiteCoo, rate: float):
+    """Per-edge keep masks of a padded-COO encoder graph (masks.py:74-89):
+    a tuple per direction of (E_pad,) Bernoulli(1 - rate) masks, one per
+    relation, drawn rating by rating, forward before reverse."""
+    fwd, rev = [], []
+    for r in range(graph.num_ratings):
+        for out, g in ((fwd, graph.fwd[r]), (rev, graph.rev[r])):
+            out.append(_bernoulli(gen, 1.0 - rate, (g.e_pad,), g.val.device))
+    return {"fwd": tuple(fwd), "rev": tuple(rev)}
+
+
 def prf_keep_mask(salt, edge_id: torch.Tensor, rate: float) -> torch.Tensor:
     """Stateless per-edge keep mask, a function of (salt, edge_id) only,
     bit for bit the JAX ``prf_keep_mask`` (masks.py:92-110): x = edge_id ^
@@ -83,10 +102,12 @@ def prf_keep_mask(salt, edge_id: torch.Tensor, rate: float) -> torch.Tensor:
 
 
 def prf_mask_pair(pair, salt, rate: float):
-    """A SlabbedCooPair with both layouts' weights masked by the PRF keep
-    mask of their physical edge ids (masks.py:113-127): the forward and
-    the transposed layout drop the same edges, so the gradient stays
-    exact.  The mask is drawn once per edge id and gathered per layout."""
+    """A layout pair (``SlabbedCooPair`` or ``GroupedCooPair``: any whose
+    layouts carry ``val`` and ``edge_id``) with both layouts' weights
+    masked by the PRF keep mask of their physical edge ids
+    (masks.py:113-127): the forward and the transposed layout drop the same
+    edges, so the gradient stays exact.  The mask is drawn once per edge id
+    and gathered per layout."""
     keep = prf_keep_mask(salt, torch.arange(pair.fwd.n_live,
                                             device=pair.fwd.val.device), rate)
     return dataclasses.replace(
@@ -97,9 +118,9 @@ def prf_mask_pair(pair, salt, rate: float):
                                 * keep[pair.bwd.edge_id.long()]))
 
 
-def edge_dropout_masks_grouped(gen, graph: BipartiteSlabbed, rate: float):
-    """Per-relation salts for the PRF edge dropout of a slabbed encoder
-    graph (masks.py:130-139): forward and reverse relations drop
+def edge_dropout_masks_grouped(gen, graph, rate: float):
+    """Per-relation salts for the PRF edge dropout of a slabbed or grouped
+    encoder graph (masks.py:130-139): forward and reverse relations drop
     independent sets; ``rate`` rides along to the apply site."""
     salts = torch.randint(0, 2 ** 31 - 1, (2, graph.num_ratings),
                           generator=gen, device=graph.ci_drug.device)
@@ -107,14 +128,18 @@ def edge_dropout_masks_grouped(gen, graph: BipartiteSlabbed, rate: float):
             "kind": "grouped_prf"}
 
 
-def prf_mask_graph(graph: BipartiteSlabbed, edge_masks) -> BipartiteSlabbed:
-    """The slabbed encoder graph with every relation's PRF edge dropout
-    applied, for all relations at once: what the JAX layer does to each
-    relation (gcmc.py:194-203 of the JAX package).  The port's only site of
-    this dropout: model/dream_gnn.py:_encode masks the graph once for all
-    layers, and nn/gcmc.py takes the masked graph."""
+def prf_mask_graph(graph, edge_masks):
+    """The slabbed or grouped encoder graph with every relation's PRF edge
+    dropout applied, for all relations at once: what the JAX layer does to
+    each relation (gcmc.py:194-225 of the JAX package).  The port's only
+    site of this dropout: model/dream_gnn.py:_encode masks the graph once
+    for all layers, and nn/gcmc.py takes the masked graph."""
+    if not isinstance(graph, PRF_LAYOUTS):
+        raise ValueError(f"a {type(graph).__name__} takes no PRF edge "
+                         f"dropout")
     if edge_masks.get("kind") != "grouped_prf":
-        raise ValueError("the slabbed layout needs PRF edge masks")
+        raise ValueError(f"the {type(graph).__name__} layout needs PRF edge "
+                         f"masks")
     rate = edge_masks["rate"]
     return dataclasses.replace(
         graph,
@@ -154,13 +179,16 @@ def draw_augment(gen, inputs, cfg: AugmentConfig, num_ratings: int = 2):
                     gen, enc.n_drug, enc.n_dis, num_ratings,
                     cfg.edge_dropout_rate, enc.a1.device,
                     folds=tuple(enc.a1.shape[:-2]))
-            elif isinstance(enc, BipartiteSlabbed):
+            elif isinstance(enc, PRF_LAYOUTS):
                 draws["edge_masks"] = edge_dropout_masks_grouped(
+                    gen, enc, cfg.edge_dropout_rate)
+            elif isinstance(enc, BipartiteCoo):
+                draws["edge_masks"] = edge_dropout_masks_coo(
                     gen, enc, cfg.edge_dropout_rate)
             else:
                 raise NotImplementedError(
                     f"edge dropout on {type(enc).__name__} is not ported yet "
-                    f"(ROADMAP.md queue A, items 7, 8 and 10)")
+                    f"(ROADMAP.md queue A, item 10)")
             for field in GRAPH_FIELDS:
                 g = getattr(inputs, field)
                 if g is not None:

@@ -1,38 +1,55 @@
-// Segmented row sums for Hopper (sm_90a): the scale path's encoder SpMM and
-// the scale decoder's table-gradient scatter.
+// Segmented row sums for Hopper (sm_90a): the encoder SpMMs and the scale
+// decoder's table-gradient scatter.
 //
-// Replaces two Pallas TPU kernels:
-// - _slab_kernel of dream_gnn_tpu/kernels/pallas_spmm_slab.py (spmm_slab):
+// Replaces four Pallas TPU kernels, all of dream_gnn_tpu/kernels/:
+// - _slab_kernel of pallas_spmm_slab.py (spmm_slab), the slabbed layout;
+// - _spmm_gather_kernel of pallas_spmm_gather.py (spmm_gather), the grouped
+//   layout, also the scale decoder's scatter when its layout has no
+//   sequential scatter;
+// - _spmm_kernel of pallas_spmm.py (spmm_blocked), the blocked layout:
 //     out[n] = sum over the edges e into dst row n of val_e * x[src_e];
-// - _seq_scatter_kernel of dream_gnn_tpu/kernels/pallas_seq_scatter.py
-//   (seq_scatter): out[n] = sum over the slots k of node n of val_k * x[k],
+// - _seq_scatter_kernel of pallas_seq_scatter.py (seq_scatter):
+//     out[n] = sum over the slots k of node n of val_k * x[k],
 //   for a slot stream sorted by node.
-// Both are one segmented sum over a CSR ordering: row n owns the entries
-// p = ptr[n] .. ptr[n+1]-1, and entry p reads row src[p] of x (GATHER, the
-// SpMM) or row p itself (the scatter, whose slots already lie in node order).
+// All are one segmented sum over a CSR ordering (graph/csr.py): row n owns
+// the entries p = ptr[n] .. ptr[n+1]-1, and entry p reads row src[p] of x
+// (GATHER, the SpMMs) or row p itself (the scatter, whose slots already lie
+// in node order).  The TPU layouts' slabs, groups, windows and chunks exist
+// for VMEM and the MXU and have no counterpart here.
 //
-// Rounding.  With ROUND (the bf16 mode of both Pallas kernels) an entry's
-// message is rnd(rnd(x) * val), rnd rounding to bf16, and the messages are
-// summed in f32.  The SpMM's wrapper hands x over in bf16 (the Pallas kernel
-// packs x into bf16 panels, pallas_spmm_slab.py:180-188; here it also halves
-// the gathered bytes); the scatter's wrapper rounds val, which the Pallas
-// kernel multiplies in bf16 (pallas_seq_scatter.py:179-180).  Without ROUND
-// the message is x * val in f32.  A null val weighs every entry 1 (the scale
-// decoder's scatter, whose slots carry no weights): no weights are read, and
-// rnd(rnd(x) * 1) = rnd(x) gives the same bits as a val of ones.
+// Rounding.  The Pallas kernels round their bf16 messages at different
+// points, and MODE holds each (rnd rounds to bf16, sums are f32):
+//   MODE_F32       x * val, in f32 (every kernel's fp32 mode);
+//   MODE_RX        rnd(rnd(x) * val): the slab SpMM, which packs x into
+//                  bf16 panels (pallas_spmm_slab.py:180-188), and the grouped
+//                  SpMM with packed panels (pallas_spmm_gather.py:313-327 and
+//                  270-272); the scatter, whose wrapper rounds val, as the
+//                  Pallas kernel multiplies in bf16 (pallas_seq_scatter.py:
+//                  179-180);
+//   MODE_MSG       rnd(x * val): the grouped SpMM without packed panels (an
+//                  odd d), which multiplies the f32 panel by val and rounds
+//                  the message;
+//   MODE_RX_RV     rnd(rnd(val) * rnd(x)): the blocked SpMM, whose weight
+//                  rides the gather one-hot cast to bf16 (pallas_spmm.py:73,
+//                  78-79).
+// The wrappers hand x over in bf16 where the mode rounds it, which also
+// halves the gathered bytes.  A null val weighs every entry 1 (the scale
+// decoder's scatter, whose slots carry no weights): no weights are read,
+// and rnd(rnd(x) * 1) = rnd(x) gives the same bits as a val of ones.
 //
 // What bounds it on an H100: bytes.  Per entry it reads a 4-byte index, a
 // 4-byte weight and a row of x (256 bytes at d = 128 in bf16) and does 2d
-// flops.  At the scale path's shapes the SpMM's x (100k x 128 bf16, 25.6 MB)
-// fits in the 50 MB L2, so the least traffic is the indices and weights
-// once, x once and out once; the scatter streams its rows of x in order.
+// flops.  At the encoder's shapes x (100k x 128 bf16, 25.6 MB) fits in the
+// 50 MB L2, so the least traffic is the indices and weights once, x once
+// and out once; the scatter streams its rows of x in order.
 //
-// Design (simple first): one warp per row.  Each lane owns VEC consecutive
-// columns (VEC = 4 when d % 4 == 0: one 8-byte bf16 or 16-byte f32 load per
-// entry and lane, so a warp reads a 128-wide row in one request); the warp
-// loads 32 entries' indices and weights at once and broadcasts them with
-// shuffles.  A row's entries are summed in CSR order in f32 by one warp, with
-// no atomics, so two runs give the same bits.
+// Design (simple first): one warp per row, which keeps x's random rows in
+// L2 and reads the index stream once, in order.  Each lane owns VEC
+// consecutive columns (VEC = 4 when d % 4 == 0: one 8-byte bf16 or 16-byte
+// f32 load per entry and lane, so a warp reads a 128-wide row in one
+// request); the warp loads 32 entries' indices and weights at once and
+// broadcasts them with shuffles.  A row's entries are summed in CSR order in
+// f32 by one warp, with no atomics, so two runs give the same bits.
 //
 // The entry point returns cudaGetLastError() after its launch.
 
@@ -44,6 +61,7 @@ namespace {
 
 constexpr int WARPS = 8;            // rows per block
 constexpr unsigned FULL = 0xffffffffu;
+enum Mode { MODE_F32 = 0, MODE_RX = 1, MODE_MSG = 2, MODE_RX_RV = 3 };
 
 __device__ __forceinline__ float rnd_bf16(float x) {
   return __bfloat162float(__float2bfloat16_rn(x));
@@ -71,7 +89,7 @@ __device__ __forceinline__ void load_row(const __nv_bfloat16* p, float (&v)[VEC]
   }
 }
 
-template <typename XT, int VEC, bool GATHER, bool ROUND>
+template <typename XT, int VEC, bool GATHER, int MODE>
 __global__ void __launch_bounds__(WARPS * 32) segment_sum_kernel(
     const int* __restrict__ ptr, const int* __restrict__ src,
     const float* __restrict__ val, const XT* __restrict__ x,
@@ -93,6 +111,7 @@ __global__ void __launch_bounds__(WARPS * 32) segment_sum_kernel(
       if (p < p1) {
         s = GATHER ? src[p] : p;
         v = val != nullptr ? val[p] : 1.f;
+        if constexpr (MODE == MODE_RX_RV) v = rnd_bf16(v);
       }
       const int cnt = min(32, p1 - base);
 #pragma unroll 4
@@ -104,10 +123,12 @@ __global__ void __launch_bounds__(WARPS * 32) segment_sum_kernel(
           load_row<VEC>(x + (size_t)sq * d + c, xv);
 #pragma unroll
           for (int u = 0; u < VEC; ++u) {
-            if constexpr (ROUND) {
-              acc[u] += rnd_bf16(rnd_bf16(xv[u]) * vq);
-            } else {
+            if constexpr (MODE == MODE_F32) {
               acc[u] += xv[u] * vq;
+            } else if constexpr (MODE == MODE_MSG) {
+              acc[u] += rnd_bf16(xv[u] * vq);
+            } else {
+              acc[u] += rnd_bf16(rnd_bf16(xv[u]) * vq);
             }
           }
         }
@@ -120,32 +141,47 @@ __global__ void __launch_bounds__(WARPS * 32) segment_sum_kernel(
   }
 }
 
-template <typename XT, bool GATHER, bool ROUND>
+template <typename XT, bool GATHER, int MODE>
 cudaError_t launch(const int* ptr, const int* src, const float* val,
                    const void* x, float* out, int n_rows, int d,
                    cudaStream_t s) {
   const dim3 grid((n_rows + WARPS - 1) / WARPS), block(WARPS * 32);
   const XT* xt = static_cast<const XT*>(x);
   if (d % 4 == 0) {
-    segment_sum_kernel<XT, 4, GATHER, ROUND><<<grid, block, 0, s>>>(
+    segment_sum_kernel<XT, 4, GATHER, MODE><<<grid, block, 0, s>>>(
         ptr, src, val, xt, out, n_rows, d);
   } else {
-    segment_sum_kernel<XT, 1, GATHER, ROUND><<<grid, block, 0, s>>>(
+    segment_sum_kernel<XT, 1, GATHER, MODE><<<grid, block, 0, s>>>(
         ptr, src, val, xt, out, n_rows, d);
   }
   return cudaGetLastError();
 }
 
+template <typename XT, bool GATHER>
+cudaError_t dispatch_mode(const int* ptr, const int* src, const float* val,
+                          const void* x, float* out, int n_rows, int d,
+                          int mode, cudaStream_t s) {
+  switch (mode) {
+    case MODE_F32:
+      return launch<XT, GATHER, MODE_F32>(ptr, src, val, x, out, n_rows, d, s);
+    case MODE_RX:
+      return launch<XT, GATHER, MODE_RX>(ptr, src, val, x, out, n_rows, d, s);
+    case MODE_MSG:
+      return launch<XT, GATHER, MODE_MSG>(ptr, src, val, x, out, n_rows, d, s);
+    case MODE_RX_RV:
+      return launch<XT, GATHER, MODE_RX_RV>(ptr, src, val, x, out, n_rows, d, s);
+    default:
+      return cudaErrorInvalidValue;
+  }
+}
+
 template <typename XT>
 cudaError_t dispatch(const int* ptr, const int* src, const float* val,
-                     const void* x, float* out, int n_rows, int d, int round,
+                     const void* x, float* out, int n_rows, int d, int mode,
                      cudaStream_t s) {
-  if (src != nullptr) {
-    return round ? launch<XT, true, true>(ptr, src, val, x, out, n_rows, d, s)
-                 : launch<XT, true, false>(ptr, src, val, x, out, n_rows, d, s);
-  }
-  return round ? launch<XT, false, true>(ptr, src, val, x, out, n_rows, d, s)
-               : launch<XT, false, false>(ptr, src, val, x, out, n_rows, d, s);
+  return src != nullptr
+             ? dispatch_mode<XT, true>(ptr, src, val, x, out, n_rows, d, mode, s)
+             : dispatch_mode<XT, false>(ptr, src, val, x, out, n_rows, d, mode, s);
 }
 
 }  // namespace
@@ -155,14 +191,14 @@ extern "C" {
 // out (n_rows, d) f32 = the segmented sums above over ptr (n_rows + 1) int32,
 // val (nnz,) f32 (null: every weight 1) and x (rows, d), bf16 when x_bf16
 // else f32.  src (nnz,) int32 gathers row src[p] of x; a null src reads row
-// p.  round selects the bf16 messages.
+// p.  mode is the rounding (enum Mode above).
 int segment_sum(const int* ptr, const int* src, const float* val,
                 const void* x, float* out, int n_rows, int d, int x_bf16,
-                int round, void* stream) {
+                int mode, void* stream) {
   if (n_rows == 0) return 0;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  return (int)(x_bf16 ? dispatch<__nv_bfloat16>(ptr, src, val, x, out, n_rows, d, round, s)
-                      : dispatch<float>(ptr, src, val, x, out, n_rows, d, round, s));
+  return (int)(x_bf16 ? dispatch<__nv_bfloat16>(ptr, src, val, x, out, n_rows, d, mode, s)
+                      : dispatch<float>(ptr, src, val, x, out, n_rows, d, mode, s));
 }
 
 }  // extern "C"

@@ -26,7 +26,13 @@ The pipeline (pallas_scale_decoder.py:808-877):
   scatter-add of those rows by drug (kernels/seq_scatter.py); the mirror
   recomputes a1 from the rows in mirror-slot order and writes its da1 rows,
   scattered by disease into ``d_P_dis``.  The cotangent reaches the mirror
-  through a plain gather (``gout_perm``).
+  through a plain gather (``gout_perm``).  A layout built with
+  ``build_seq=False`` has no sequential scatters, and the two scatter-adds
+  run as the grouped SpMM (kernels/spmm_gather.py) over ``scat_drug`` and
+  ``scat_dis``, whose sources are slot positions and whose destinations are
+  node rows (pallas_scale_decoder.py:843-863).  Both read each node's slots
+  in slot order and round each message as rnd(x), so the two give the same
+  bits.
 
 B1 recomputes from the rounded saved a1 and the mirror from the unrounded
 one, so in bf16 the two table gradients see different a1 roundings, as in
@@ -45,9 +51,11 @@ from __future__ import annotations
 
 import ctypes
 import dataclasses
+from typing import Optional
 
 import torch
 
+from dream_gnn_tpu_torch.graph.grouped import GroupedCoo, grouped_from_arrays
 from dream_gnn_tpu_torch.kernels import cuda_build
 from dream_gnn_tpu_torch.kernels.grid_decoder import (
     H1, H2, check_inputs, drop_args, dropout_seeds, fmix32, keep_scale,
@@ -55,6 +63,7 @@ from dream_gnn_tpu_torch.kernels.grid_decoder import (
 from dream_gnn_tpu_torch.kernels.seq_scatter import (SeqScatter,
                                                       build_seq_scatter,
                                                       seq_scatter)
+from dream_gnn_tpu_torch.kernels.spmm_gather import spmm_gather_raw
 from dream_gnn_tpu_torch.utils.device import as_tensor
 
 LAUNCHES = {"k2": 0, "b1": 0, "mirror": 0}
@@ -79,10 +88,13 @@ class ScaleDecoderLayout:
     dis_of_mslot: torch.Tensor
     gout_perm: torch.Tensor      # mirror slot -> forward slot
     inv_slot: torch.Tensor       # candidate -> forward slot
-    seq_drug: SeqScatter         # forward slots by drug
-    seq_dis: SeqScatter          # mirror slots by disease
+    scat_drug: GroupedCoo        # forward slot -> drug row
+    scat_dis: GroupedCoo         # mirror slot -> disease row
     n_drug: int
     n_dis: int
+    # The sequential scatters of the same slots, None with build_seq=False.
+    seq_drug: Optional[SeqScatter] = None   # forward slots by drug
+    seq_dis: Optional[SeqScatter] = None    # mirror slots by disease
 
     @property
     def n_pos(self) -> int:
@@ -107,15 +119,12 @@ def build_scale_decoder_layout(dec_src, dec_dst, n_drug: int, n_dis: int,
                                rank_pad=None, build_seq: bool = True,
                                device=None) -> ScaleDecoderLayout:
     """The slot orders of candidates (dec_src[e], dec_dst[e]), with torch
-    ops on the list's device (pallas_scale_decoder.py:191-258)."""
+    ops on the list's device (pallas_scale_decoder.py:191-258): the grouped
+    scatter layouts always, the sequential ones with ``build_seq``."""
     if rank_pad is not None:
         raise NotImplementedError(
             "rank_pad lays out per-shard candidate lists, which is not ported "
             "yet (ROADMAP.md queue A, item 10: multi-device)")
-    if not build_seq:
-        raise NotImplementedError(
-            "the decoder backward without the sequential scatter layouts "
-            "needs the grouped scatter (ROADMAP.md queue B8)")
     src = as_tensor(dec_src, torch.int64, device)
     dst = as_tensor(dec_dst, torch.int64, src.device)
     e = src.shape[0]
@@ -127,15 +136,21 @@ def build_scale_decoder_layout(dec_src, dec_dst, n_drug: int, n_dis: int,
             raise ValueError(f"{name} ids must lie in [0, {n})")
     fwd = torch.argsort(src, stable=True)
     mirror = torch.argsort(dst, stable=True)
+    slots = torch.arange(e, device=src.device)
     inv_slot = torch.empty_like(fwd)
-    inv_slot[fwd] = torch.arange(e, device=src.device)
+    inv_slot[fwd] = slots
+    ones = torch.ones(e, dtype=torch.float32, device=src.device)
     return ScaleDecoderLayout(
         fwd_eid=fwd.int(), drug_of_slot=src[fwd].int(),
         dis_of_slot=dst[fwd].int(), mirror_eid=mirror.int(),
         drug_of_mslot=src[mirror].int(), dis_of_mslot=dst[mirror].int(),
         gout_perm=inv_slot[mirror].int(), inv_slot=inv_slot.int(),
-        seq_drug=build_seq_scatter(src[fwd], None, None, n_drug),
-        seq_dis=build_seq_scatter(dst[mirror], None, None, n_dis),
+        scat_drug=grouped_from_arrays(slots, src[fwd], ones, e, n_drug),
+        scat_dis=grouped_from_arrays(slots, dst[mirror], ones, e, n_dis),
+        seq_drug=(build_seq_scatter(src[fwd], None, None, n_drug)
+                  if build_seq else None),
+        seq_dis=(build_seq_scatter(dst[mirror], None, None, n_dis)
+                 if build_seq else None),
         n_drug=n_drug, n_dis=n_dis)
 
 
@@ -336,6 +351,15 @@ def launch_mirror(pd, pv, layout: ScaleDecoderLayout, g_m, b1, w2, b2, w3,
 # ---------------------------------------------------------------------------
 # The differentiable decoder.
 
+def _scatter(seq: Optional[SeqScatter], scat: GroupedCoo, x, dtype):
+    """The table gradient of da1 rows ``x``: the sequential scatter where
+    the layout has one, else the grouped SpMM (pallas_scale_decoder.py:
+    843-863)."""
+    if seq is not None:
+        return seq_scatter(seq, x, dtype)
+    return spmm_gather_raw(scat, x, dtype)
+
+
 class _ScaleDecoder(torch.autograd.Function):
     @staticmethod
     def forward(ctx, pd, pv, b1, w2, b2, w3, b3, layout, seed, rate, train,
@@ -369,8 +393,8 @@ class _ScaleDecoder(torch.autograd.Function):
             da1_m = scale_bwd_plain(
                 None, pd, pv, layout.drug_of_mslot, layout.dis_of_mslot,
                 layout.mirror_eid, g_m, b1, *common, False)
-        d_pd = seq_scatter(layout.seq_drug, da1, dtype)
-        d_pv = seq_scatter(layout.seq_dis, da1_m, dtype)
+        d_pd = _scatter(layout.seq_drug, layout.scat_drug, da1, dtype)
+        d_pv = _scatter(layout.seq_dis, layout.scat_dis, da1_m, dtype)
         db3 = g.sum(0, keepdim=True)
         return (d_pd, d_pv, db1, dw2, db2, dw3, db3) + (None,) * 6
 

@@ -1,13 +1,15 @@
-"""Aggregation over the dense (``NormAdj``) and padded-COO (``CooGraph``)
-graph layouts.
+"""Aggregation over the dense (a matrix, or ``NormAdj``) and padded-COO
+(``CooGraph``) graph layouts.
 
-Port of ``dream_gnn_tpu/kernels/spmm.py``, one contract for both:
+Port of ``dream_gnn_tpu/kernels/spmm.py``, one contract for all:
 ``out[d] = sum_e val_e * x[src_e]``.  The reference's graphs (hundreds of
 nodes) are stored dense, so the aggregation is one matrix product; the COO
-layout is a weighted segment sum.  The JAX package leaves both to XLA
-(``jnp.dot``, ``segment_sum``), and the port to plain PyTorch
-(``torch.matmul``, ``index_add``).  The scale path's encoder SpMM is a
-kernel of its own (kernels/spmm_slab.py).
+layout (the scale path's identity graphs, and the padded-COO encoder of
+graph/bipartite_coo.py) is a weighted segment sum.  The JAX package leaves
+both to XLA (``jnp.dot``, ``segment_sum``), and the port to plain PyTorch
+(``torch.matmul``, ``index_add``).  The slabbed, grouped and blocked
+encoder layouts have kernels of their own (kernels/spmm_slab.py,
+kernels/spmm_gather.py, kernels/spmm_blocked.py).
 """
 
 from __future__ import annotations
@@ -32,11 +34,10 @@ def spmm_coo(g: CooGraph, x: torch.Tensor) -> torch.Tensor:
 
 
 def spmm(g, x: torch.Tensor) -> torch.Tensor:
-    """Layout-dispatching aggregation."""
+    """Layout-dispatching aggregation: a ``CooGraph``, a ``NormAdj``, or a
+    plain (n_dst, n_src) matrix, as the JAX ``spmm`` (spmm.py:51-57)."""
     if isinstance(g, CooGraph):
         return spmm_coo(g, x)
     if isinstance(g, NormAdj):
         return spmm_dense(g.a, x)
-    raise NotImplementedError(
-        f"graph layout {type(g).__name__} is not ported yet (ROADMAP.md "
-        f"queue A, item 8: the grouped and blocked layouts)")
+    return spmm_dense(g, x)

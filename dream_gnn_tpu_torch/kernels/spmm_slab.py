@@ -18,9 +18,10 @@ and the backward rounds its cotangent the same way; the sums are f32.  The
 wrapper rounds x once to bf16, which also halves the bytes the kernel
 gathers.  ``dtype=float32`` keeps everything in f32.
 
-The kernel (``csrc/spmm.cu``, shared with kernels/seq_scatter.py) is a
-segmented row sum: one warp per dst row sums the row's edges in CSR order,
-without atomics, so two runs give the same bits.
+The kernel (``csrc/spmm.cu``, shared with kernels/seq_scatter.py,
+kernels/spmm_gather.py and kernels/spmm_blocked.py) is a segmented row
+sum: one warp per dst row sums the row's edges in CSR order, without
+atomics, so two runs give the same bits.
 
 Dispatch.  ``spmm_slab`` launches the kernel for CUDA tensors and runs the
 plain version only for CPU tensors; there is no fallback from one to the
@@ -44,13 +45,31 @@ LAUNCHES = {"fwd": 0, "bwd": 0}
 _lib = None
 
 
+def rounding_mode(rounded: bool, round_x: bool = True,
+                  round_val: bool = False) -> int:
+    """The kernel's ``mode`` (``enum Mode`` of csrc/spmm.cu): with
+    ``rounded`` each message is rounded to bf16, after rounding x when
+    ``round_x`` and val when ``round_val``; without, x * val in f32."""
+    if not rounded:
+        return 0
+    if round_val:
+        if not round_x:
+            raise ValueError("the segment sum rounds val only with x")
+        return 3
+    return 1 if round_x else 2
+
+
 def segment_sum_plain(ptr: torch.Tensor, src: Optional[torch.Tensor],
                       val: Optional[torch.Tensor], x: torch.Tensor,
-                      rounded: bool) -> torch.Tensor:
+                      rounded: bool, round_x: bool = True,
+                      round_val: bool = False) -> torch.Tensor:
     """The kernel's function in plain PyTorch: (n_rows, d) f32 sums over
     the CSR ``ptr``; entry p reads row ``src[p]`` of x, or row p when
-    ``src`` is None, with weight ``val[p]``, or 1 when ``val`` is None;
-    ``rounded`` rounds each message to bf16 as rnd(rnd(x) * val)."""
+    ``src`` is None, with weight ``val[p]``, or 1 when ``val`` is None.
+    ``rounded`` rounds each message to bf16: rnd(rnd(x) * val), or
+    rnd(x * val) without ``round_x``, or rnd(rnd(x) * rnd(val)) with
+    ``round_val``."""
+    rounding_mode(rounded, round_x, round_val)
     n_rows = ptr.shape[0] - 1
     counts = (ptr[1:] - ptr[:-1]).long()
     rows = torch.repeat_interleave(
@@ -58,9 +77,11 @@ def segment_sum_plain(ptr: torch.Tensor, src: Optional[torch.Tensor],
     xs = x[src.long()] if src is not None else x[:rows.shape[0]]
     xs = xs.float()
     dtype = torch.bfloat16 if rounded else torch.float32
-    msg = round_to(xs, dtype)
+    msg = round_to(xs, dtype) if round_x else xs
     if val is not None:
-        msg = round_to(msg * val[:, None], dtype)
+        v = round_to(val, dtype) if round_val else val
+        msg = msg * v[:, None]
+    msg = round_to(msg, dtype)
     out = torch.zeros((n_rows, x.shape[1]), dtype=torch.float32,
                       device=x.device)
     return out.index_add_(0, rows, msg)
@@ -88,11 +109,14 @@ def _check(x, name, dtypes, shape, dev):
 
 def launch_segment_sum(ptr: torch.Tensor, src: Optional[torch.Tensor],
                        val: Optional[torch.Tensor], x: torch.Tensor,
-                       rounded: bool) -> torch.Tensor:
+                       rounded: bool, round_x: bool = True,
+                       round_val: bool = False) -> torch.Tensor:
     """One launch of the kernel of ``csrc/spmm.cu`` on CUDA tensors: ptr
     (n_rows + 1,) int32, src (nnz,) int32 or None, val (nnz,) f32 or None
-    (weight 1), x (rows, d) bf16 or f32.  Returns (n_rows, d) f32.  The
-    callers count it."""
+    (weight 1), x (rows, d) bf16 or f32; the rounding as in
+    ``segment_sum_plain``.  Returns (n_rows, d) f32.  The callers count
+    it."""
+    mode = rounding_mode(rounded, round_x, round_val)
     dev = x.device
     nnz = (src if src is not None else val if val is not None else x).shape[0]
     n_rows, d = ptr.shape[0] - 1, x.shape[-1]
@@ -110,8 +134,8 @@ def launch_segment_sum(ptr: torch.Tensor, src: Optional[torch.Tensor],
                           src.data_ptr() if src is not None else None,
                           val.data_ptr() if val is not None else None,
                           x.data_ptr(), out.data_ptr(),
-                          n_rows, d, int(x.dtype == torch.bfloat16),
-                          int(rounded), stream_ptr(dev))
+                          n_rows, d, int(x.dtype == torch.bfloat16), mode,
+                          stream_ptr(dev))
     if err != 0:
         raise RuntimeError(f"segment_sum launch failed: CUDA error {err}")
     return out

@@ -20,8 +20,9 @@ model.py:4-103):
   the 'pallas' backend runs the scale decoder (kernels/scale_decoder.py),
   whose logits come in the layout's slot order.
 
-The encoder graph is dense (``BipartiteGraph``) or, on the scale path,
-slabbed (``BipartiteSlabbed``); a slabbed graph's PRF edge dropout is
+The encoder graph is dense (``BipartiteGraph``) or, at scale, padded COO
+(``BipartiteCoo``), slabbed (``BipartiteSlabbed``) or grouped
+(``BipartiteGrouped``); a slabbed or grouped graph's PRF edge dropout is
 applied once per forward, since every layer draws the same masks from the
 same salts.
 
@@ -43,9 +44,8 @@ from typing import Any, Optional
 
 import torch
 
-from dream_gnn_tpu_torch.augment.masks import prf_mask_graph
+from dream_gnn_tpu_torch.augment.masks import PRF_LAYOUTS, prf_mask_graph
 from dream_gnn_tpu_torch.config import ModelConfig
-from dream_gnn_tpu_torch.graph.slabbed import BipartiteSlabbed
 from dream_gnn_tpu_torch.kernels.edge_decoder import (
     EdgeCSR, decoder_apply_fused, decoder_apply_fused_batched)
 from dream_gnn_tpu_torch.kernels.grid_decoder import (
@@ -75,7 +75,7 @@ class ModelInputs:
     """One forward pass's graph and feature inputs (Net.forward's
     argument list, model.py:60-64)."""
 
-    enc_graph: Any                     # BipartiteGraph | BipartiteSlabbed
+    enc_graph: Any                     # BipartiteGraph or a sparse layout
     dec_src: torch.Tensor              # (E,) drug ids, candidate-pair order
     dec_dst: torch.Tensor              # (E,) disease ids
     drug_graph: Any                    # NormAdj | CooGraph
@@ -149,7 +149,7 @@ def _encode(params, inputs: ModelInputs, cfg: ModelConfig, *, train: bool,
     enc_graph = inputs.enc_graph
     # The salts are per relation, not per layer: one masked graph serves
     # every layer (the JAX layer masks it anew in each).
-    if isinstance(enc_graph, BipartiteSlabbed) and edge_masks is not None:
+    if isinstance(enc_graph, PRF_LAYOUTS) and edge_masks is not None:
         enc_graph, edge_masks = prf_mask_graph(enc_graph, edge_masks), None
     drug_feat, dis_feat = inputs.drug_feat, inputs.dis_feat
     drug_out = dis_out = 0.0

@@ -1,6 +1,6 @@
 """GCMC layer: relation-typed bipartite graph convolution.
 
-Port of the dense and slabbed branches of ``dream_gnn_tpu/nn/gcmc.py``
+Port of the single-device branches of ``dream_gnn_tpu/nn/gcmc.py``
 (reference ``GCMCLayer`` + ``GCMCGraphConv``, layers.py:18-236).  Per rating
 r and direction: ``feat @ W_r``, times a *node-dropped* source norm
 ``dropout(cj)`` (layers.py:224-225), aggregation over the graph, then the
@@ -11,11 +11,16 @@ activated, dropped out and projected by a shared Linear
 Aggregation by layout:
 - dense (``BipartiteGraph``): one matrix product over the adjacency mask,
   times the per-etype edge keep masks of augmentation;
-- slabbed (``BipartiteSlabbed``, the scale path): the SpMM kernel of
-  kernels/spmm_slab.py over each relation's CSR layouts (gcmc.py:185-205 of
-  the JAX package).  The PRF edge dropout is applied to the graph before
-  the layer (augment/masks.py:prf_mask_graph, once for all layers in
-  model/dream_gnn.py:_encode), so the layer takes no edge masks.
+- padded COO (``BipartiteCoo``): ``spmm_coo``, a weighted ``index_add``,
+  over each relation, with the per-edge keep masks multiplied into ``val``
+  (gcmc.py:226-237 of the JAX package, which leaves it to XLA's
+  ``segment_sum``: no kernel);
+- slabbed (``BipartiteSlabbed``, the scale path) and grouped
+  (``BipartiteGrouped``, the scale benchmark): the SpMM kernels of
+  kernels/spmm_slab.py and kernels/spmm_gather.py over each relation's CSR
+  layouts (gcmc.py:185-225).  The PRF edge dropout is applied to the graph
+  before the layer (augment/masks.py:prf_mask_graph, once for all layers
+  in model/dream_gnn.py:_encode), so the layer takes no edge masks.
 
 Weight parity notes:
 - basis decomposition ``W = att @ basis`` ties the relations' weights
@@ -28,18 +33,23 @@ Params, features, graphs and masks may carry a leading fold axis F
 (a stack of folds, train/stacked.py): every product is batched over it and
 every bias broadcasts as ``b[..., None, :]``.
 
-The COO, grouped and sharded encoder layouts are still to be ported
-(ROADMAP.md queue A, items 7, 8 and 10).
+The sharded encoder layouts are still to be ported (ROADMAP.md queue A,
+item 10).
 """
 
 from __future__ import annotations
 
+import dataclasses
 from typing import Optional
 
 import torch
 
 from dream_gnn_tpu_torch.graph.bipartite import BipartiteGraph
+from dream_gnn_tpu_torch.graph.bipartite_coo import BipartiteCoo
+from dream_gnn_tpu_torch.graph.grouped import BipartiteGrouped
 from dream_gnn_tpu_torch.graph.slabbed import BipartiteSlabbed
+from dream_gnn_tpu_torch.kernels.spmm import spmm_coo
+from dream_gnn_tpu_torch.kernels.spmm_gather import spmm_gather
 from dream_gnn_tpu_torch.kernels.spmm_slab import spmm_slab
 from dream_gnn_tpu_torch.nn import init as init_lib
 from dream_gnn_tpu_torch.nn.dropout import dropout
@@ -97,21 +107,33 @@ def _aggregator(graph, edge_masks):
                 a_r = a_r * edge_masks["rev"][..., r, :, :]
             return torch.matmul(a_f.mT, hd), torch.matmul(a_r, hv)
         return aggregate
-    if isinstance(graph, BipartiteSlabbed):
-        if edge_masks is not None:
-            raise ValueError(
-                "a slabbed graph comes with its PRF edge dropout applied: "
-                "pass augment.masks.prf_mask_graph(graph, masks) and no "
-                "edge_masks")
-
+    if isinstance(graph, BipartiteCoo):
         def aggregate(r, hd, hv):
-            # The JAX layer calls spmm_slab with its default bf16 dtype
-            # whatever the compute dtype (gcmc.py:204-205).
-            return spmm_slab(graph.fwd[r], hd), spmm_slab(graph.rev[r], hv)
+            g_f, g_r = graph.fwd[r], graph.rev[r]
+            if edge_masks is not None:
+                g_f = dataclasses.replace(
+                    g_f, val=g_f.val * edge_masks["fwd"][r])
+                g_r = dataclasses.replace(
+                    g_r, val=g_r.val * edge_masks["rev"][r])
+            return spmm_coo(g_f, hd), spmm_coo(g_r, hv)
         return aggregate
-    raise NotImplementedError(
-        f"encoder layout {type(graph).__name__} is not ported yet "
-        f"(ROADMAP.md queue A, items 7, 8 and 10)")
+    # The JAX layer calls spmm_slab and spmm_gather with their default bf16
+    # dtype whatever the compute dtype (gcmc.py:204-205 and 224-225).
+    spmm = {BipartiteSlabbed: spmm_slab,
+            BipartiteGrouped: spmm_gather}.get(type(graph))
+    if spmm is None:
+        raise NotImplementedError(
+            f"encoder layout {type(graph).__name__} is not ported yet "
+            f"(ROADMAP.md queue A, item 10)")
+    if edge_masks is not None:
+        raise ValueError(
+            f"a {type(graph).__name__} comes with its PRF edge dropout "
+            f"applied: pass augment.masks.prf_mask_graph(graph, masks) and "
+            f"no edge_masks")
+
+    def aggregate(r, hd, hv):
+        return spmm(graph.fwd[r], hd), spmm(graph.rev[r], hv)
+    return aggregate
 
 
 def gcmc_layer_apply(params, graph,
@@ -123,11 +145,13 @@ def gcmc_layer_apply(params, graph,
     """One GCMC layer forward.
 
     Args:
-      graph: a ``BipartiteGraph`` or a ``BipartiteSlabbed``.
-      edge_masks: optional augmentation masks of the dense layout, a dict
-        with 'fwd'/'rev' tensors of shape (..., R, n_drug, n_dis), per-etype
-        edge keep-masks; None for a slabbed graph, which arrives already
-        masked.  The graph's ci/cj stay *stale* by construction (parity
+      graph: a ``BipartiteGraph``, ``BipartiteCoo``, ``BipartiteSlabbed``
+        or ``BipartiteGrouped``.
+      edge_masks: optional augmentation masks, a dict with 'fwd'/'rev'
+        per-etype edge keep-masks: tensors of shape (..., R, n_drug, n_dis)
+        for the dense layout, tuples of (E_pad,) tensors per relation for
+        the COO layout; None for a slabbed or grouped graph, which arrives
+        already masked.  The graph's ci/cj stay *stale* by construction (parity
         trap, SURVEY.md §7.3.3).
     Returns (drug_out, dis_out), each (..., N, out_units).
     """

@@ -1,8 +1,9 @@
 """Card-only checks of the port: the CUDA decoder kernels (grid and per
-edge, single-fold and fold-batched) and the scale path's kernels (the
+edge, single-fold and fold-batched), the scale path's kernels (the
 segmented sum behind spmm_slab and seq_scatter, the scale decoder's K2, B1
-and mirror) against their plain versions at ragged shapes, their input
-checks, and the trainers' use of them.  Every test
+and mirror) and the scale benchmark's (the same segmented sum behind
+spmm_gather and spmm_blocked) against their plain versions at ragged
+shapes, their input checks, and the entry points' use of them.  Every test
 carries the ``gpu`` marker and skips without a CUDA device.  The file
 imports no JAX, so that it runs where the card is:
 
@@ -598,3 +599,143 @@ def test_scale_trainer_launches_scale_kernels(cuda, tmp_path):
     assert sd.LAUNCHES == {"k2": steps + evals, "b1": steps, "mirror": steps}
     assert sq.LAUNCHES == {"seq_scatter": 2 * steps}
     assert sp.LAUNCHES == {"fwd": 12 * (steps + evals), "bwd": 12 * steps}
+
+
+# The scale benchmark's SpMMs: the grouped (spmm_gather) and the blocked
+# (spmm_blocked) layouts over the same segmented-sum kernel, each in its
+# own rounding.
+
+def _sparse_case(dev, n_src, n_dst, nnz, d, build, seed=0):
+    """A random relation (repeats, zero weights, rows past n_dst/2 empty)
+    as ``build``'s layout pair on ``dev`` and on the CPU, and x on the
+    CPU."""
+    rng = np.random.default_rng(seed)
+    src = rng.integers(0, n_src, nnz)
+    dst = rng.integers(0, max(n_dst // 2, 1), nnz)
+    val = (rng.random(nnz) + 0.5).astype(np.float32)
+    val[rng.random(nnz) < 0.1] = 0.0
+    pairs = [build(src, dst, val, n_src, n_dst, device=d_)
+             for d_ in (dev, "cpu")]
+    return pairs, torch.tensor(rng.normal(size=(n_src, d)).astype(np.float32))
+
+
+SPARSE_SHAPES = [(1, 1, 1, 16), (300, 250, 3000, 128), (70, 900, 5000, 33),
+                 (2000, 1500, 40000, 128)]
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("shape", SPARSE_SHAPES)
+@pytest.mark.parametrize("kind", ["gather", "blocked"])
+def test_sparse_spmm_kernels_match_plain(cuda, kind, shape, dtype):
+    """spmm_gather_raw / spmm_blocked_raw on the card against the same call
+    on the CPU (plain version), forward and transposed layouts; twice the
+    same bits; one counted launch per call."""
+    from dream_gnn_tpu_torch.graph.blocked import blocked_pair_from_arrays
+    from dream_gnn_tpu_torch.graph.grouped import grouped_pair_from_arrays
+    from dream_gnn_tpu_torch.kernels import spmm_blocked as sb
+    from dream_gnn_tpu_torch.kernels import spmm_gather as sg
+
+    mod, build = ((sg, grouped_pair_from_arrays) if kind == "gather"
+                  else (sb, blocked_pair_from_arrays))
+    raw = sg.spmm_gather_raw if kind == "gather" else sb.spmm_blocked_raw
+    (pair, pair_cpu), _ = _sparse_case(cuda, *shape, build)
+    for g, g_cpu in ((pair.fwd, pair_cpu.fwd), (pair.bwd, pair_cpu.bwd)):
+        x = torch.randn(g.n_src, shape[3])
+        before = mod.LAUNCHES["raw"]
+        out = raw(g, x.to(cuda), dtype)
+        assert mod.LAUNCHES["raw"] == before + 1
+        assert out.shape == (g.n_dst, shape[3]) and out.dtype == torch.float32
+        assert _rel(out.cpu(), raw(g_cpu, x, dtype)) <= TOL[dtype]
+        assert torch.equal(out, raw(g, x.to(cuda), dtype))
+
+
+@pytest.mark.parametrize("kind", ["gather", "blocked"])
+def test_sparse_spmm_autograd_matches_cpu(cuda, kind):
+    """spmm_gather / spmm_blocked with a PRF-masked pair on the card
+    (kernel, forward and backward) against the same call on the CPU."""
+    from dream_gnn_tpu_torch.augment.masks import prf_mask_pair
+    from dream_gnn_tpu_torch.graph.blocked import blocked_pair_from_arrays
+    from dream_gnn_tpu_torch.graph.grouped import grouped_pair_from_arrays
+    from dream_gnn_tpu_torch.kernels import spmm_blocked as sb
+    from dream_gnn_tpu_torch.kernels import spmm_gather as sg
+
+    mod, fn, build = ((sg, sg.spmm_gather, grouped_pair_from_arrays)
+                      if kind == "gather" else
+                      (sb, sb.spmm_blocked, blocked_pair_from_arrays))
+    pairs, x = _sparse_case(cuda, 300, 250, 3000, 128, build, seed=4)
+    before = dict(mod.LAUNCHES)
+    res = []
+    for p, dev in zip(pairs, (cuda, "cpu")):
+        xx = x.to(dev).requires_grad_(True)
+        out = fn(prf_mask_pair(p, 4242, 0.3), xx)
+        (out * out).sum().backward()
+        res.append((out.detach().cpu(), xx.grad.cpu()))
+    assert mod.LAUNCHES == dict(before, fwd=before["fwd"] + 1,
+                                bwd=before["bwd"] + 1)
+    for a, b in zip(*res):
+        assert _rel(a, b) <= 1e-4
+
+
+def test_blocked_bf16_rounds_val_on_the_card(cuda):
+    """With U[0.5, 1.5) weights the blocked kernel's bf16 messages
+    rnd(rnd(val) * rnd(x)) meet the tolerance against its plain version and
+    miss it against the grouped rounding rnd(rnd(x) * val)."""
+    from dream_gnn_tpu_torch.graph.blocked import blocked_pair_from_arrays
+    from dream_gnn_tpu_torch.kernels import spmm_blocked as sb
+    from dream_gnn_tpu_torch.kernels.spmm_slab import segment_sum_plain
+
+    (pair, _), x = _sparse_case(cuda, 2000, 1500, 40000, 128,
+                                blocked_pair_from_arrays)
+    g, x = pair.fwd, x.to(cuda)
+    out = sb.spmm_blocked_raw(g, x)
+    b9 = segment_sum_plain(g.row_ptr, g.src, g.val, x, True, round_val=True)
+    b8 = segment_sum_plain(g.row_ptr, g.src, g.val, x, True)
+    assert _rel(out, b9) <= TOL[torch.bfloat16] < _rel(out, b8)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_scale_decoder_grouped_scatter_equals_sequential(cuda, dtype):
+    """A layout built with ``build_seq=False`` scatters the table gradients
+    with spmm_gather (two launches per backward) and gives the same bits
+    as the sequential scatter."""
+    from dream_gnn_tpu_torch.kernels import scale_decoder as sd
+    from dream_gnn_tpu_torch.kernels import spmm_gather as sg
+
+    args, layout, g = _scale_args(cuda, 300, 250, 4000)
+    src = layout.drug_of_slot[layout.inv_slot.long()]
+    dst = layout.dis_of_slot[layout.inv_slot.long()]
+    res = []
+    for build_seq in (True, False):
+        lay = sd.build_scale_decoder_layout(src, dst, 300, 250,
+                                            build_seq=build_seq, device=cuda)
+        leaves = [a.clone().requires_grad_(True) for a in args[:6]]
+        before = sg.LAUNCHES["raw"]
+        out = sd.scale_decoder(*leaves, torch.zeros(1, device=cuda), lay,
+                               args[6], 0.3, True, dtype)
+        (out * g).sum().backward()
+        assert sg.LAUNCHES["raw"] == before + (0 if build_seq else 2)
+        res.append([out.detach()] + [t.grad for t in leaves])
+    for a, b in zip(*res):
+        assert torch.equal(a, b)
+
+
+def test_bench_scale_launch_counts(cuda, monkeypatch):
+    """bench_scale on the card at --tiny: the grouped layout launches 12
+    spmm_gather forwards and 12 backwards per step (3 layers x 2 ratings
+    x 2 directions), the COO layout no kernel."""
+    from dream_gnn_tpu_torch.kernels import spmm_blocked as sb
+    from dream_gnn_tpu_torch.kernels import spmm_gather as sg
+    from dream_gnn_tpu_torch.kernels import spmm_slab as sp
+    from dream_gnn_tpu_torch.scripts import bench_scale
+
+    monkeypatch.setattr(bench_scale, "STEPS", 2)
+    monkeypatch.setattr(bench_scale, "REPEATS", 1)
+    steps = 4
+    for flags, fwd in ((["--grouped"], 12 * steps), ([], 0)):
+        for counts in (sg.LAUNCHES, sb.LAUNCHES, sp.LAUNCHES):
+            for k in counts:
+                counts[k] = 0
+        res = bench_scale.main(["--tiny", *flags])
+        assert np.isfinite(res["loss"]) and res["peak_memory_bytes"] > 0
+        assert sg.LAUNCHES == {"fwd": fwd, "bwd": fwd, "raw": 0}
+        assert not any(sb.LAUNCHES.values()) and not any(sp.LAUNCHES.values())

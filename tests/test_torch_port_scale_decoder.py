@@ -2,8 +2,10 @@
 plain versions, which the wrapper runs for CPU tensors) against the JAX
 ``scale_decoder`` with its Pallas kernels (K2, B1, mirror, seq_scatter) in
 interpret mode, at the same injected dropout seed: per-candidate logits and
-all seven gradients in fp32 and bf16, dropout 0 and 0.3; the dropout masks
-bit for bit; the layout's invariants.
+all seven gradients in fp32 and bf16, dropout 0 and 0.3; the same with the
+layouts built without the sequential scatters (``build_seq=False``), whose
+table gradients run as the grouped SpMM (kernels/spmm_gather.py); the
+dropout masks bit for bit; the layout's invariants.
 
 Sizes: 2,000 candidates (with repeated nodes) over 300 drugs x 250
 diseases, H1 = 128, H2 = 64, as the JAX package's own scale decoder tests.
@@ -63,12 +65,13 @@ def _case():
 NAMES = ("pd", "pv", "b1", "w2", "b2", "w3", "b3")
 
 
-def _jax(name, rate):
+def _jax(name, rate, build_seq=True):
     """JAX per-candidate logits and the seven gradients of
     sum(logits * g), cached per case."""
-    if (name, rate) not in _JAX:
+    if (name, rate, build_seq) not in _JAX:
         x = _case()
-        lay = psd.build_scale_decoder_layout(x["src"], x["dst"], ND, NV)
+        lay = psd.build_scale_decoder_layout(x["src"], x["dst"], ND, NV,
+                                             build_seq=build_seq)
         seed = jnp.asarray([SEED], jnp.int32)
         g_slots, w = lay.slot_labels(jnp.asarray(x["g"]))
         out, vjp = jax.vjp(
@@ -76,16 +79,17 @@ def _jax(name, rate):
                                          seed),
             *[jnp.asarray(x[k]) for k in NAMES])
         inv = np.asarray(lay.inv_slot)
-        _JAX[name, rate] = (np.asarray(out)[inv],
-                            [np.asarray(v) for v in vjp(g_slots * w)])
-    return _JAX[name, rate]
+        _JAX[name, rate, build_seq] = (
+            np.asarray(out)[inv], [np.asarray(v) for v in vjp(g_slots * w)])
+    return _JAX[name, rate, build_seq]
 
 
-def _port(name, rate):
+def _port(name, rate, build_seq=True):
     """The port's per-candidate logits and seven gradients."""
     x = _case()
     lay = sd.build_scale_decoder_layout(x["src"], x["dst"], ND, NV,
-                                        device="cpu")
+                                        build_seq=build_seq, device="cpu")
+    assert (lay.seq_drug is None) == (not build_seq)
     leaves = [torch.tensor(x[k], requires_grad=True) for k in NAMES]
     out = sd.scale_decoder(*leaves, lay, torch.tensor([SEED],
                                                       dtype=torch.int32),
@@ -113,6 +117,25 @@ def test_scale_decoder_matches_jax(name, rate):
     _close(out_t, out_j, tol, "logits")
     for gname, a, b in zip(GRADS, grads_t, grads_j):
         _close(a, b, tol, gname)
+
+
+@pytest.mark.parametrize("name", list(DTYPES))
+def test_grouped_scatter_matches_jax_and_the_sequential_one(name):
+    """``build_seq=False``: the table gradients run as the grouped SpMM
+    over ``scat_drug``/``scat_dis`` (pallas_scale_decoder.py:843-863).
+    They match the JAX decoder built the same way, and equal the port's
+    sequential scatter bit for bit (the same slots in the same order, each
+    message rnd(x))."""
+    tol = DTYPES[name][2]
+    out_j, grads_j = _jax(name, 0.3, build_seq=False)
+    out_t, grads_t = _port(name, 0.3, build_seq=False)
+    _close(out_t, out_j, tol, "logits")
+    for gname, a, b in zip(GRADS, grads_t, grads_j):
+        _close(a, b, tol, gname)
+    out_s, grads_s = _port(name, 0.3)
+    np.testing.assert_array_equal(out_t, out_s)
+    for gname, a, b in zip(GRADS, grads_t, grads_s):
+        np.testing.assert_array_equal(a, b, err_msg=gname)
 
 
 def test_b1_from_unrounded_a1_misses_the_bf16_tolerance():
