@@ -50,7 +50,9 @@ Phases, each of which fails the run if it fails:
     d = 128; 1M candidates over the 100k-row tables), fp32 and bf16,
     dropout 0 and 0.3, every output within a stated tolerance, two launches
     the same bits, the bf16 control; then each kernel's time beside its
-    bound, its plain version's and one PyTorch call's where there is one;
+    bound, its plain version's and one PyTorch call's where there is one
+    (and for the segment sums of 16 and 20, the rate at which they gather
+    rows of x, entries x row bytes / time);
 17. the scale model's eval forward on the card (kernels) against the CPU
     (plain versions) at 10k x 10k nodes, 1M edges, 100k candidates;
 18. the scale trainer through ``train.scale`` at full size, 20 steps with an
@@ -853,20 +855,27 @@ def _nbytes(*tensors) -> int:
     return sum(t.numel() * t.element_size() for t in tensors if t is not None)
 
 
+def _gather_rate(entries: int, row_bytes: int, ms: float) -> str:
+    """The segment sum's achieved gather rate: entries x row bytes / time,
+    to hold against the L2's bandwidth (x is read once per entry)."""
+    return f"gathers {entries * row_bytes / (ms * 1e-3) / 1e12:.3f} TB/s"
+
+
 def _scale_row(name, replaces, err, ms, plain_ms, nbytes, flops, dtype,
                library_ms=None, library="no single PyTorch call computes "
-                                         "this function"):
+                                         "this function", gathered=None):
     """A kernel-table row for a scale kernel: the bound is the larger of
     ``nbytes`` over the memory rate and ``flops`` over the peak for
-    ``dtype``."""
+    ``dtype``.  ``gathered``: (entries, row bytes) of a segment sum."""
     t_bytes = nbytes / PEAK_BYTES_S * 1e3
     t_ops = flops / PEAK_FLOPS_S[dtype] * 1e3
     bound, by = (t_ops, "operations") if t_ops >= t_bytes \
         else (t_bytes, "bytes")
     src = "scale_decoder" if name.startswith("scale_decoder") else "spmm"
     print(f"  {name}: {ms:.4f} ms, bound {bound:.5f} ms ({by}; "
-          f"{nbytes / 1e6:.1f} MB, {flops / 1e9:.3f} GFLOP), plain "
-          f"{plain_ms:.4f} ms, "
+          f"{nbytes / 1e6:.1f} MB, {flops / 1e9:.3f} GFLOP), "
+          + ("" if gathered is None else _gather_rate(*gathered, ms) + ", ")
+          + f"plain {plain_ms:.4f} ms, "
           + (library if library_ms is None
              else f"{library}: {library_ms:.4f} ms"))
     return dict(name=name, route="cuda",
@@ -959,7 +968,8 @@ def _spmm_rows(graph, dev):
             t[r, kind] = _time_ms(lambda g=g, x=x: sp.launch_segment_sum(
                 g.row_ptr, g.src, g.val, x, True))
             print(f"    rating {r} {kind}: E={g.n_live}, {g.n_src} -> "
-                  f"{g.n_dst} rows: {t[r, kind]:.4f} ms")
+                  f"{g.n_dst} rows: {t[r, kind]:.4f} ms, "
+                  f"{_gather_rate(g.n_live, 128 * 2, t[r, kind])}")
     g = graph.fwd[0].fwd
     x = torch.randn(g.n_src, 128, device=dev).bfloat16()
     with torch.no_grad():
@@ -977,7 +987,8 @@ def _spmm_rows(graph, dev):
     return _scale_row("spmm_slab", "pallas_spmm_slab.py:61", err,
                       t[0, "fwd"], plain_ms, nbytes, 2 * g.n_live * 128,
                       torch.bfloat16, lib_ms,
-                      "torch.sparse.mm on the CSR in f32")
+                      "torch.sparse.mm on the CSR in f32",
+                      gathered=(g.n_live, 128 * 2))
 
 
 def _seq_row(layout, dev):
@@ -1014,7 +1025,8 @@ def _seq_row(layout, dev):
     nbytes = _nbytes(g.offsets, val, x) + g.n_dst * 128 * 4
     return _scale_row("seq_scatter", "pallas_seq_scatter.py:144", err, ms,
                       plain_ms, nbytes, g.n_slots * 128, torch.bfloat16,
-                      lib_ms, "index_add_ in f32")
+                      lib_ms, "index_add_ in f32",
+                      gathered=(g.n_slots, 128 * 2))
 
 
 def _decoder_rows(layout, dev):
@@ -1266,7 +1278,8 @@ def _spmm_row(name, replaces, err, g, x, raw, plain):
         + g.n_dst * x.shape[1] * 4
     return _scale_row(name, replaces, err, ms, plain_ms, nbytes,
                       2 * g.n_live * x.shape[1], torch.bfloat16, lib_ms,
-                      "torch.sparse.mm on the CSR in f32")
+                      "torch.sparse.mm on the CSR in f32",
+                      gathered=(g.n_live, x.shape[1] * 2))
 
 
 def phase_sparse_kernels(dev):
@@ -1305,8 +1318,9 @@ def phase_sparse_kernels(dev):
         for kind in ("fwd", "bwd"):
             g = getattr(pair, kind)
             x = torch.randn(g.n_src, 128, device=dev).bfloat16()
-            print(f"    gather rating {r} {kind}: E={g.n_live}: "
-                  f"{_time_ms(lambda: sg.spmm_gather_raw(g, x)):.4f} ms")
+            ms = _time_ms(lambda: sg.spmm_gather_raw(g, x))
+            print(f"    gather rating {r} {kind}: E={g.n_live}: {ms:.4f} ms, "
+                  f"{_gather_rate(g.n_live, 128 * 2, ms)}")
 
     t0 = time.perf_counter()
     src, dst, val, x_np = bench_spmm.draw_graph(BENCH_N, BENCH_E)
@@ -1391,7 +1405,8 @@ def _grouped_scatter(dev):
     lib_ms = _time_ms(lambda: out.zero_().index_add_(0, node, xf))
     nbytes = _nbytes(g.row_ptr, g.src, g.val, x) + BENCH_N * 128 * 4
     print(f"  scatter: {ms:.4f} ms, bound {nbytes / PEAK_BYTES_S * 1e3:.5f} "
-          f"ms (bytes), index_add_ in f32: {lib_ms:.4f} ms")
+          f"ms (bytes), {_gather_rate(n_cand, 128 * 2, ms)}, index_add_ in "
+          f"f32: {lib_ms:.4f} ms")
 
     # The whole decoder with either layout: the same bits.
     f = torch.float32

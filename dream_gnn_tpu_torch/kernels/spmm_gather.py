@@ -33,7 +33,7 @@ and validated against the layout's ``gpc`` as the Pallas kernel does
 design, are not ported.
 
 The kernel is the segmented row sum of ``csrc/spmm.cu`` (one warp per dst
-row, sums in CSR order, no atomics, the same bits from run to run), in the
+row, sums in a fixed order, no atomics, the same bits from run to run), in the
 rounding mode above.  Dispatch: CUDA tensors launch the kernel, CPU tensors
 run the plain version; there is no fallback.  ``LAUNCHES`` counts the
 kernel's launches: ``fwd`` over ``pair.fwd``, ``bwd`` over ``pair.bwd``,

@@ -20,8 +20,11 @@ gathers.  ``dtype=float32`` keeps everything in f32.
 
 The kernel (``csrc/spmm.cu``, shared with kernels/seq_scatter.py,
 kernels/spmm_gather.py and kernels/spmm_blocked.py) is a segmented row
-sum: one warp per dst row sums the row's edges in CSR order, without
-atomics, so two runs give the same bits.
+sum: one warp per dst row, whose lane groups sum the row's edges in a
+fixed interleaved order and combine their partial sums by shuffles,
+without atomics, so two runs give the same bits.  The f32 sum runs in
+another order than the plain version's ``index_add_``; the tolerance of
+the tests (1e-4 relative) covers that.
 
 Dispatch.  ``spmm_slab`` launches the kernel for CUDA tensors and runs the
 plain version only for CPU tensors; there is no fallback from one to the
@@ -115,7 +118,9 @@ def launch_segment_sum(ptr: torch.Tensor, src: Optional[torch.Tensor],
     (n_rows + 1,) int32, src (nnz,) int32 or None, val (nnz,) f32 or None
     (weight 1), x (rows, d) bf16 or f32; the rounding as in
     ``segment_sum_plain``.  Returns (n_rows, d) f32.  The callers count
-    it."""
+    it.  When d % 8 == 0 the kernel reads x in 16-byte loads, so an x that
+    does not start 16-byte aligned (a view at an odd offset) is copied
+    first: how a row is split and summed depends on d only."""
     mode = rounding_mode(rounded, round_x, round_val)
     dev = x.device
     nnz = (src if src is not None else val if val is not None else x).shape[0]
@@ -128,6 +133,8 @@ def launch_segment_sum(ptr: torch.Tensor, src: Optional[torch.Tensor],
     elif x.shape[0] < nnz:
         raise ValueError("segment sum kernel: x has fewer rows than entries")
     _check(x, "x", (torch.float32, torch.bfloat16), (x.shape[0], d), dev)
+    if d % 8 == 0 and x.data_ptr() % 16 != 0:
+        x = x.clone()
     lib = _load()
     out = torch.empty((n_rows, d), dtype=torch.float32, device=dev)
     err = lib.segment_sum(ptr.data_ptr(),

@@ -131,12 +131,34 @@ def map_params(fn, params):
 
 
 def param_leaves(params):
-    """The tree's tensors in a fixed order (dict keys sorted)."""
+    """The tree's tensors in a fixed order (dict keys sorted), which is
+    ``jax.tree.flatten``'s order over the JAX package's param tree."""
     if isinstance(params, dict):
         return [x for k in sorted(params) for x in param_leaves(params[k])]
     if isinstance(params, list):
         return [x for v in params for x in param_leaves(v)]
     return [params]
+
+
+def params_from_leaves(template, leaves):
+    """The tree of ``template`` with its tensors replaced, in
+    ``param_leaves`` order, by ``leaves``; the inverse of
+    ``param_leaves``."""
+    it = iter(leaves)
+
+    def build(tree):
+        if isinstance(tree, dict):
+            built = {k: build(tree[k]) for k in sorted(tree)}
+            return {k: built[k] for k in tree}
+        if isinstance(tree, list):
+            return [build(v) for v in tree]
+        return next(it)
+
+    out = build(template)
+    if next(it, None) is not None:
+        raise ValueError("params_from_leaves: more leaves than the template "
+                         "has tensors")
+    return out
 
 
 def _encode(params, inputs: ModelInputs, cfg: ModelConfig, *, train: bool,

@@ -3,7 +3,10 @@
 Usage:  python -m dream_gnn_tpu_torch.train.cli --data_name Gdataset ...
 
 The flags are those of ``python -m dream_gnn_tpu.train.cli``.  Named
-datasets resolve to the synthetic preset of the same name.  ``--device``
+datasets resolve to the synthetic preset of the same name; where the JAX
+CLI would load ``raw_data/drug_data/{name}/{name}.mat`` instead, because
+that file exists under the working directory, the port raises until its
+loader is ported.  ``--device``
 has its reference meaning: a GPU index, with -1 for the CPU; a GPU that
 is not there is an error, never a quiet fall back to the CPU.
 
@@ -15,6 +18,7 @@ from __future__ import annotations
 
 import argparse
 import dataclasses
+import os
 
 from dream_gnn_tpu_torch.config import AugmentConfig, ModelConfig, TrainConfig
 from dream_gnn_tpu_torch.data.loader import DreamDataset
@@ -103,8 +107,20 @@ def build_parser() -> argparse.ArgumentParser:
     return p
 
 
+def reference_mat(data_name: str) -> str:
+    """The reference dataset that the JAX CLI loads, when it exists under
+    the working directory, in place of the synthetic preset of the same
+    name (dream_gnn_tpu/train/cli.py, ``resolve_dataset``)."""
+    return os.path.join("raw_data", "drug_data", data_name,
+                        f"{data_name}.mat")
+
+
 # (flag is set, ROADMAP.md queue A item that ports it)
 _NOT_PORTED = (
+    (lambda a: a.data_path is None
+     and os.path.exists(reference_mat(a.data_name)),
+     "loading the reference raw_data/drug_data/<name>/<name>.mat",
+     "11: .mat and embedding loaders"),
     (lambda a: a.resume, "--resume", "5: checkpoint and resume"),
     (lambda a: a.checkpoint_every > 0, "--checkpoint_every",
      "5: checkpoint and resume"),

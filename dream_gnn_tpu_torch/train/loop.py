@@ -23,7 +23,8 @@ from dream_gnn_tpu_torch.config import ModelConfig, TrainConfig
 from dream_gnn_tpu_torch.data.loader import DreamDataset
 from dream_gnn_tpu_torch.kernels.edge_decoder import edge_csr
 from dream_gnn_tpu_torch.model.dream_gnn import (ModelInputs, init_params,
-                                                 map_params)
+                                                 map_params, param_leaves,
+                                                 params_from_leaves)
 from dream_gnn_tpu_torch.train.optim import PlateauScheduler
 from dream_gnn_tpu_torch.train.step import (evaluate, init_state,
                                             make_one_step, run_steps)
@@ -122,21 +123,38 @@ def train_fold(dataset: DreamDataset, cv: int, cfg: TrainConfig,
 
 
 def save_params(path: str, params) -> None:
-    """Flat npz of the param tree, keys like ``tgcn.0.basis``."""
-    flat = {}
+    """npz of the param tree in the leaf layout of the JAX package's
+    ``save_pytree`` (dream_gnn_tpu/train/checkpoint.py): ``leaf_{i}`` in
+    ``param_leaves`` order, which is ``jax.tree.flatten``'s.
 
-    def walk(prefix, tree):
-        if isinstance(tree, dict):
-            for k, v in tree.items():
-                walk(f"{prefix}{k}.", v)
-        elif isinstance(tree, list):
-            for i, v in enumerate(tree):
-                walk(f"{prefix}{i}.", v)
-        else:
-            flat[prefix[:-1]] = tree.numpy()
+    One limit: the JAX ``save_pytree`` also stores its pickled ``treedef``,
+    which the port cannot write without JAX, so the JAX ``load_pytree``
+    cannot read this file; ``load_params`` reads both."""
+    np.savez(path, **{f"leaf_{i}": t.detach().cpu().numpy()
+                      for i, t in enumerate(param_leaves(params))})
 
-    walk("", params)
-    np.savez(path, **flat)
+
+def load_params(path: str, template):
+    """The param tree of ``template`` (its structure, shapes, dtypes and
+    devices) with the values of a ``save_params`` file, or of a file that
+    the JAX ``save_pytree`` wrote from the JAX param tree (its ``treedef``
+    entry is skipped)."""
+    like = param_leaves(template)
+    with np.load(path) as f:
+        names = set(f.files) - {"treedef"}
+        want = {f"leaf_{i}" for i in range(len(like))}
+        if names != want:
+            raise ValueError(f"load_params: {path} holds {len(names)} leaves "
+                             f"({sorted(names)[:3]}...), the template "
+                             f"{len(like)}")
+        arrays = [f[f"leaf_{i}"] for i in range(len(like))]
+    for i, (a, t) in enumerate(zip(arrays, like)):
+        if tuple(a.shape) != tuple(t.shape):
+            raise ValueError(f"load_params: leaf_{i} has shape {a.shape}, "
+                             f"the template {tuple(t.shape)}")
+    return params_from_leaves(template, [
+        torch.from_numpy(a).to(device=t.device, dtype=t.dtype)
+        for a, t in zip(arrays, like)])
 
 
 def train_on_inputs(model_cfg: ModelConfig, cfg: TrainConfig,

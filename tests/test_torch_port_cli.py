@@ -2,8 +2,9 @@
 artifacts that tests/test_train_smoke.py pins for the JAX package, in
 sequence and with ``--fold_parallel`` / ``--seed_parallel``, in grid and
 edges decode mode and with either decoder backend, the flag surface
-matches the JAX CLI, parts not ported yet raise, and a card that is not
-there is an error."""
+matches the JAX CLI, ``--save_model`` writes the JAX checkpoint's leaf
+layout, parts not ported yet raise (also where the JAX CLI would load the
+reference ``.mat``), and a card that is not there is an error."""
 
 import os
 
@@ -14,7 +15,11 @@ import torch
 
 from dream_gnn_tpu.train.cli import build_parser as j_build_parser
 from dream_gnn_tpu_torch.data import synthetic
-from dream_gnn_tpu_torch.train.cli import build_parser, main
+from dream_gnn_tpu_torch.data.loader import DreamDataset
+from dream_gnn_tpu_torch.model.dream_gnn import init_params
+from dream_gnn_tpu_torch.train.cli import (build_parser, config_from_args,
+                                           main)
+from dream_gnn_tpu_torch.train.loop import derive_model_cfg
 
 SMALL = ["--layers", "2", "--gcn_agg_units", "48", "--gcn_out_units", "16",
          "--nhid1", "32", "--nhid2", "16"]
@@ -50,12 +55,44 @@ def test_cli_smoke_writes_artifacts(tiny_preset, tmp_path, capsys):
 
 
 def test_cli_save_model_writes_params(tiny_preset, tmp_path):
-    main(["--data_name", tiny_preset, "--device", "-1", "--seeds", "1",
-          "--folds", "0", "--train_max_iter", "3",
-          "--train_valid_interval", "2", "--save_model",
-          "--save_dir", str(tmp_path), *SMALL])
+    """The checkpoint holds the leaves of the JAX ``save_pytree`` layout,
+    ``leaf_{i}`` in ``jax.tree.flatten`` order over the param tree, and
+    nothing else."""
+    argv = ["--data_name", tiny_preset, "--device", "-1", "--seeds", "1",
+            "--folds", "0", "--train_max_iter", "3",
+            "--train_valid_interval", "2", "--save_model",
+            "--save_dir", str(tmp_path), *SMALL]
+    main(argv)
+    cfg = config_from_args(build_parser().parse_args(argv))
+    mcfg = derive_model_cfg(cfg, DreamDataset.load(tiny_preset, device="cpu"))
+    leaves = jax.tree.leaves(init_params(torch.Generator().manual_seed(0),
+                                         mcfg))
     with np.load(tmp_path / "seed_1" / "best_model_fold1.npz") as f:
-        assert "tgcn.0.basis" in f.files and "decoder.w2" in f.files
+        assert sorted(f.files) == sorted(f"leaf_{i}"
+                                         for i in range(len(leaves)))
+        for i, want in enumerate(leaves):
+            assert f[f"leaf_{i}"].shape == tuple(want.shape), i
+
+
+def test_cli_raises_where_jax_loads_the_reference_mat(tmp_path, monkeypatch):
+    """With raw_data/drug_data/Gdataset/Gdataset.mat under the working
+    directory the JAX CLI trains on that file; the port, which cannot load
+    it yet, raises naming ROADMAP.md item A11 instead of training on the
+    synthetic preset."""
+    from dream_gnn_tpu.data.matio import save_mat
+    from dream_gnn_tpu.data.synthetic import synthetic_raw_data
+
+    mat = tmp_path / "raw_data" / "drug_data" / "Gdataset" / "Gdataset.mat"
+    mat.parent.mkdir(parents=True)
+    save_mat(str(mat), synthetic_raw_data(n_drug=40, n_dis=30, n_pos=60,
+                                          seed=3))
+    monkeypatch.chdir(tmp_path)
+    with pytest.raises(NotImplementedError, match=r"item 11: \.mat"):
+        main(["--data_name", "Gdataset", "--device", "-1", "--seeds", "1",
+              "--folds", "0", "--train_max_iter", "3",
+              "--train_valid_interval", "2", "--save_dir",
+              str(tmp_path / "out"), *SMALL])
+    assert not (tmp_path / "out").exists()
 
 
 def test_flag_surface_matches_jax_cli():

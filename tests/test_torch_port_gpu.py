@@ -3,7 +3,9 @@ edge, single-fold and fold-batched), the scale path's kernels (the
 segmented sum behind spmm_slab and seq_scatter, the scale decoder's K2, B1
 and mirror) and the scale benchmark's (the same segmented sum behind
 spmm_gather and spmm_blocked) against their plain versions at ragged
-shapes, their input checks, and the entry points' use of them.  Every test
+shapes (for the segmented sum: every rounding, f32 and bf16 x, null src and
+val, every width path of d, rows of 0 to 1,000 entries), their input
+checks, and the entry points' use of them.  Every test
 carries the ``gpu`` marker and skips without a CUDA device.  The file
 imports no JAX, so that it runs where the card is:
 
@@ -387,11 +389,14 @@ def _csr_case(dev, n_src, n_dst, nnz, d, seed=0):
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 @pytest.mark.parametrize("shape", [(1, 1, 1, 16), (300, 250, 3000, 16),
                                    (300, 250, 3000, 128), (70, 900, 5000, 3),
-                                   (2000, 1500, 40000, 128)])
+                                   (2000, 1500, 40000, 128),
+                                   *[(300, 250, 3000, d)
+                                     for d in (1, 4, 12, 127, 130, 384)]])
 def test_spmm_kernel_matches_plain(cuda, dtype, shape):
-    """Forward and transposed layouts, d = 3 (the one-column path), 16 and
-    128, against segment_sum_plain on the same tensors; twice the same
-    bits."""
+    """Forward and transposed layouts; d = 1, 3, 4, 12, 127 and 130 (one
+    value per lane), 16 (four lane groups a warp), 128 (two) and 384 (one
+    group, two column passes), against segment_sum_plain on the same
+    tensors; twice the same bits."""
     from dream_gnn_tpu_torch.kernels import spmm_slab as sp
 
     (pair, _), x = _csr_case(cuda, *shape)
@@ -423,6 +428,108 @@ def test_spmm_slab_autograd_matches_cpu(cuda):
     assert sp.LAUNCHES == {"fwd": before["fwd"] + 1, "bwd": before["bwd"] + 1}
     for a, b in zip(*res):
         assert _rel(a, b) <= 1e-4
+
+
+# The segment sum's roundings as launch_segment_sum's (rounded, round_x,
+# round_val): MODE_F32, MODE_RX, MODE_MSG and MODE_RX_RV of csrc/spmm.cu.
+MODES = {"f32": (False, True, False), "rx": (True, True, False),
+         "msg": (True, False, False), "rx_rv": (True, True, True)}
+# Rows of 0, 1, 31, 33 and 1,000 entries among others: one lane group
+# short of and one entry past a warp's batch of indices, and many batches.
+ROW_LENGTHS = [0, 1, 31, 33, 1000, 0, 2, 17, 64, 3]
+
+
+def _segment_case(dev, d, n_src=700, seed=0):
+    """(ptr, src, val, x) of ROW_LENGTHS' rows over random sources, with
+    zero weights; x has a row per entry too, for a null src."""
+    rng = np.random.default_rng(seed)
+    counts = np.asarray(ROW_LENGTHS)
+    nnz = int(counts.sum())
+    ptr = torch.tensor(np.concatenate([[0], np.cumsum(counts)]),
+                       dtype=torch.int32, device=dev)
+    src = torch.tensor(rng.integers(0, n_src, nnz), dtype=torch.int32,
+                       device=dev)
+    val = (rng.random(nnz) + 0.5).astype(np.float32)
+    val[rng.random(nnz) < 0.1] = 0.0
+    x = rng.normal(size=(max(n_src, nnz), d)).astype(np.float32)
+    return ptr, src, torch.tensor(val, device=dev), torch.tensor(x, device=dev)
+
+
+@pytest.mark.parametrize("with_val", [True, False])
+@pytest.mark.parametrize("gather", [True, False])
+@pytest.mark.parametrize("x_dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("mode", list(MODES))
+@pytest.mark.parametrize("d", [1, 4, 12, 127, 128, 130, 384])
+def test_segment_sum_kernel_matches_plain(cuda, d, mode, x_dtype, gather,
+                                          with_val):
+    """Every rounding, f32 and bf16 x, a null src (the scatter) and a null
+    val (weight 1), at d taking each width path: the kernel against
+    segment_sum_plain, empty rows exactly 0, twice the same bits."""
+    from dream_gnn_tpu_torch.kernels import spmm_slab as sp
+
+    ptr, src, val, x = _segment_case(cuda, d)
+    args = (ptr, src if gather else None, val if with_val else None,
+            x.to(x_dtype), *MODES[mode])
+    out = sp.launch_segment_sum(*args)
+    ref = sp.segment_sum_plain(*args)
+    torch.cuda.synchronize()
+    assert out.shape == ref.shape == (len(ROW_LENGTHS), d)
+    assert _rel(out, ref) <= TOL[torch.bfloat16]
+    assert not out[torch.tensor(ROW_LENGTHS, device=cuda) == 0].any()
+    assert torch.equal(out, sp.launch_segment_sum(*args))
+
+
+@pytest.mark.parametrize("gather", [True, False])
+@pytest.mark.parametrize("d", [4, 128])
+def test_segment_sum_kernel_empty_matrix(cuda, d, gather):
+    """No entries (every row empty) gives zeros; no rows an empty output."""
+    from dream_gnn_tpu_torch.kernels import spmm_slab as sp
+
+    x = torch.randn(6, d, device=cuda).bfloat16()
+    src = torch.zeros(0, dtype=torch.int32, device=cuda) if gather else None
+    val = torch.zeros(0, device=cuda)
+    for n_rows in (5, 0):
+        ptr = torch.zeros(n_rows + 1, dtype=torch.int32, device=cuda)
+        out = sp.launch_segment_sum(ptr, src, val, x, True)
+        torch.cuda.synchronize()
+        assert out.shape == (n_rows, d) and not out.any()
+
+
+@pytest.mark.parametrize("d", [12, 16, 64, 128, 384])
+def test_segment_sum_split_ignores_gather_and_x_dtype(cuda, d):
+    """A row is split and summed alike whatever reads x: an identity src
+    gives the bits of a null src, and an f32 x of bf16 values the bits of
+    the bf16 x, in every rounding (so the grouped scatter equals
+    seq_scatter)."""
+    from dream_gnn_tpu_torch.kernels import spmm_slab as sp
+
+    ptr, _, val, x = _segment_case(cuda, d)
+    nnz = sum(ROW_LENGTHS)
+    ident = torch.arange(nnz, dtype=torch.int32, device=cuda)
+    xb = x[:nnz].bfloat16()
+    for mode in MODES.values():
+        a = sp.launch_segment_sum(ptr, ident, val, xb, *mode)
+        b = sp.launch_segment_sum(ptr, None, val, xb, *mode)
+        c = sp.launch_segment_sum(ptr, None, val, xb.float(), *mode)
+        assert torch.equal(a, b) and torch.equal(b, c), mode
+
+
+@pytest.mark.parametrize("x_dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("d", [16, 128])
+def test_segment_sum_split_ignores_x_address(cuda, d, x_dtype):
+    """An x that starts one element past a 16-byte boundary gives the bits
+    of the same values in fresh storage, in every rounding."""
+    from dream_gnn_tpu_torch.kernels import spmm_slab as sp
+
+    ptr, src, val, x = _segment_case(cuda, d)
+    x = x.to(x_dtype)
+    buf = torch.empty(x.numel() + 1, dtype=x_dtype, device=cuda)
+    shifted = buf[1:].view(x.shape)
+    shifted.copy_(x)
+    assert shifted.data_ptr() % 16 != 0 and shifted.is_contiguous()
+    for mode in MODES.values():
+        assert torch.equal(sp.launch_segment_sum(ptr, src, val, shifted, *mode),
+                           sp.launch_segment_sum(ptr, src, val, x, *mode)), mode
 
 
 @pytest.mark.parametrize("x_dtype", [torch.float32, torch.bfloat16])
@@ -620,7 +727,8 @@ def _sparse_case(dev, n_src, n_dst, nnz, d, build, seed=0):
 
 
 SPARSE_SHAPES = [(1, 1, 1, 16), (300, 250, 3000, 128), (70, 900, 5000, 33),
-                 (2000, 1500, 40000, 128)]
+                 (2000, 1500, 40000, 128),
+                 *[(300, 250, 3000, d) for d in (1, 4, 12, 127, 130, 384)]]
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])

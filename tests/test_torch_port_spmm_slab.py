@@ -16,6 +16,9 @@ skips the bf16 rounding of x is off by about 2e-3 (the control case).
 The layer: rtol 1e-4, atol 1e-5, as the dense layer's tests.
 """
 
+import re
+from pathlib import Path
+
 import jax
 import jax.numpy as jnp
 import numpy as np
@@ -117,6 +120,19 @@ def test_spmm_without_bf16_rounding_misses_the_tolerance():
                                rounded=False)
     with pytest.raises(AssertionError):
         _close(out, out_j, 1e-4, 1e-4, "unrounded")
+
+
+def test_rounding_modes_are_the_kernel_enum():
+    """rounding_mode hands the kernel the values of csrc/spmm.cu's ``enum
+    Mode``, and refuses rounding val without x, which no mode does."""
+    src = (Path(sp.__file__).parent / "csrc" / "spmm.cu").read_text()
+    enum = {k: int(v) for k, v in re.findall(r"(MODE_\w+) = (\d+)", src)}
+    assert enum == {"MODE_F32": sp.rounding_mode(False),
+                    "MODE_RX": sp.rounding_mode(True),
+                    "MODE_MSG": sp.rounding_mode(True, round_x=False),
+                    "MODE_RX_RV": sp.rounding_mode(True, round_val=True)}
+    with pytest.raises(ValueError):
+        sp.rounding_mode(True, round_x=False, round_val=True)
 
 
 @pytest.mark.parametrize("salt", [0, 12345, 2 ** 31 - 2])
