@@ -6,13 +6,15 @@ Phases, each of which fails the run if it fails:
 
 1. device and build: the card's name and power limit, then the CUDA
    kernels built from the sources in the checkout, one nvcc per source in
-   parallel (nvcc's register and shared-memory report is printed);
+   parallel (nvcc's register and shared-memory report is printed, and the
+   lines of the bf16 grid backward, ``grid_bwd_mma_kernel``, once more);
 2. kernels against their plain PyTorch versions at Gdataset width
    (593 drugs x 313 diseases), fp32 and bf16, dropout 0 and 0.3: forward
    logits and all six gradients, each within a stated tolerance; a
    control showing that the bf16 tolerance sees a kernel that does not
    round; then each kernel's time beside its bound and the plain
-   version's time;
+   version's time, and the backward's TFLOP/s and residency (blocks and
+   warps an SM) in bf16 (tensor cores) and fp32 (CUDA cores);
 3. the fold-batched kernels the same way at F = 3 folds of the full grid,
    plus: fold f of a batched forward equals the single-fold kernel with
    seed[f] bit for bit, and two batched backward launches give the same
@@ -40,7 +42,8 @@ Phases, each of which fails the run if it fails:
 11. ``--decoder_backend xla --decode_mode edges``: the plain decoder,
     finite metrics and no decoder kernel launched;
 12. a profile of ten default training steps: step time, device busy share
-    and the kernels that take the device's time;
+    and the kernels that take the device's time; the step must run the
+    tensor-core backward ``grid_bwd_mma_kernel`` and not ``grid_bwd_kernel``;
 13. the same profile of ten stacked steps of the 10 folds, whose kernels
     per step must stay within twice the sequential step's;
 14-15. the profiles of 12 and 13 in edges mode;
@@ -168,17 +171,24 @@ def _decoder_inputs(dev, nf=None):
                           dtype=torch.int32, device=dev))
 
 
-def _bound_ms(fwd: bool, dtype, nf: int = 1, cells: int = ND * NV,
-              index_bytes: int = 0) -> tuple:
-    """(least ms, "operations" or "bytes") of the decoder MLP over ``cells``
-    grid cells or edges per fold; ``index_bytes`` are the edge ids read."""
+def _decoder_flops(fwd: bool, nf: int = 1, cells: int = ND * NV) -> int:
+    """Operations of the decoder MLP over ``cells`` grid cells or edges per
+    fold, forward or backward."""
     h1, h2 = 128, 64
     per_cell = 2 * h1 * h2 + 2 * h1 + 2 * h2             # a2 product, a1, w3 dot
     if not fwd:
         # The recomputed forward, the dh1 and dW2 products, then g * w3,
         # the db2 and dw3 sums and the dPd, dPv and db1 sums.
         per_cell += 2 * (2 * h1 * h2) + 4 * h2 + 3 * h1
-    flops = nf * cells * per_cell
+    return nf * cells * per_cell
+
+
+def _bound_ms(fwd: bool, dtype, nf: int = 1, cells: int = ND * NV,
+              index_bytes: int = 0) -> tuple:
+    """(least ms, "operations" or "bytes") of the decoder MLP over ``cells``
+    grid cells or edges per fold; ``index_bytes`` are the edge ids read."""
+    h1, h2 = 128, 64
+    flops = _decoder_flops(fwd, nf, cells)
     table_bytes = nf * (ND + NV) * h1 * 4
     weight_bytes = nf * (h1 + h1 * h2 + 2 * h2) * 4
     grid_bytes = nf * cells * 4                           # out, or g
@@ -197,6 +207,15 @@ def phase_build():
     t0 = time.perf_counter()
     report = cuda_build.build(force=True)
     print(f"{report}  nvcc build: {time.perf_counter() - t0:.2f} s")
+    # The tensor-core backward's registers, spills and shared memory.
+    lines = report.splitlines()
+    at = [n for n, line in enumerate(lines)
+          if "Compiling entry function" in line and "grid_bwd_mma_kernel" in line]
+    if not at:
+        raise AssertionError("nvcc's report names no grid_bwd_mma_kernel")
+    print("  grid_bwd_mma_kernel (bf16 grid backward), nvcc -Xptxas -v:")
+    for line in lines[at[0] + 1:at[0] + 4]:
+        print(f"    {line.strip()}")
 
 
 def _compare(pairs, dtype, rate, label, err):
@@ -216,6 +235,21 @@ def _compare(pairs, dtype, rate, label, err):
         if not ok:
             raise AssertionError(f"{label} {name} ({dtype}, rate {rate}) "
                                  f"disagrees with the plain version")
+
+
+def _print_bwd_rate(label: str, ms_bf16: float, ms_fp32: float, nf: int):
+    """The grid backward's rate and residency in each dtype (bf16: the
+    tensor-core kernel, fp32: the CUDA-core one), at dropout 0.3."""
+    from dream_gnn_tpu_torch.kernels import grid_decoder as gd
+
+    flops = _decoder_flops(False, nf)
+    for name, ms, dtype in (("bf16", ms_bf16, torch.bfloat16),
+                            ("fp32", ms_fp32, torch.float32)):
+        blocks, warps = gd.bwd_occupancy(dtype)
+        print(f"  {label} {name}: {ms:.4f} ms, {flops / ms / 1e9:.2f} "
+              f"TFLOP/s ({100 * flops / ms * 1e3 / PEAK_FLOPS_S[dtype]:.1f}% "
+              f"of the {name} peak); {blocks} block(s), {warps} warps "
+              f"resident an SM")
 
 
 def phase_kernels():
@@ -262,6 +296,8 @@ def phase_kernels():
         "bwd": _time_ms(lambda: gd.launch_bwd(*args, rate, True, dtype,
                                               x["g"])),
     }
+    t_fp32 = _time_ms(lambda: gd.launch_bwd(*args, rate, True, torch.float32,
+                                            x["g"]))
     with torch.no_grad():
         tp = {
             "fwd": _time_ms(lambda: gd.grid_decoder_plain(*args, rate, True,
@@ -270,6 +306,7 @@ def phase_kernels():
                 *args, rate, True, dtype, x["g"]), reps=5),
         }
     gd.LAUNCHES.update(launches)
+    _print_bwd_rate("grid_decoder_bwd", t["bwd"], t_fp32, 1)
     rows = []
     for kind, line in (("fwd", 102), ("bwd", 122)):
         bound, by = _bound_ms(kind == "fwd", dtype)
@@ -350,6 +387,8 @@ def phase_kernels_batched():
         "bwd": _time_ms(lambda: gd.launch_bwd_batched(*args, rate, True,
                                                       dtype, x["g"])),
     }
+    t_fp32 = _time_ms(lambda: gd.launch_bwd_batched(
+        *args, rate, True, torch.float32, x["g"]))
     with torch.no_grad():
         tp = {
             "fwd": _time_ms(lambda: gd.grid_decoder_batched_plain(
@@ -358,6 +397,7 @@ def phase_kernels_batched():
                 *args, rate, True, dtype, x["g"]), reps=3),
         }
     gd.LAUNCHES.update(launches)
+    _print_bwd_rate(f"grid_decoder_bwd_batched F={NF}", t["bwd"], t_fp32, NF)
     rows = []
     for kind, line in (("fwd", 406), ("bwd", 427)):
         bound, by = _bound_ms(kind == "fwd", dtype, NF)
@@ -730,10 +770,12 @@ def phase_plain_backend():
     _expect_launches(launches, "none", (), "plain backend")
 
 
-def _profile(label: str, step, n_steps: int, top: int = 12) -> float:
+def _profile(label: str, step, n_steps: int, top: int = 12, expect=(),
+             forbid=()) -> float:
     """``n_steps`` steady calls of ``step`` under torch.profiler: step time,
     device busy share and the ``top`` kernels (all with ``top=None``);
-    returns kernels per step."""
+    returns kernels per step.  Fails unless some kernel's name holds each
+    of ``expect`` and none holds any of ``forbid``."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
@@ -771,7 +813,25 @@ def _profile(label: str, step, n_steps: int, top: int = 12) -> float:
           "calls/step, name):")
     for ms, count, key in rows[:top]:
         print(f"    {ms:8.4f} {count:6.1f}  {key[:90]}")
+    for name in expect:
+        hits = [r for r in rows if name in r[2]]
+        if not hits:
+            raise AssertionError(f"{label}: no {name} among the step's kernels")
+        for ms, count, key in hits:
+            print(f"  {name}: {ms:.4f} ms/step, {count:.1f} calls/step "
+                  f"({key[:60]})")
+    for name in forbid:
+        if any(name in r[2] for r in rows):
+            raise AssertionError(f"{label}: {name} ran in the step")
     return kernels
+
+
+def _bwd_names(mode: str) -> dict:
+    """A bf16 grid step runs the tensor-core backward and not the fp32
+    CUDA-core one (``grid_bwd_kernel``)."""
+    if mode != "grid":
+        return {}
+    return dict(expect=("grid_bwd_mma_kernel",), forbid=("grid_bwd_kernel",))
 
 
 def phase_profile(path, n_steps: int = 10) -> float:
@@ -794,7 +854,8 @@ def phase_profile(path, n_steps: int = 10) -> float:
     inputs, _, labels, _ = fold_inputs(ds, 0)
     w = ds.fold(0).train_w
     return _profile(f"sequential {mode}",
-                    lambda: step(state, inputs, labels, w), n_steps)
+                    lambda: step(state, inputs, labels, w), n_steps,
+                    **_bwd_names(mode))
 
 
 def phase_profile_stacked(path, seq_kernels: float, n_steps: int = 10):
@@ -823,7 +884,8 @@ def phase_profile_stacked(path, seq_kernels: float, n_steps: int = 10):
     stacked = stack_folds(ds, folds)
     kernels = _profile(f"stacked {mode} F={NF}",
                        lambda: step(state, stacked.inputs, stacked.labels,
-                                    stacked.edge_weight), n_steps)
+                                    stacked.edge_weight), n_steps,
+                       **_bwd_names(mode))
     if kernels > 2 * seq_kernels:
         raise AssertionError(f"stacked step launches {kernels:.0f} kernels, "
                              f"more than twice the sequential "

@@ -200,6 +200,101 @@ def test_stacked_trainer_launches_batched_kernels(cuda, tmp_path, flag):
     assert (tmp_path / "seed_2" / "test_metric2.csv").exists()
 
 
+def _bwd(args, rate, dtype, g, nf):
+    """Kernel and plain backward: single-fold for ``nf`` None, else batched."""
+    if nf is None:
+        return (gd.launch_bwd(*args, rate, True, dtype, g),
+                gd.grid_decoder_plain_bwd(*args, rate, True, dtype, g))
+    return (gd.launch_bwd_batched(*args, rate, True, dtype, g),
+            gd.grid_decoder_batched_plain_bwd(*args, rate, True, dtype, g))
+
+
+def _grid_case(dev, nf, nd, nv, seed=0):
+    return _args(dev, nd, nv, seed) if nf is None \
+        else _args_b(dev, nf, nd, nv, seed)
+
+
+@pytest.mark.parametrize("rate", [0.0, 0.3])
+@pytest.mark.parametrize("nf", [None, 3])
+@pytest.mark.parametrize("nv", [1, 7, 33, 313])
+@pytest.mark.parametrize("nd", [1, 15, 17, 37, 593])
+def test_grid_bf16_bwd_matches_plain_across_tiles(cuda, nd, nv, nf, rate):
+    """The tensor-core backward (bf16) at shapes that straddle its 4 x 32
+    tiles and its 16-cell mma rows, for one fold (F = 1) and F = 3."""
+    args, g = _grid_case(cuda, nf, nd, nv, seed=nd + nv)
+    grads, refs = _bwd(args, rate, torch.bfloat16, g, nf)
+    torch.cuda.synchronize()
+    for a, b in zip(grads, refs):
+        assert a.shape == b.shape
+        assert bool(torch.isfinite(a).all())
+        assert _rel(a, b) <= TOL[torch.bfloat16]
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("rate", [0.0, 0.3])
+def test_grid_bwd_gates_at_zero_and_subnormal(cuda, dtype, rate):
+    """Units where a1 is exactly 0 (gate shut) or a subnormal positive
+    (gate open, though rnd(h1d) may round to 0), and columns where a2 is
+    exactly 0 (gate shut): the kernel gates on a1 > 0 and a2 > 0 as the
+    plain version does."""
+    nd, nv = 37, 45
+    args, g = _args(cuda, nd, nv, seed=5)
+    pd, pv, b1, w2, b2 = (x.clone() for x in args[:5])
+    s1, s2 = slice(0, 16), slice(0, 4)
+    pattern = torch.tensor([0.0, 1e-45, 1e-39, 3e-38, -0.3, 0.4],
+                           device=cuda)
+    pd[:, s1] = pattern[torch.arange(nd, device=cuda) % 6][:, None]
+    pv[:, s1] = 0.0
+    b1[s1] = 0.0
+    w2[:, s2] = 0.0
+    b2[s2] = 0.0
+    args = [pd, pv, b1, w2, b2, *args[5:]]
+    grads = gd.launch_bwd(*args, rate, True, dtype, g)
+    refs = gd.grid_decoder_plain_bwd(*args, rate, True, dtype, g)
+    torch.cuda.synchronize()
+    # The case bites: the rows of subnormal a1 carry dPd in those units,
+    # those of a1 = 0 none, and a2 = 0 leaves db2 exactly 0 there.
+    dpd = refs[0][:, s1]
+    sub = torch.arange(nd, device=cuda) % 6
+    assert float(dpd[(sub == 1) | (sub == 2)].abs().max()) \
+        > 0.05 * float(refs[0].abs().max())
+    assert not bool(dpd[sub == 0].any())
+    assert not bool(refs[4][s2].any()) and not bool(grads[4][s2].any())
+    for a, b in zip(grads, refs):
+        assert _rel(a, b) <= TOL[dtype]
+
+
+def test_grid_bf16_bwd_sums_a2_in_unit_order_at_a_midpoint(cuda):
+    """One cell whose a2[0] is a bf16 midpoint of h2d when summed in unit
+    order and one f32 ulp above it when summed in reverse
+    (tests/test_torch_port_grid_sum_order.py): the kernel takes the unit
+    order, so dw3[0] = rnd(1 + 2^-8) = 1."""
+    w2 = torch.zeros(128, 64, device=cuda)
+    w2[:5, 0] = torch.tensor([1.0, 2.0 ** -8, 2.0 ** -25, 2.0 ** -25,
+                              2.0 ** -25], device=cuda)
+    w2[:, 1:] = 2.0 ** -10
+    args = [torch.ones(1, 128, device=cuda), torch.zeros(1, 128, device=cuda),
+            torch.zeros(128, device=cuda), w2, torch.zeros(64, device=cuda),
+            torch.ones(64, device=cuda),
+            torch.zeros(1, dtype=torch.int32, device=cuda)]
+    dw3 = gd.launch_bwd(*args, 0.0, True, torch.bfloat16,
+                        torch.ones(1, 1, device=cuda))[5]
+    assert float(dw3[0]) == 1.0
+    assert bool((dw3[1:] == 0.125).all())
+
+
+@pytest.mark.parametrize("nf", [None, 3])
+def test_grid_bf16_bwd_repeats_bit_for_bit(cuda, nf):
+    """Two launches of the tensor-core backward give the same bits, at
+    Gdataset width, for one fold and for F = 3."""
+    args, g = _grid_case(cuda, nf, 593, 313, seed=3)
+    launch = gd.launch_bwd if nf is None else gd.launch_bwd_batched
+    a = launch(*args, 0.3, True, torch.bfloat16, g)
+    b = launch(*args, 0.3, True, torch.bfloat16, g)
+    for x, y in zip(a, b):
+        assert torch.equal(x, y)
+
+
 def _edge_args(dev, nf, nd, nv, ne, seed=0):
     """Edge kernel inputs for nf folds (nf None: no fold axis): tables,
     weights, edges (random pairs, repeats allowed), seeds, and g."""
