@@ -7,7 +7,8 @@ Phases, each of which fails the run if it fails:
 1. device and build: the card's name and power limit, then the CUDA
    kernels built from the sources in the checkout, one nvcc per source in
    parallel (nvcc's register and shared-memory report is printed, and the
-   lines of the bf16 grid backward, ``grid_bwd_mma_kernel``, once more);
+   lines of the bf16 backwards, ``grid_bwd_mma_kernel`` and
+   ``edge_bwd_mma_kernel``, once more);
 2. kernels against their plain PyTorch versions at Gdataset width
    (593 drugs x 313 diseases), fp32 and bf16, dropout 0 and 0.3: forward
    logits and all six gradients, each within a stated tolerance; a
@@ -22,11 +23,13 @@ Phases, each of which fails the run if it fails:
 4. the per-edge kernels on fold 0's real train list (167,168 edges over
    the Gdataset tables) the same way, plus: an fp32 edge logit with
    dropout equals the grid kernel's cell [src, dst], and two backward
-   launches give the same bits; then their times, the CSR build's and the
-   da1 buffer's size;
+   launches give the same bits; then their times, the backward's TFLOP/s
+   and residency in bf16 (tensor cores) and fp32 (CUDA cores), the CSR
+   build's time and the da1 buffer's size;
 5. the fold-batched per-edge kernels at F = 3 folds' real lists, fold f
    equal to the single-fold kernel with seed[f] bit for bit, determinism;
-   their times at F = 10;
+   their times, rates and residency at F = 10, and the backward's device
+   time split by a profile into its pass 1, its pass 2 and the slab sums;
 6. the model's eval forward on the card (kernels) against the same
    forward on the CPU (plain versions), at full default width, in grid
    and in edges mode;
@@ -46,7 +49,8 @@ Phases, each of which fails the run if it fails:
     tensor-core backward ``grid_bwd_mma_kernel`` and not ``grid_bwd_kernel``;
 13. the same profile of ten stacked steps of the 10 folds, whose kernels
     per step must stay within twice the sequential step's;
-14-15. the profiles of 12 and 13 in edges mode;
+14-15. the profiles of 12 and 13 in edges mode, which must run
+    ``edge_bwd_mma_kernel`` and not ``edge_bwd_kernel``;
 16. the scale path's kernels against their plain versions at its shapes
     (the planted 100k x 100k problem of ``train.scale``: the ~9M-edge
     rating-0 and ~1M-edge rating-1 relations, forward and transposed,
@@ -207,15 +211,17 @@ def phase_build():
     t0 = time.perf_counter()
     report = cuda_build.build(force=True)
     print(f"{report}  nvcc build: {time.perf_counter() - t0:.2f} s")
-    # The tensor-core backward's registers, spills and shared memory.
+    # The tensor-core backwards' registers, spills and shared memory.
     lines = report.splitlines()
-    at = [n for n, line in enumerate(lines)
-          if "Compiling entry function" in line and "grid_bwd_mma_kernel" in line]
-    if not at:
-        raise AssertionError("nvcc's report names no grid_bwd_mma_kernel")
-    print("  grid_bwd_mma_kernel (bf16 grid backward), nvcc -Xptxas -v:")
-    for line in lines[at[0] + 1:at[0] + 4]:
-        print(f"    {line.strip()}")
+    for kernel, what in (("grid_bwd_mma_kernel", "bf16 grid backward"),
+                         ("edge_bwd_mma_kernel", "bf16 edge backward")):
+        at = [n for n, line in enumerate(lines)
+              if "Compiling entry function" in line and kernel in line]
+        if not at:
+            raise AssertionError(f"nvcc's report names no {kernel}")
+        print(f"  {kernel} ({what}), nvcc -Xptxas -v:")
+        for line in lines[at[0] + 1:at[0] + 4]:
+            print(f"    {line.strip()}")
 
 
 def _compare(pairs, dtype, rate, label, err):
@@ -237,15 +243,15 @@ def _compare(pairs, dtype, rate, label, err):
                                  f"disagrees with the plain version")
 
 
-def _print_bwd_rate(label: str, ms_bf16: float, ms_fp32: float, nf: int):
-    """The grid backward's rate and residency in each dtype (bf16: the
-    tensor-core kernel, fp32: the CUDA-core one), at dropout 0.3."""
-    from dream_gnn_tpu_torch.kernels import grid_decoder as gd
-
-    flops = _decoder_flops(False, nf)
+def _print_bwd_rate(label: str, ms_bf16: float, ms_fp32: float, nf: int,
+                    occupancy, cells: int = ND * NV):
+    """A decoder backward's rate and residency in each dtype (bf16: the
+    tensor-core kernel, fp32: the CUDA-core one), at dropout 0.3;
+    ``occupancy`` is its module's ``bwd_occupancy``."""
+    flops = _decoder_flops(False, nf, cells)
     for name, ms, dtype in (("bf16", ms_bf16, torch.bfloat16),
                             ("fp32", ms_fp32, torch.float32)):
-        blocks, warps = gd.bwd_occupancy(dtype)
+        blocks, warps = occupancy(dtype)
         print(f"  {label} {name}: {ms:.4f} ms, {flops / ms / 1e9:.2f} "
               f"TFLOP/s ({100 * flops / ms * 1e3 / PEAK_FLOPS_S[dtype]:.1f}% "
               f"of the {name} peak); {blocks} block(s), {warps} warps "
@@ -306,7 +312,7 @@ def phase_kernels():
                 *args, rate, True, dtype, x["g"]), reps=5),
         }
     gd.LAUNCHES.update(launches)
-    _print_bwd_rate("grid_decoder_bwd", t["bwd"], t_fp32, 1)
+    _print_bwd_rate("grid_decoder_bwd", t["bwd"], t_fp32, 1, gd.bwd_occupancy)
     rows = []
     for kind, line in (("fwd", 102), ("bwd", 122)):
         bound, by = _bound_ms(kind == "fwd", dtype)
@@ -397,7 +403,8 @@ def phase_kernels_batched():
                 *args, rate, True, dtype, x["g"]), reps=3),
         }
     gd.LAUNCHES.update(launches)
-    _print_bwd_rate(f"grid_decoder_bwd_batched F={NF}", t["bwd"], t_fp32, NF)
+    _print_bwd_rate(f"grid_decoder_bwd_batched F={NF}", t["bwd"], t_fp32, NF,
+                    gd.bwd_occupancy)
     rows = []
     for kind, line in (("fwd", 406), ("bwd", 427)):
         bound, by = _bound_ms(kind == "fwd", dtype, NF)
@@ -498,7 +505,8 @@ def _edge_checks(ed, x, batched, label, err):
 
 
 def _edge_times(ed, x, batched):
-    """Kernel and plain times, bf16 with dropout 0.3 (the main path)."""
+    """Kernel and plain times, bf16 with dropout 0.3 (the main path); prints
+    the backward's rate and residency, timing the fp32 backward too."""
     fwd = ed.launch_fwd_batched if batched else ed.launch_fwd
     bwd = ed.launch_bwd_batched if batched else ed.launch_bwd
     plain = ed.edge_decoder_batched_plain if batched else ed.edge_decoder_plain
@@ -510,11 +518,17 @@ def _edge_times(ed, x, batched):
     t = {"fwd": _time_ms(lambda: fwd(*args, rate, True, dtype)),
          "bwd": _time_ms(lambda: bwd(*args, rate, True, dtype, x["g"],
                                      x["csr"]))}
+    t_fp32 = _time_ms(lambda: bwd(*args, rate, True, torch.float32, x["g"],
+                                  x["csr"]))
     ed.LAUNCHES.update(launches)
     with torch.no_grad():
         tp = {"fwd": _time_ms(lambda: plain(*args, rate, True, dtype), reps=3),
               "bwd": _time_ms(lambda: plain_bwd(*args, rate, True, dtype,
                                                 x["g"]), reps=3)}
+    nf = x["edges"].shape[0] if batched else 1
+    _print_bwd_rate(f"edge_decoder_bwd{'_batched' if batched else ''} F={nf}",
+                    t["bwd"], t_fp32, nf, ed.bwd_occupancy,
+                    cells=x["edges"].shape[-1])
     return t, tp
 
 
@@ -593,8 +607,50 @@ def phase_edge_kernels_batched(ds):
     x = _edge_inputs(ds, NF)
     ne = x["edges"].shape[-1]
     t, tp = _edge_times(ed, x, True)
+    _edge_bwd_split(ed, x)
     return [_edge_row(kind, True, err, t, tp, torch.bfloat16, ne, NF)
             for kind in ("fwd", "bwd")]
+
+
+def _edge_bwd_split(ed, x, n_calls: int = 10):
+    """Row 8's device time per launch (bf16, dropout 0.3), split by a
+    profile into pass 1 (edge_bwd_mma_kernel), pass 2
+    (edge_scatter_kernel) and the wrapper's slab sums (every other
+    kernel)."""
+    from torch.profiler import ProfilerActivity, profile
+
+    args = [x[k] for k in KERNEL_ARGS[:6]] + [x["edges"], x["seed"]]
+    launches = dict(ed.LAUNCHES)
+
+    def call():
+        ed.launch_bwd_batched(*args, 0.3, True, torch.bfloat16, x["g"],
+                              x["csr"])
+
+    call()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        for _ in range(n_calls):
+            call()
+        torch.cuda.synchronize()
+    ed.LAUNCHES.update(launches)
+    rows = _kernel_rows(prof, n_calls)
+    if not rows:
+        print("  edge_decoder_bwd_batched split: the profiler saw no device "
+              "time (not measured)")
+        return
+    parts = {"pass 1": 0.0, "pass 2": 0.0, "slab sums": 0.0}
+    for ms, _, key in rows:
+        part = "pass 1" if "edge_bwd_mma_kernel" in key else \
+            "pass 2" if "edge_scatter_kernel" in key else "slab sums"
+        parts[part] += ms
+    if not parts["pass 1"] or not parts["pass 2"]:
+        raise AssertionError(f"edge backward profile lacks a pass: {rows}")
+    total = sum(parts.values())
+    print(f"  edge_decoder_bwd_batched F={NF} device time per launch "
+          f"(torch.profiler, {n_calls} launches): {total:.4f} ms = "
+          + ", ".join(f"{k} {v:.4f} ms ({100 * v / total:.1f}%)"
+                      for k, v in parts.items()))
 
 
 def phase_model():
@@ -776,7 +832,6 @@ def _profile(label: str, step, n_steps: int, top: int = 12, expect=(),
     device busy share and the ``top`` kernels (all with ``top=None``);
     returns kernels per step.  Fails unless some kernel's name holds each
     of ``expect`` and none holds any of ``forbid``."""
-    from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
     step_ms = _time_ms(step, reps=n_steps)
@@ -785,23 +840,7 @@ def _profile(label: str, step, n_steps: int, top: int = 12, expect=(),
         for _ in range(n_steps):
             step()
         torch.cuda.synchronize()
-    rows = []
-    for ev in prof.key_averages():
-        # Device kernels only: host ops' kernels are listed themselves, and
-        # record_function ranges (e.g. "Optimizer.step#Adam.step") would
-        # count their kernels twice.  A kernel's own name may hold a "#"
-        # (a lambda's, as in every dtype cast), so the ranges are told by
-        # their flag, or by a "#" in a name that is not a kernel's.
-        if ev.device_type != DeviceType.CUDA \
-                or getattr(ev, "is_user_annotation", False) \
-                or ("#" in ev.key and not ev.key.startswith("void ")):
-            continue
-        dev_us = getattr(ev, "self_device_time_total", None)
-        if dev_us is None:
-            dev_us = getattr(ev, "self_cuda_time_total", 0.0)
-        if dev_us > 0:
-            rows.append((dev_us / 1e3 / n_steps, ev.count / n_steps, ev.key))
-    rows.sort(reverse=True)
+    rows = _kernel_rows(prof, n_steps)
     busy_ms = sum(r[0] for r in rows)
     kernels = sum(r[1] for r in rows)
     print(f"  {label}: step {step_ms:.3f} ms (CUDA events, no profiler); "
@@ -826,12 +865,37 @@ def _profile(label: str, step, n_steps: int, top: int = 12, expect=(),
     return kernels
 
 
+def _kernel_rows(prof, n_calls: int) -> list:
+    """(device ms per call, launches per call, name) of every device kernel
+    in a torch.profiler run of ``n_calls`` calls, longest first."""
+    from torch.autograd import DeviceType
+
+    rows = []
+    for ev in prof.key_averages():
+        # Device kernels only: host ops' kernels are listed themselves, and
+        # record_function ranges (e.g. "Optimizer.step#Adam.step") would
+        # count their kernels twice.  A kernel's own name may hold a "#"
+        # (a lambda's, as in every dtype cast), so the ranges are told by
+        # their flag, or by a "#" in a name that is not a kernel's.
+        if ev.device_type != DeviceType.CUDA \
+                or getattr(ev, "is_user_annotation", False) \
+                or ("#" in ev.key and not ev.key.startswith("void ")):
+            continue
+        dev_us = getattr(ev, "self_device_time_total", None)
+        if dev_us is None:
+            dev_us = getattr(ev, "self_cuda_time_total", 0.0)
+        if dev_us > 0:
+            rows.append((dev_us / 1e3 / n_calls, ev.count / n_calls, ev.key))
+    rows.sort(reverse=True)
+    return rows
+
+
 def _bwd_names(mode: str) -> dict:
-    """A bf16 grid step runs the tensor-core backward and not the fp32
-    CUDA-core one (``grid_bwd_kernel``)."""
-    if mode != "grid":
-        return {}
-    return dict(expect=("grid_bwd_mma_kernel",), forbid=("grid_bwd_kernel",))
+    """A bf16 step runs its decoder's tensor-core backward and not the fp32
+    CUDA-core one (``grid_bwd_kernel``, ``edge_bwd_kernel``)."""
+    kind = {"grid": "grid", "edges": "edge"}[mode]
+    return dict(expect=(f"{kind}_bwd_mma_kernel",),
+                forbid=(f"{kind}_bwd_kernel",))
 
 
 def phase_profile(path, n_steps: int = 10) -> float:

@@ -1,6 +1,9 @@
 // Device code shared by the decoder kernels (grid_decoder.cu, edge_decoder.cu,
 // scale_decoder.cu): the dropout hash, bf16 rounding, a warp sum, the first
-// layer of the per-cell MLP, and the backward's block-count rule.
+// layer of the per-cell MLP, the backward's block-count rule, and the
+// tensor-core helpers of the two bf16 backwards (grid_bwd_mma_kernel,
+// edge_bwd_mma_kernel): ldmatrix, mma.sync, fixed shuffle trees and the
+// unit-order a2 where a2 sits near a step.
 //
 // The grid and per-edge kernels' dropout bits are fmix32(cell_key(seed,
 // layer, i, j) ^ k) for drug i, disease j and unit k;
@@ -146,6 +149,111 @@ int wave_split(int max_split, long per_split) {
     }
   }
   return best;
+}
+
+// ---------------------------------------------------------------------------
+// The bf16 backwards on the tensor cores (grid_bwd_mma_kernel,
+// edge_bwd_mma_kernel): a block of 8 warps; bf16 rows padded by 16 bytes
+// (w2 and da2 tiles 144 B, h1d tiles 272 B), so that the 8 rows of an
+// ldmatrix and the lanes of a fragment store fall in distinct banks.
+
+constexpr int MW = 8;            // warps of a bf16 backward block
+constexpr int MT = MW * 32;      // its threads
+constexpr int LDW = H2 + 8;      // bf16 row stride of w2s and da2s
+constexpr int LDH = H1 + 8;      // bf16 row stride of h1s
+constexpr int FIX_LD = 33;       // f32 stride of a thread's 32 sums taken again
+
+__device__ __forceinline__ uint32_t smem_addr(const void* p) {
+  return (uint32_t)__cvta_generic_to_shared(p);
+}
+
+// Four 8 x 8 bf16 matrices; lane l gives the address of row l % 8 of
+// matrix l / 8.  ldsm_t loads them transposed.
+__device__ __forceinline__ void ldsm(uint32_t (&r)[4], uint32_t addr) {
+  asm volatile("ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0, %1, %2, %3}, [%4];\n"
+               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+               : "r"(addr)
+               : "memory");
+}
+
+__device__ __forceinline__ void ldsm_t(uint32_t (&r)[4], uint32_t addr) {
+  asm volatile("ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0, %1, %2, %3}, [%4];\n"
+               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+               : "r"(addr)
+               : "memory");
+}
+
+// d += a @ b on one 16 x 8 tile: a a 16 x 16 bf16 A fragment, (b0, b1) a
+// 16 x 8 bf16 B fragment, d the f32 accumulator.
+__device__ __forceinline__ void mma_bf16(float (&d)[4], const uint32_t (&a)[4],
+                                         uint32_t b0, uint32_t b1) {
+  asm("mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
+      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+}
+
+// Two values rounded to bf16 and packed, lo in the low half, as a fragment
+// holds two neighbouring columns.
+__device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
+  const __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
+  return *reinterpret_cast<const uint32_t*>(&v);
+}
+
+// One step of row_sum: lanes M apart swap halves of v[0 .. LEN) and add.
+template <int M, int LEN, int N>
+__device__ __forceinline__ void row_sum_step(float (&v)[N], int lane) {
+  const bool upper = (lane & M) != 0;
+#pragma unroll
+  for (int p = 0; p < LEN / 2; ++p) {
+    const float send = upper ? v[p] : v[p + LEN / 2];
+    const float keep = upper ? v[p + LEN / 2] : v[p];
+    v[p] = keep + __shfl_xor_sync(0xffffffffu, send, M);
+  }
+}
+
+// Sums v over the 8 lanes that share lane % 4 (the rows of an mma
+// fragment) in a fixed tree: halve, swap with the lane 16, 8, then 4
+// apart.  On return v[0 .. N/8) holds the sums of entries (N/8) * (lane /
+// 4) + [0, N/8) of the input.
+template <int N>
+__device__ __forceinline__ void row_sum(float (&v)[N], int lane) {
+  row_sum_step<16, N>(v, lane);
+  row_sum_step<8, N / 2>(v, lane);
+  row_sum_step<4, N / 4>(v, lane);
+}
+
+// a2 near a step of what the backward makes of it: the relu and the a2 > 0
+// gate at 0 (within band, 2^-20 of the bound sum(h1d) * max |w2| on the
+// terms' size), or a bf16 rounding midpoint of h2d = a2 * m2 (within
+// MID_ULPS f32 ulps).  There the order of the f32 sums decides the result,
+// and the kernel takes the sequential one: seq_a2.  A difference that
+// escapes the window comes from cancellation, where |a2| is small against
+// its terms, and so does h2d and what a flip of its rounding moves in dw3.
+constexpr int MID_ULPS = 64;
+
+__device__ __forceinline__ bool near_step(float a2, float m2, float band) {
+  if (fabsf(a2) <= band) return true;
+  if (a2 < 0.f) return false;
+  const int lo = (int)(__float_as_uint(a2 * m2) & 0xFFFFu);
+  return abs(lo - 0x8000) <= MID_ULPS;
+}
+
+// rnd(h1d) . rnd(w2)[:, n] summed as the f32 CUDA-core kernels sum it: one
+// fused multiply-add per unit, in unit order.  On the card this gives the
+// plain version's a2 (a bf16 x bf16 product is exact, and the f32 matmul
+// adds in unit order) in every case the tests and chip_smoke.py hold.
+__device__ __forceinline__ float seq_a2(const __nv_bfloat16* hrow,
+                                        const __nv_bfloat16* wcol) {
+  const __nv_bfloat162* h2 = reinterpret_cast<const __nv_bfloat162*>(hrow);
+  float s = 0.f;
+#pragma unroll 8
+  for (int k = 0; k < H1; k += 2) {
+    const float2 h = __bfloat1622float2(h2[k / 2]);
+    s = fmaf(h.x, __bfloat162float(wcol[k * LDW]), s);
+    s = fmaf(h.y, __bfloat162float(wcol[(k + 1) * LDW]), s);
+  }
+  return s;
 }
 
 }  // namespace

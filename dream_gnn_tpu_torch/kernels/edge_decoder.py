@@ -25,10 +25,13 @@ cell ``[src[e], dst[e]]``, whatever the tiling, and fold f of a batched
 call draws those of a single-fold call with ``seed[f]``.  A pair listed
 twice draws one mask for both; the loader's candidate pairs are unique.
 
-The backward's gradient scatter into dPd and dPv runs without atomics: the
-kernel writes every edge's rnd(da1) row to an (F, E, 128) buffer, then
-sums each node's rows in list order over a CSR ordering of the edges by
-src and by dst (``EdgeCSR``).  The CSR is index preparation for a fixed
+The backward's first pass runs its three products on the tensor cores in
+bf16 (``edge_bwd_mma_kernel``) and on the CUDA cores in fp32, where TF32
+would round what the fp32 Pallas kernel does not.  Its gradient scatter
+into dPd and dPv runs without atomics: the first pass writes every edge's
+rnd(da1) row to an (F, E, 128) buffer, and the second sums each node's
+rows in list order over a CSR ordering of the edges by src and by dst
+(``EdgeCSR``).  The CSR is index preparation for a fixed
 edge list: ``edge_csr`` builds it with torch ops, and the trainer builds it
 once per fold (``ModelInputs.dec_csr``).
 
@@ -197,6 +200,8 @@ def _load():
         lib.edge_decoder_bwd.restype = i
         lib.edge_decoder_bwd_split.argtypes = [i, i]
         lib.edge_decoder_bwd_split.restype = i
+        lib.edge_decoder_bwd_occupancy.argtypes = [i, p]
+        lib.edge_decoder_bwd_occupancy.restype = i
         _lib = lib
     return _lib
 
@@ -266,6 +271,17 @@ def _launch_bwd(pd, pv, b1, w2, b2, w3, edges, seed, rate, train, dtype, g,
     # Sum each slab over its partial axis, in a fixed order.
     db1, dw2, db2, dw3 = (x.sum(len(folds)) for x in parts)
     return dpd, dpv, db1, dw2, db2, dw3
+
+
+def bwd_occupancy(dtype) -> tuple:
+    """(blocks, warps) of the ``dtype`` backward's pass-1 kernel resident on
+    one SM of the current card, by CUDA's occupancy API."""
+    occ = (ctypes.c_int * 2)()
+    err = _load().edge_decoder_bwd_occupancy(int(dtype == torch.bfloat16),
+                                             ctypes.addressof(occ))
+    if err != 0:
+        raise RuntimeError(f"edge_decoder_bwd_occupancy: CUDA error {err}")
+    return occ[0], occ[0] * occ[1]
 
 
 def launch_fwd(pd, pv, b1, w2, b2, w3, edges, seed, rate, train, dtype):

@@ -459,6 +459,133 @@ def test_edges_trainer_launches_edge_kernels(cuda, tmp_path, flags, edge):
     assert _decoder_launches() == {"grid": ZERO, "edge": edge}
 
 
+_MATMUL = torch.matmul
+
+
+def _unit_order_matmul(x, y):
+    """torch.matmul, but a product of depth 64 or 128 (the decoder's a2 =
+    rnd(h1d) @ rnd(w2) and dh1 = rnd(da2) @ rnd(w2)^T) summed one unit at a
+    time in unit order, in f32: a product of two bf16 values is exact in
+    f32, so each step is the fused multiply-add of a sequential sum."""
+    k = x.shape[-1]
+    if k not in (64, 128) or y.shape[-2] != k:
+        return _MATMUL(x, y)
+    acc = torch.zeros(*x.shape[:-1], y.shape[-1], device=x.device)
+    for u in range(k):
+        acc = acc + x[..., u:u + 1] * y[..., u:u + 1, :]
+    return acc
+
+
+@pytest.mark.parametrize("rate", [0.0, 0.3])
+@pytest.mark.parametrize("nf", [None, 3])
+@pytest.mark.parametrize("nv", [1, 313])
+@pytest.mark.parametrize("nd", [1, 37, 593])
+@pytest.mark.parametrize("ne", [1, 15, 16, 17, 127, 128, 129, 1023, 4097])
+def test_edge_bf16_bwd_matches_plain_across_tiles(cuda, monkeypatch, ne, nd,
+                                                  nv, nf, rate):
+    """The tensor-core edge backward (bf16) at edge counts that straddle
+    its 16-edge mma rows and 128-edge tiles, for one fold (F = 1) and
+    F = 3: all six gradients finite and within the tolerance of the plain
+    version with its a2 and dh1 products summed in unit order.
+
+    The kernel sums those in unit order wherever the order can move a bf16
+    rounding (tests/test_torch_port_edge_sum_order.py).  cuBLAS picks its
+    order by shape, and at 128 and 129 edges over the 593 x 313 tables it
+    is not unit order: there the plain version's own dw3, or its dPd and
+    dPv, differ from its unit-order result by 1.2e-4 and 9e-5 of their
+    largest value (H100), while the kernel matches the unit-order result
+    bit for bit in those gradients."""
+    args, g = _edge_args(cuda, nf, nd, nv, ne, seed=ne + nd + nv)
+    launch, plain = (ed.launch_bwd, ed.edge_decoder_plain_bwd) if nf is None \
+        else (ed.launch_bwd_batched, ed.edge_decoder_batched_plain_bwd)
+    grads = launch(*args, rate, True, torch.bfloat16, g)
+    monkeypatch.setattr(torch, "matmul", _unit_order_matmul)
+    refs = plain(*args, rate, True, torch.bfloat16, g)
+    monkeypatch.undo()
+    torch.cuda.synchronize()
+    for a, b in zip(grads, refs):
+        assert a.shape == b.shape
+        assert bool(torch.isfinite(a).all())
+        assert _rel(a, b) <= TOL[torch.bfloat16]
+
+
+def test_edge_bf16_bwd_sums_a2_in_unit_order_at_a_midpoint(cuda):
+    """One edge whose a2[0] is a bf16 midpoint of h2d when summed in unit
+    order and one f32 ulp above it when summed in reverse
+    (tests/test_torch_port_edge_sum_order.py): the kernel takes the unit
+    order, so dw3[0] = rnd(1 + 2^-8) = 1."""
+    w2 = torch.zeros(128, 64, device=cuda)
+    w2[:5, 0] = torch.tensor([1.0, 2.0 ** -8, 2.0 ** -25, 2.0 ** -25,
+                              2.0 ** -25], device=cuda)
+    w2[:, 1:] = 2.0 ** -10
+    args = [torch.ones(1, 128, device=cuda), torch.zeros(1, 128, device=cuda),
+            torch.zeros(128, device=cuda), w2, torch.zeros(64, device=cuda),
+            torch.ones(64, device=cuda),
+            torch.zeros(2, 1, dtype=torch.int32, device=cuda),
+            torch.zeros(1, dtype=torch.int32, device=cuda)]
+    dw3 = ed.launch_bwd(*args, 0.0, True, torch.bfloat16,
+                        torch.ones(1, device=cuda))[5]
+    assert float(dw3[0]) == 1.0
+    assert bool((dw3[1:] == 0.125).all())
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("rate", [0.0, 0.3])
+def test_edge_bwd_gates_at_zero_and_subnormal(cuda, dtype, rate):
+    """Units where a1 is exactly 0 (gate shut) or a subnormal positive
+    (gate open, though rnd(h1d) may round to 0), and columns where a2 is
+    exactly 0 (gate shut): the kernel gates on a1 > 0 and a2 > 0 as the
+    plain version does.  In bf16 the tables round first, so 1e-45 becomes
+    0 there and 1e-39 stays a subnormal."""
+    nd, nv = 37, 45
+    args, g = _edge_args(cuda, None, nd, nv, 3000, seed=5)
+    pd, pv, b1, w2, b2 = (x.clone() for x in args[:5])
+    s1, s2 = slice(0, 16), slice(0, 4)
+    pattern = torch.tensor([0.0, 1e-45, 1e-39, 3e-38, -0.3, 0.4],
+                           device=cuda)
+    sub = torch.arange(nd, device=cuda) % 6
+    pd[:, s1] = pattern[sub][:, None]
+    pv[:, s1] = 0.0
+    b1[s1] = 0.0
+    w2[:, s2] = 0.0
+    b2[s2] = 0.0
+    args = [pd, pv, b1, w2, b2, *args[5:]]
+    grads = ed.launch_bwd(*args, rate, True, dtype, g)
+    refs = ed.edge_decoder_plain_bwd(*args, rate, True, dtype, g)
+    torch.cuda.synchronize()
+    # The case bites: the drugs of subnormal a1 carry dPd in those units,
+    # those of a1 = 0 none, and a2 = 0 leaves db2 exactly 0 there.
+    dpd = refs[0][:, s1]
+    assert float(dpd[(sub == 1) | (sub == 2)].abs().max()) \
+        > 0.05 * float(refs[0].abs().max())
+    assert not bool(dpd[sub == 0].any())
+    assert not bool(refs[4][s2].any()) and not bool(grads[4][s2].any())
+    for a, b in zip(grads, refs):
+        assert _rel(a, b) <= TOL[dtype]
+
+
+@pytest.mark.parametrize("nf", [None, 3])
+def test_edge_bf16_bwd_repeats_bit_for_bit(cuda, nf):
+    """Two launches of the tensor-core edge backward give the same bits,
+    over Gdataset-sized tables, for one fold and for F = 3."""
+    args, g = _edge_args(cuda, nf, 593, 313, 20000, seed=3)
+    launch = ed.launch_bwd if nf is None else ed.launch_bwd_batched
+    a = launch(*args, 0.3, True, torch.bfloat16, g)
+    b = launch(*args, 0.3, True, torch.bfloat16, g)
+    for x, y in zip(a, b):
+        assert torch.equal(x, y)
+
+
+@pytest.mark.parametrize("dtype,warps", [(torch.float32, 4),
+                                         (torch.bfloat16, 8)])
+def test_edge_bwd_occupancy_is_the_launch_block(cuda, dtype, warps):
+    """bwd_occupancy counts the blocks of the launch's own size (4 warps in
+    fp32, 8 on the tensor cores) that fit an SM, and at least one does."""
+    blocks, resident = ed.bwd_occupancy(dtype)
+    assert blocks >= 1
+    assert resident == blocks * warps
+
+
 # ---------------------------------------------------------------------------
 # The scale path's kernels: the segmented sum behind spmm_slab and
 # seq_scatter (csrc/spmm.cu), and the scale decoder's K2, B1 and mirror
