@@ -7,8 +7,9 @@ Phases, each of which fails the run if it fails:
 1. device and build: the card's name and power limit, then the CUDA
    kernels built from the sources in the checkout, one nvcc per source in
    parallel (nvcc's register and shared-memory report is printed, and the
-   lines of the bf16 backwards, ``grid_bwd_mma_kernel`` and
-   ``edge_bwd_mma_kernel``, once more);
+   lines of the bf16 backwards, ``grid_bwd_mma_kernel``,
+   ``edge_bwd_mma_kernel`` and both instantiations of
+   ``scale_bwd_mma_kernel``, B1 and the mirror, once more);
 2. kernels against their plain PyTorch versions at Gdataset width
    (593 drugs x 313 diseases), fp32 and bf16, dropout 0 and 0.3: forward
    logits and all six gradients, each within a stated tolerance; a
@@ -59,13 +60,16 @@ Phases, each of which fails the run if it fails:
     the same bits, the bf16 control; then each kernel's time beside its
     bound, its plain version's and one PyTorch call's where there is one
     (and for the segment sums of 16 and 20, the rate at which they gather
-    rows of x, entries x row bytes / time);
+    rows of x, entries x row bytes / time), and B1's and the mirror's
+    TFLOP/s and residency in bf16 (tensor cores) and fp32 (CUDA cores);
 17. the scale model's eval forward on the card (kernels) against the CPU
     (plain versions) at 10k x 10k nodes, 1M edges, 100k candidates;
 18. the scale trainer through ``train.scale`` at full size, 20 steps with an
     eval every 10: ms/step, peak memory, the layout build time and the
     launch counts the path implies;
-19. a profile of ten scale training steps;
+19. a profile of ten scale training steps, which must run the tensor-core
+    ``scale_bwd_mma_kernel`` (B1 and the mirror) and not
+    ``scale_bwd_kernel``;
 20. the scale benchmark's SpMMs, grouped (``spmm_gather``) and blocked
     (``spmm_blocked``), against their plain versions at their paths'
     shapes: the ~7M-edge rating-0 and ~3M-edge rating-1 relations of
@@ -211,17 +215,22 @@ def phase_build():
     t0 = time.perf_counter()
     report = cuda_build.build(force=True)
     print(f"{report}  nvcc build: {time.perf_counter() - t0:.2f} s")
-    # The tensor-core backwards' registers, spills and shared memory.
+    # The tensor-core backwards' registers, spills and shared memory; the
+    # scale backward's <false> instantiation is B1, <true> the mirror.
     lines = report.splitlines()
-    for kernel, what in (("grid_bwd_mma_kernel", "bf16 grid backward"),
-                         ("edge_bwd_mma_kernel", "bf16 edge backward")):
+    for kernel, what in (("grid_bwd_mma_kernel", ("bf16 grid backward",)),
+                         ("edge_bwd_mma_kernel", ("bf16 edge backward",)),
+                         ("scale_bwd_mma_kernel", ("bf16 scale B1",
+                                                   "bf16 scale mirror"))):
         at = [n for n, line in enumerate(lines)
               if "Compiling entry function" in line and kernel in line]
-        if not at:
-            raise AssertionError(f"nvcc's report names no {kernel}")
-        print(f"  {kernel} ({what}), nvcc -Xptxas -v:")
-        for line in lines[at[0] + 1:at[0] + 4]:
-            print(f"    {line.strip()}")
+        if len(at) != len(what):
+            raise AssertionError(f"nvcc's report names {kernel} {len(at)} "
+                                 f"times, not {len(what)}")
+        for n, label in zip(at, what):
+            print(f"  {kernel} ({label}), nvcc -Xptxas -v:")
+            for line in lines[n + 1:n + 4]:
+                print(f"    {line.strip()}")
 
 
 def _compare(pairs, dtype, rate, label, err):
@@ -244,11 +253,13 @@ def _compare(pairs, dtype, rate, label, err):
 
 
 def _print_bwd_rate(label: str, ms_bf16: float, ms_fp32: float, nf: int,
-                    occupancy, cells: int = ND * NV):
+                    occupancy, cells: int = ND * NV, flops=None):
     """A decoder backward's rate and residency in each dtype (bf16: the
     tensor-core kernel, fp32: the CUDA-core one), at dropout 0.3;
-    ``occupancy`` is its module's ``bwd_occupancy``."""
-    flops = _decoder_flops(False, nf, cells)
+    ``occupancy`` is its module's ``bwd_occupancy``.  ``flops`` defaults
+    to the grid and per-edge backward's over ``cells``."""
+    if flops is None:
+        flops = _decoder_flops(False, nf, cells)
     for name, ms, dtype in (("bf16", ms_bf16, torch.bfloat16),
                             ("fp32", ms_fp32, torch.float32)):
         blocks, warps = occupancy(dtype)
@@ -966,7 +977,7 @@ SCALE_N = 100_000            # train.scale's drugs and diseases at full size
 # kernel and its plain version compute the same messages and the same MLP
 # with the same roundings, and differ in the order of their f32 sums (the
 # plain SpMM's index_add runs in no fixed order on the card).  The largest
-# error measured on the H100 was below 2e-6 (PERF.md).
+# error measured on the H100 was below 6e-6 (PERF.md).
 SCALE_TOL = 1e-4
 # Operations per candidate slot of the decoder MLP (H1 = 128, H2 = 64):
 # forward: the a2 product, a1 and the logit dot; B1: the recomputed forward,
@@ -1236,6 +1247,21 @@ def _decoder_rows(layout, dev):
                                                 *common)),
           "mirror": _time_ms(lambda: sd.launch_mirror(pd, pv, layout, g_m,
                                                         b1, *common))}
+    # B1's and the mirror's rate and residency in each dtype (bf16: the
+    # tensor-core kernel, fp32: the CUDA-core one), at dropout 0.3.
+    _, a1_32 = sd.launch_k2(pd, pv, b1, w2, b2, w3, *fwd, seed, rate, True,
+                            torch.float32, True)
+    common32 = (w2, b2, w3, seed, rate, True, torch.float32)
+    ms32 = {"b1": _time_ms(lambda: sd.launch_b1(a1_32, pd, pv, layout, g, b1,
+                                                  *common32)),
+            "mirror": _time_ms(lambda: sd.launch_mirror(pd, pv, layout, g_m,
+                                                          b1, *common32))}
+    del a1_32
+    e = layout.n_pos
+    for name, ops in (("b1", OPS_B1), ("mirror", OPS_MIRROR)):
+        _print_bwd_rate(f"scale_decoder_{name}", ms[name], ms32[name], 1,
+                        lambda dt, m=name == "mirror": sd.bwd_occupancy(dt, m),
+                        flops=ops * e)
     with torch.no_grad():
         plain = {"k2": _time_ms(lambda: sd.scale_fwd_plain(
                      pd, pv, b1, w2, b2, w3, *fwd, seed, rate, True, dtype,
@@ -1244,7 +1270,6 @@ def _decoder_rows(layout, dev):
                      a1, pd, pv, *fwd, g, b1, *common, True), reps=3),
                  "mirror": _time_ms(lambda: sd.scale_bwd_plain(
                      None, pd, pv, *mir, g_m, b1, *common, False), reps=3)}
-    e = layout.n_pos
     return [
         _scale_row("scale_decoder_k2", "pallas_scale_decoder.py:460",
                    err["k2"], ms["k2"], plain["k2"],
@@ -1275,7 +1300,9 @@ def phase_scale_kernels(tin):
 
 
 def phase_scale_profile(tin, lab, w, n_steps: int = 10):
-    """Where a scale training step's time goes."""
+    """Where a scale training step's time goes.  The bf16 step must run
+    the tensor-core backward, ``scale_bwd_mma_kernel<false>`` (B1) and
+    ``<true>`` (the mirror), and not the CUDA-core ``scale_bwd_kernel``."""
     from dream_gnn_tpu_torch.config import TrainConfig
     from dream_gnn_tpu_torch.model.dream_gnn import init_params
     from dream_gnn_tpu_torch.train.scale import model_config
@@ -1289,7 +1316,8 @@ def phase_scale_profile(tin, lab, w, n_steps: int = 10):
     step = make_one_step(mcfg, cfg)
     # Every kernel, so that the step's kernel count can be accounted for.
     _profile("scale step", lambda: step(state, tin, lab, w), n_steps,
-             top=None)
+             top=None, expect=("scale_bwd_mma_kernel",),
+             forbid=("scale_bwd_kernel",))
 
 
 def phase_scale_model():

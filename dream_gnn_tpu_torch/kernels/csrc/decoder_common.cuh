@@ -1,9 +1,10 @@
 // Device code shared by the decoder kernels (grid_decoder.cu, edge_decoder.cu,
 // scale_decoder.cu): the dropout hash, bf16 rounding, a warp sum, the first
 // layer of the per-cell MLP, the backward's block-count rule, and the
-// tensor-core helpers of the two bf16 backwards (grid_bwd_mma_kernel,
-// edge_bwd_mma_kernel): ldmatrix, mma.sync, fixed shuffle trees and the
-// unit-order a2 where a2 sits near a step.
+// tensor-core helpers of the three bf16 backwards (grid_bwd_mma_kernel,
+// edge_bwd_mma_kernel, scale_bwd_mma_kernel): ldmatrix, mma.sync, fixed
+// shuffle trees, and the unit-order a2 and dh1 where a2 sits near a step
+// or da1 near a bf16 midpoint.
 //
 // The grid and per-edge kernels' dropout bits are fmix32(cell_key(seed,
 // layer, i, j) ^ k) for drug i, disease j and unit k;
@@ -153,9 +154,10 @@ int wave_split(int max_split, long per_split) {
 
 // ---------------------------------------------------------------------------
 // The bf16 backwards on the tensor cores (grid_bwd_mma_kernel,
-// edge_bwd_mma_kernel): a block of 8 warps; bf16 rows padded by 16 bytes
-// (w2 and da2 tiles 144 B, h1d tiles 272 B), so that the 8 rows of an
-// ldmatrix and the lanes of a fragment store fall in distinct banks.
+// edge_bwd_mma_kernel, scale_bwd_mma_kernel): a block of 8 warps; bf16
+// rows padded by 16 bytes (w2 and da2 tiles 144 B, h1d tiles 272 B), so
+// that the 8 rows of an ldmatrix and the lanes of a fragment store fall in
+// distinct banks.
 
 constexpr int MW = 8;            // warps of a bf16 backward block
 constexpr int MT = MW * 32;      // its threads
@@ -252,6 +254,32 @@ __device__ __forceinline__ float seq_a2(const __nv_bfloat16* hrow,
     const float2 h = __bfloat1622float2(h2[k / 2]);
     s = fmaf(h.x, __bfloat162float(wcol[k * LDW]), s);
     s = fmaf(h.y, __bfloat162float(wcol[(k + 1) * LDW]), s);
+  }
+  return s;
+}
+
+// x within band of a bf16 rounding midpoint (the one above |x|'s bf16
+// truncation; the one below lies half a bf16 ulp away, so it is within band
+// only when that one is too).  There a difference of up to band in x, as
+// between two orders of an f32 sum, can flip rnd(x).
+__device__ __forceinline__ bool near_mid(float x, float band) {
+  const float mid = __uint_as_float((__float_as_uint(x) & 0xFFFF0000u) | 0x8000u);
+  return fabsf(x - mid) <= band;
+}
+
+// rnd(da2) . rnd(w2)[k, :], one fused multiply-add per unit in unit order,
+// as the f32 CUDA-core kernel and the plain version's f32 matmul sum dh1.
+__device__ __forceinline__ float seq_dh1(const __nv_bfloat16* drow,
+                                         const __nv_bfloat16* wrow) {
+  const __nv_bfloat162* d2 = reinterpret_cast<const __nv_bfloat162*>(drow);
+  const __nv_bfloat162* w2 = reinterpret_cast<const __nv_bfloat162*>(wrow);
+  float s = 0.f;
+#pragma unroll 8
+  for (int n = 0; n < H2; n += 2) {
+    const float2 d = __bfloat1622float2(d2[n / 2]);
+    const float2 w = __bfloat1622float2(w2[n / 2]);
+    s = fmaf(d.x, w.x, s);
+    s = fmaf(d.y, w.y, s);
   }
   return s;
 }

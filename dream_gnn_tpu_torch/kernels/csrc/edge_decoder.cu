@@ -331,37 +331,11 @@ __global__ void __launch_bounds__(TE) edge_bwd_kernel(
   }
 }
 
-// x within band of a bf16 rounding midpoint (the one above |x|'s bf16
-// truncation; the one below lies half a bf16 ulp away, so it is within band
-// only when that one is too).  There a difference of up to band in x, as
-// between two orders of an f32 sum, can flip rnd(x).
-__device__ __forceinline__ bool near_mid(float x, float band) {
-  const float mid = __uint_as_float((__float_as_uint(x) & 0xFFFF0000u) | 0x8000u);
-  return fabsf(x - mid) <= band;
-}
-
 // near_step, with the midpoints of h2d = a2 * m2 also taken within the
 // absolute band: where |a2| is small against its terms, the sums' noise
 // spans more f32 ulps of a2 than MID_ULPS.
 __device__ __forceinline__ bool near_step_abs(float a2, float m2, float band) {
   return near_step(a2, m2, band) || (a2 > 0.f && near_mid(a2 * m2, band * m2));
-}
-
-// rnd(da2) . rnd(w2)[k, :], one fused multiply-add per unit in unit order,
-// as the f32 CUDA-core kernel and the plain version's f32 matmul sum dh1.
-__device__ __forceinline__ float seq_dh1(const __nv_bfloat16* drow,
-                                         const __nv_bfloat16* wrow) {
-  const __nv_bfloat162* d2 = reinterpret_cast<const __nv_bfloat162*>(drow);
-  const __nv_bfloat162* w2 = reinterpret_cast<const __nv_bfloat162*>(wrow);
-  float s = 0.f;
-#pragma unroll 8
-  for (int n = 0; n < H2; n += 2) {
-    const float2 d = __bfloat1622float2(d2[n / 2]);
-    const float2 w = __bfloat1622float2(w2[n / 2]);
-    s = fmaf(d.x, w.x, s);
-    s = fmaf(d.y, w.y, s);
-  }
-  return s;
 }
 
 // The bf16 backward on the tensor cores, pass 1.  The fragment layout of

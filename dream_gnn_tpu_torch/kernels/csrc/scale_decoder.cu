@@ -1,5 +1,6 @@
 // The scale path's fused per-slot decoder MLP for Hopper (sm_90a): the
-// forward (K2) and one backward kernel launched twice (B1 and the mirror).
+// forward (K2) and the backward, one kernel per dtype launched twice (B1 and
+// the mirror).
 //
 // Replaces the Pallas TPU kernels of dream_gnn_tpu/kernels/pallas_scale_decoder.py:
 // - _k2_kernel: for every candidate slot e of the forward stream (the
@@ -31,22 +32,49 @@
 // same masks in their different slot orders.
 //
 // What bounds it on an H100: about 16.8 kFLOP per slot forward and 50.2 kFLOP
-// backward against about 1 KB of rows, so operations.  This first version
-// runs the products on the CUDA cores in f32, as the per-edge kernels
-// (edge_decoder.cu) do, and leaves the tensor cores unused.
+// backward against about 1 KB of rows, so operations.
 //
-// Design (simple first), the per-edge kernels' with another hash and other
-// rounding points:
-// - K2: one thread per slot, 128 slots a block; w2, b1, b2, w3 in shared
+// Design, the per-edge kernels' (edge_decoder.cu) with another hash and
+// other rounding points:
+// - K2 (one design for both dtypes; its products run on the CUDA cores in
+//   f32): one thread per slot, 128 slots a block; w2, b1, b2, w3 in shared
 //   memory; each thread gathers its two table rows from global memory.
 // - backward: a block walks a fixed, strided subset of the 128-slot tiles;
-//   per tile it recomputes the forward, forms da2 and da1, writes each slot's
-//   rounded da1 row, and (B1) sums dW2 in shared memory and db1, db2, dw3 in
-//   registers; each block writes its own partial slabs, which the caller sums
+//   per tile it recomputes the forward, forms da2 and da1, writes each
+//   slot's rounded da1 row, and (B1) sums dW2, db1, db2 and dw3 over its
+//   tiles; each block writes its own partial slabs, which the caller sums
 //   in a fixed order.  No float atomics, so two runs give the same bits.
+//   - bf16 (scale_bwd_mma_kernel): the tile's three products, a2 = rnd(h1d)
+//     @ rnd(w2), dW2 += rnd(h1d)^T @ rnd(da2) (B1) and dh1 = rnd(da2) @
+//     rnd(w2)^T, run on the tensor cores as mma.sync m16n8k16 bf16 x bf16
+//     -> f32, as edge_bwd_mma_kernel runs them: 8 warps, each owning 16
+//     slots of a tile for a2 and dh1 and (B1) 16 H1 units for dW2; h1d
+//     formed in the A fragments with its dropout hash once per unit; each
+//     k-step's product started from 0 and added in f32; dW2 and db1 in
+//     registers across tiles, fixed shuffle trees and a fixed warp order for
+//     the cross-lane sums.  Two sums are taken again in unit order where
+//     the order of the tensor cores' f32 sums could move a result: a2
+//     within a band of 0, where the a2 > 0 gate flips (seq_a2), and an open
+//     da1 near a bf16 midpoint, where the stored row rounds (seq_dh1).  h2d
+//     rounds nowhere in this backward (dw3 sums h2d * g in f32), so unlike
+//     the per-edge kernel it needs no midpoint test on a2
+//     (tests/test_torch_port_scale_sum_order.py).  Each thread reads its
+//     two slots' a1 at its units one k-step ahead: B1 from shared memory,
+//     where each warp's 16 rows of K2's bf16 spill arrive by cp.async one
+//     tile ahead; the mirror from the two f32 table rows of each slot in
+//     global memory.  The mirror has no weight gradients and no block
+//     barrier in its tile loop: a warp reads only its own rows of the tile
+//     (h1d for seq_a2, da2 for seq_dh1).  It fits two blocks an SM (17%
+//     faster than one on the H100); its grid is what the card holds
+//     resident, as its result does not depend on the split.
+//   - fp32 (scale_bwd_kernel): the tensor cores would take fp32 operands
+//     only as TF32, which rounds where the fp32 Pallas kernel does not, so
+//     the products stay on the CUDA cores: one thread per slot, f32 tiles
+//     in shared memory, dW2 in shared memory.
 //
 // Every entry point returns cudaGetLastError() after its launches.
 
+#include <algorithm>
 #include <cassert>
 #include <type_traits>
 
@@ -63,6 +91,49 @@ constexpr int FWD_SMEM = H1 * H2 + H1 + 2 * H2;
 constexpr int BWD_SMEM_BASE = H1 * H2 + H1 + 2 * H2 + TS * LD1 + TS * LD2;
 constexpr int BWD_SMEM_GRADS = BWD_SMEM_BASE + 2 * (TS / 32) * H2 + H1 * LD2;
 
+// The bf16 backward: MW = 8 warps (decoder_common.cuh), each owning 16
+// slots of a tile.  Shared memory, in bytes; the mirror needs no per-warp
+// sums.
+static_assert(TS == MW * 16, "each warp owns one 16-row mma tile of slots");
+static_assert(H1 == MW * 16, "each warp owns 16 H1 units of dW2");
+static_assert(MT == H1 + 2 * H2, "the final sums map one thread to one output");
+template <bool MIRROR>
+constexpr int mma_smem() {
+  return H1 * LDW * 2                      // w2, bf16
+         + TS * LDH * 2                    // rnd(h1d) of the tile
+         + TS * LDW * 2                    // rnd(da2) of the tile
+         + (H1 + 2 * H2) * 4               // b1, b2, w3
+         + (MIRROR ? 0 : 2 * MW * H1 * 4)  // per-warp db1, db2 and dw3 sums
+         + 4                               // max |rnd(w2)|
+         + MT * FIX_LD * 4                 // a2 and da1 taken again, per thread
+         + (MIRROR ? 0 : 12 + TS * LDH * 2);   // B1: the tile's a1, 16-byte aligned
+}
+
+// A 16-byte copy from global to shared memory that the thread does not
+// wait for, and the wait for all of the thread's copies.
+__device__ __forceinline__ void cp_async16(void* smem, const void* gmem) {
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n"
+               :
+               : "r"(smem_addr(smem)), "l"(gmem)
+               : "memory");
+}
+__device__ __forceinline__ void cp_async_wait_all() {
+  asm volatile("cp.async.wait_all;\n" ::: "memory");
+}
+
+// B1: the warp's 16 rows of the saved a1 of the tile at slot e0 into a1s
+// (rows of LDH), 16 bytes a copy; a padding slot copies slot 0's row.
+__device__ __forceinline__ void a1_prefetch(__nv_bfloat16* a1s,
+                                            const __nv_bfloat16* a1_saved,
+                                            int e0, int warp, int lane, int ne) {
+#pragma unroll
+  for (int i = 0; i < 8; ++i) {
+    const int chunk = lane + 32 * i, row = 16 * warp + chunk / 16;
+    const int col = 8 * (chunk % 16), e = e0 + row < ne ? e0 + row : 0;
+    cp_async16(a1s + row * LDH + col, a1_saved + (size_t)e * H1 + col);
+  }
+}
+
 template <bool BF16>
 using store_t = typename std::conditional<BF16, __nv_bfloat16, float>::type;
 
@@ -77,12 +148,6 @@ __device__ __forceinline__ uint32_t slot_bits(uint32_t base, uint32_t u) {
 __device__ __forceinline__ float4 load4(const float* p) {
   return *reinterpret_cast<const float4*>(p);
 }
-__device__ __forceinline__ float4 load4(const __nv_bfloat16* p) {
-  const uint2 raw = *reinterpret_cast<const uint2*>(p);
-  const float2 lo = __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(&raw.x));
-  const float2 hi = __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(&raw.y));
-  return make_float4(lo.x, lo.y, hi.x, hi.y);
-}
 __device__ __forceinline__ void store4(float* p, float4 v) {
   *reinterpret_cast<float4*>(p) = v;
 }
@@ -93,10 +158,6 @@ __device__ __forceinline__ void store4(__nv_bfloat16* p, float4 v) {
   raw.x = *reinterpret_cast<uint32_t*>(&lo);
   raw.y = *reinterpret_cast<uint32_t*>(&hi);
   *reinterpret_cast<uint2*>(p) = raw;
-}
-__device__ __forceinline__ void store1(float* p, float v) { *p = v; }
-__device__ __forceinline__ void store1(__nv_bfloat16* p, float v) {
-  *p = __float2bfloat16_rn(v);
 }
 
 template <bool BF16, bool SAVE_A1>
@@ -150,17 +211,18 @@ __global__ void __launch_bounds__(TS) scale_fwd_kernel(
   out[e] = s;
 }
 
-// FROM_SAVED_A1: B1 (a1 from the forward's spill, weight gradients when
-// WEIGHT_GRADS); else the mirror (a1 from the table rows).
-template <bool BF16, bool FROM_SAVED_A1, bool WEIGHT_GRADS>
+// The fp32 backward on the CUDA cores.  FROM_SAVED_A1: B1 (a1 from the
+// forward's spill, weight gradients when WEIGHT_GRADS); else the mirror (a1
+// from the table rows).
+template <bool FROM_SAVED_A1, bool WEIGHT_GRADS>
 __global__ void __launch_bounds__(TS) scale_bwd_kernel(
-    const store_t<BF16>* __restrict__ a1_saved, const float* __restrict__ pd,
+    const float* __restrict__ a1_saved, const float* __restrict__ pd,
     const float* __restrict__ pv, const int* __restrict__ drug,
     const int* __restrict__ dis, const int* __restrict__ eid,
     const float* __restrict__ g, const float* __restrict__ b1,
     const float* __restrict__ w2, const float* __restrict__ b2,
     const float* __restrict__ w3, const int* __restrict__ seed_ptr,
-    store_t<BF16>* __restrict__ da1_out,
+    float* __restrict__ da1_out,
     float* __restrict__ db1_part,   // (n_split, H1)
     float* __restrict__ dw2_part,   // (n_split, H1, H2)
     float* __restrict__ db2_part,   // (n_split, H2)
@@ -182,7 +244,7 @@ __global__ void __launch_bounds__(TS) scale_bwd_kernel(
   const bool drop = use_drop != 0;
   const uint32_t seed = (uint32_t)seed_ptr[0];
 
-  for (int q = t; q < H1 * H2; q += TS) w2s[q] = rnd<BF16>(w2[q]);
+  for (int q = t; q < H1 * H2; q += TS) w2s[q] = w2[q];
   if constexpr (WEIGHT_GRADS) {
     for (int q = t; q < H1 * LD2; q += TS) dw2acc[q] = 0.f;
   }
@@ -202,7 +264,7 @@ __global__ void __launch_bounds__(TS) scale_bwd_kernel(
     const float gc = valid ? g[e] : 0.f;
     const uint32_t base = slot_base((uint32_t)eid[es], seed);
     const auto bits = [=](uint32_t u) { return slot_bits(base, u); };
-    const store_t<BF16>* a1_row = nullptr;
+    const float* a1_row = nullptr;
     const float* pd_row = nullptr;
     const float* pv_row = nullptr;
     if constexpr (FROM_SAVED_A1) {
@@ -217,7 +279,7 @@ __global__ void __launch_bounds__(TS) scale_bwd_kernel(
       if constexpr (FROM_SAVED_A1) {
         return load4(a1_row + k);
       } else {
-        return rows_a1<BF16, true>(pd_row, pv_row, b1s, k);
+        return rows_a1<false, true>(pd_row, pv_row, b1s, k);
       }
     };
     __syncthreads();   // the previous tile is done with hbuf and da2s
@@ -225,7 +287,7 @@ __global__ void __launch_bounds__(TS) scale_bwd_kernel(
     // Per slot: recompute the forward, then da2 = (a2 > 0) * g * w3 * m2.
     {
       float acc[H2];
-      layer1<BF16>(a1_at, bits, w2s, drop, thresh, scale, acc,
+      layer1<false>(a1_at, bits, w2s, drop, thresh, scale, acc,
                    WEIGHT_GRADS ? hbuf + t * LD1 : nullptr);
 #pragma unroll
       for (int n = 0; n < H2; ++n) {
@@ -246,7 +308,7 @@ __global__ void __launch_bounds__(TS) scale_bwd_kernel(
             red[(TS / 32 + warp) * H2 + n] = sdw3;
           }
         }
-        acc[n] = rnd<BF16>(da2);
+        acc[n] = da2;
       }
       float4* drow = reinterpret_cast<float4*>(da2s + t * LD2);
 #pragma unroll
@@ -326,7 +388,7 @@ __global__ void __launch_bounds__(TS) scale_bwd_kernel(
     }
     __syncthreads();
 
-    // Thread k: db1 sums da1, and each slot's rounded da1 row goes out whole.
+    // Thread k: db1 sums da1, and each slot's da1 row goes out whole.
     {
       const int k = t;
       const int n_valid = min(TS, ne - e0);
@@ -334,7 +396,7 @@ __global__ void __launch_bounds__(TS) scale_bwd_kernel(
       for (int c = 0; c < TS; ++c) {
         const float v = hbuf[c * LD1 + k];
         if constexpr (WEIGHT_GRADS) db1acc += v;
-        if (c < n_valid) store1(da1_out + (size_t)(e0 + c) * H1 + k, v);
+        if (c < n_valid) da1_out[(size_t)(e0 + c) * H1 + k] = v;
       }
     }
   }
@@ -351,7 +413,455 @@ __global__ void __launch_bounds__(TS) scale_bwd_kernel(
   }
 }
 
-template <bool BF16, bool FROM_SAVED_A1, bool WEIGHT_GRADS>
+// One bf16 pair of a saved a1 row, as two floats.
+__device__ __forceinline__ float2 unpack_bf16(uint32_t v) {
+  return __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(&v));
+}
+
+// The bf16 backward on the tensor cores: B1 (MIRROR false; a1 from the
+// forward's bf16 spill, and the weight gradients into the block's partial
+// slabs) or the mirror (a1 from the table rows, no weight gradients).  The
+// fragment layout of mma m16n8k16 (lane = 4 gq + q; see grid_bwd_mma_kernel)
+// gives a thread of warp w slots c0 = 16 w + gq and c1 = c0 + 8 of the
+// tile, and of each 128-unit row the units 8 m + 2 q + e, m < 16, e < 2,
+// which it indexes as 2 m + e.  It reads those units of its two slots' a1
+// one k-step ahead of the a2 product that consumes them: in B1 from the
+// warp's rows of a1s, which cp.async filled while the warp worked on its
+// previous tile; in the mirror from the slots' table rows in global memory.
+// (Read straight from global memory, B1 took 3% longer on the H100.)
+template <bool MIRROR>
+__global__ void __launch_bounds__(MT, MIRROR ? 2 : 1) scale_bwd_mma_kernel(
+    const __nv_bfloat16* __restrict__ a1_saved, const float* __restrict__ pd,
+    const float* __restrict__ pv, const int* __restrict__ drug,
+    const int* __restrict__ dis, const int* __restrict__ eid,
+    const float* __restrict__ g, const float* __restrict__ b1,
+    const float* __restrict__ w2, const float* __restrict__ b2,
+    const float* __restrict__ w3, const int* __restrict__ seed_ptr,
+    __nv_bfloat16* __restrict__ da1_out,   // (ne, H1): rnd(da1) per slot
+    float* __restrict__ db1_part,   // (n_split, H1)
+    float* __restrict__ dw2_part,   // (n_split, H1, H2)
+    float* __restrict__ db2_part,   // (n_split, H2)
+    float* __restrict__ dw3_part,   // (n_split, H2)
+    int nd, int nv, int ne, uint32_t thresh, float scale, int use_drop) {
+  extern __shared__ float4 smem4[];
+  __nv_bfloat16* w2s = reinterpret_cast<__nv_bfloat16*>(smem4);
+  __nv_bfloat16* h1s = w2s + H1 * LDW;
+  __nv_bfloat16* da2s = h1s + TS * LDH;
+  float* b1s = reinterpret_cast<float*>(da2s + TS * LDW);
+  float* b2s = b1s + H1;
+  float* w3s = b2s + H2;
+  float* red = w3s + H2;                  // B1: [MW][H1] db1, then [MW][2 H2] db2, dw3
+  float* wmx = red + (MIRROR ? 0 : 2 * MW * H1);
+  float* fixv = wmx + 1 + threadIdx.x * FIX_LD;
+  __nv_bfloat16* a1s = reinterpret_cast<__nv_bfloat16*>(
+      smem4 + (reinterpret_cast<char*>(wmx + 1 + MT * FIX_LD) -
+               reinterpret_cast<char*>(smem4) + 15) / 16);
+
+  const int t = threadIdx.x, lane = t % 32, warp = t / 32;
+  const int gq = lane >> 2, q = lane & 3;
+  const int mi = lane >> 3, mr = lane & 7;   // ldmatrix: matrix and row
+  const int n_tiles = (ne + TS - 1) / TS;
+  const bool drop = use_drop != 0;
+  const uint32_t seed = (uint32_t)seed_ptr[0];
+
+  for (int e = t; e < H1 * H2 / 2; e += MT) {
+    const int k = e / (H2 / 2), n = 2 * (e % (H2 / 2));
+    const float2 v = *reinterpret_cast<const float2*>(w2 + k * H2 + n);
+    *reinterpret_cast<uint32_t*>(w2s + k * LDW + n) = pack_bf16(v.x, v.y);
+  }
+  if constexpr (MIRROR) {
+    if (t < H1) b1s[t] = b1[t];
+  }
+  if (t < H2) {
+    b2s[t] = b2[t];
+    w3s[t] = w3[t];
+  }
+  __syncthreads();
+  if (warp == 0) {
+    float m = 0.f;
+    for (int e = lane; e < H1 * H2; e += 32)
+      m = fmaxf(m, fabsf(__bfloat162float(w2s[(e / H2) * LDW + e % H2])));
+#pragma unroll
+    for (int o = 16; o > 0; o >>= 1) m = fmaxf(m, __shfl_xor_sync(0xffffffffu, m, o));
+    if (lane == 0) *wmx = m;
+  }
+  __syncthreads();   // wmx
+
+  const int c0 = warp * 16 + gq, c1 = c0 + 8;
+  float dw2acc[H2 / 8][4];      // B1: dW2 rows 16 warp + gq (+ 8), columns 8 nt + 2 q + e
+  float db1acc[2][16];          // B1: db1 units 64 half + 8 nt + 2 q + e, at [half][2 nt + e]
+  float db2acc[2] = {0.f, 0.f}, dw3acc[2] = {0.f, 0.f};   // B1: columns 8 gq + 2 q + e
+#pragma unroll
+  for (int nt = 0; nt < H2 / 8; ++nt)
+#pragma unroll
+    for (int c = 0; c < 4; ++c) dw2acc[nt][c] = 0.f;
+#pragma unroll
+  for (int x = 0; x < 16; ++x) db1acc[0][x] = db1acc[1][x] = 0.f;
+
+  // B1 reads a unit pair of a slot as one bf16 pair of its a1 row in a1s;
+  // the mirror reads it from each of the slot's two f32 table rows.
+  constexpr int NR = MIRROR ? 4 : 2;
+  using row_t = typename std::conditional<MIRROR, float, __nv_bfloat16>::type;
+  using pair_t = typename std::conditional<MIRROR, float2, uint32_t>::type;
+  if constexpr (!MIRROR) {
+    if ((int)blockIdx.x < n_tiles)
+      a1_prefetch(a1s, a1_saved, blockIdx.x * TS, warp, lane, ne);
+  }
+
+  for (int tile = blockIdx.x; tile < n_tiles; tile += gridDim.x) {
+    // Slots c0 and c1.  A padding slot runs slot 0 with g = 0: it adds
+    // nothing to any sum and writes no da1 row.
+    const int e0 = tile * TS;
+    const bool v0 = e0 + c0 < ne, v1 = e0 + c1 < ne;
+    const int s0 = v0 ? e0 + c0 : 0, s1 = v1 ? e0 + c1 : 0;
+    const float gc[2] = {v0 ? g[s0] : 0.f, v1 ? g[s1] : 0.f};
+    const uint32_t base0 = slot_base((uint32_t)eid[s0], seed);
+    const uint32_t base1 = slot_base((uint32_t)eid[s1], seed);
+    const row_t* rows[NR];
+    if constexpr (MIRROR) {
+      const int i0 = drug[s0], j0 = dis[s0], i1 = drug[s1], j1 = dis[s1];
+      assert(0 <= i0 && i0 < nd && 0 <= j0 && j0 < nv);
+      assert(0 <= i1 && i1 < nd && 0 <= j1 && j1 < nv);
+      rows[0] = pd + (size_t)i0 * H1;
+      rows[1] = pv + (size_t)j0 * H1;
+      rows[2] = pd + (size_t)i1 * H1;
+      rows[3] = pv + (size_t)j1 * H1;
+    } else {
+      rows[0] = a1s + c0 * LDH;
+      rows[1] = a1s + c1 * LDH;
+      cp_async_wait_all();   // the warp's rows of this tile
+      __syncwarp();
+    }
+    // The rows' values at the units of one k-step: [h][row] at units
+    // 8 (2 ks + h) + 2 q + {0, 1}.
+    pair_t nxt[2][NR];
+#pragma unroll
+    for (int h = 0; h < 2; ++h)
+#pragma unroll
+      for (int r = 0; r < NR; ++r)
+        nxt[h][r] = *reinterpret_cast<const pair_t*>(rows[r] + 8 * h + 2 * q);
+    // B1: the previous tile's dW2 product is done with h1s and da2s.  The
+    // mirror's warps read only their own rows of them.
+    if constexpr (MIRROR) {
+      __syncwarp();
+    } else {
+      __syncthreads();
+    }
+
+    // a2 = rnd(h1d) @ rnd(w2), with h1d formed in the A fragments from a1;
+    // the da1 gate (a1 > 0 and the m1 keep bit) of each unit is kept in
+    // gate0 / gate1 for slots c0 / c1.  Each k-step's product starts from
+    // 0 and is added in f32: an mma that carries the sum of earlier steps
+    // rounds it to fewer bits.  hs0 / hs1 sum the slots' h1d, which bounds
+    // |a2 - b2| over max |w2|.
+    uint32_t gate0 = 0u, gate1 = 0u;
+    float hs0 = 0.f, hs1 = 0.f;
+    float acc[H2 / 8][4];
+#pragma unroll
+    for (int nt = 0; nt < H2 / 8; ++nt)
+#pragma unroll
+      for (int c = 0; c < 4; ++c) acc[nt][c] = 0.f;
+#pragma unroll 1
+    for (int ks = 0; ks < H1 / 16; ++ks) {
+      pair_t cur[2][NR];
+#pragma unroll
+      for (int h = 0; h < 2; ++h)
+#pragma unroll
+        for (int r = 0; r < NR; ++r) cur[h][r] = nxt[h][r];
+      if (ks + 1 < H1 / 16) {
+#pragma unroll
+        for (int h = 0; h < 2; ++h)
+#pragma unroll
+          for (int r = 0; r < NR; ++r)
+            nxt[h][r] = *reinterpret_cast<const pair_t*>(
+                rows[r] + 8 * (2 * ks + 2 + h) + 2 * q);
+      }
+      uint32_t a[4];
+#pragma unroll
+      for (int h = 0; h < 2; ++h) {
+        const int m = 2 * ks + h, k = 8 * m + 2 * q;
+        float x[4];
+        if constexpr (MIRROR) {
+          const float2 bv = *reinterpret_cast<const float2*>(b1s + k);
+          const float2 p0 = cur[h][0], q0 = cur[h][1], p1 = cur[h][2], q1 = cur[h][3];
+          x[0] = (rnd<true>(p0.x) + rnd<true>(q0.x)) + bv.x;
+          x[1] = (rnd<true>(p0.y) + rnd<true>(q0.y)) + bv.y;
+          x[2] = (rnd<true>(p1.x) + rnd<true>(q1.x)) + bv.x;
+          x[3] = (rnd<true>(p1.y) + rnd<true>(q1.y)) + bv.y;
+        } else {
+          const float2 u0 = unpack_bf16(cur[h][0]), u1 = unpack_bf16(cur[h][1]);
+          x[0] = u0.x;
+          x[1] = u0.y;
+          x[2] = u1.x;
+          x[3] = u1.y;
+        }
+        float hv[4];
+#pragma unroll
+        for (int u = 0; u < 4; ++u) {
+          const uint32_t kk = (uint32_t)(k + (u & 1));
+          const bool keep = !drop || slot_bits(u < 2 ? base0 : base1, kk) >= thresh;
+          float hx = fmaxf(x[u], 0.f);
+          if (drop) hx = hx * (keep ? scale : 0.f);
+          hv[u] = hx;
+          const uint32_t bit = (keep && x[u] > 0.f) ? 1u << (2 * m + (u & 1)) : 0u;
+          if (u < 2) gate0 |= bit; else gate1 |= bit;
+        }
+        hs0 += hv[0] + hv[1];
+        hs1 += hv[2] + hv[3];
+        a[2 * h] = pack_bf16(hv[0], hv[1]);
+        a[2 * h + 1] = pack_bf16(hv[2], hv[3]);
+        *reinterpret_cast<uint32_t*>(h1s + c0 * LDH + k) = a[2 * h];
+        *reinterpret_cast<uint32_t*>(h1s + c1 * LDH + k) = a[2 * h + 1];
+      }
+#pragma unroll
+      for (int np = 0; np < H2 / 16; ++np) {
+        uint32_t b[4];
+        ldsm_t(b, smem_addr(w2s + (16 * ks + (mi & 1) * 8 + mr) * LDW +
+                            16 * np + (mi >> 1) * 8));
+        float p0[4] = {0.f, 0.f, 0.f, 0.f}, p1[4] = {0.f, 0.f, 0.f, 0.f};
+        mma_bf16(p0, a, b[0], b[1]);
+        mma_bf16(p1, a, b[2], b[3]);
+#pragma unroll
+        for (int c = 0; c < 4; ++c) {
+          acc[2 * np][c] += p0[c];
+          acc[2 * np + 1][c] += p1[c];
+        }
+      }
+    }
+    hs0 += __shfl_xor_sync(0xffffffffu, hs0, 1);
+    hs0 += __shfl_xor_sync(0xffffffffu, hs0, 2);
+    hs1 += __shfl_xor_sync(0xffffffffu, hs1, 1);
+    hs1 += __shfl_xor_sync(0xffffffffu, hs1, 2);
+    __syncwarp();   // h1s holds the warp's 16 rows for seq_a2
+    if constexpr (!MIRROR) {
+      // The warp is done with its rows of a1s: fetch those of its next tile.
+      if (tile + (int)gridDim.x < n_tiles)
+        a1_prefetch(a1s, a1_saved, (tile + gridDim.x) * TS, warp, lane, ne);
+    }
+
+    // On the accumulator: a2 = acc + b2 (taken again in unit order within
+    // the band of 0), h2d, da2 = (a2 > 0) * g * w3 * m2, (B1) the db2 and
+    // dw3 sums, and rnd(da2) as the A fragments of dh1 and into da2s.  dw3
+    // sums h2d * g unrounded, so of a2 only its gate at 0 decides a rounding.
+    uint32_t da[H2 / 16][4];
+    float band3[2];
+    const float mk = drop ? scale : 1.f;
+    {
+      const float band[2] = {0x1p-20f * hs0 * *wmx, 0x1p-20f * hs1 * *wmx};
+      // acc becomes a2; the thread's value v = 4 nt + 2 e + r gets its m2
+      // keep bit, and a flag where a2 is within the band of 0.
+      uint32_t keep2 = 0u, fix = 0u;
+#pragma unroll
+      for (int nt = 0; nt < H2 / 8; ++nt) {
+#pragma unroll
+        for (int e = 0; e < 2; ++e) {
+          const int n = 8 * nt + 2 * q + e;
+          const float bn = b2s[n];
+#pragma unroll
+          for (int r = 0; r < 2; ++r) {
+            const int v = 4 * nt + 2 * e + r;
+            const float a2 = acc[nt][2 * r + e] + bn;
+            acc[nt][2 * r + e] = a2;
+            const bool kp = !drop || slot_bits(r == 0 ? base0 : base1,
+                                               (uint32_t)(H1 + n)) >= thresh;
+            keep2 |= kp ? 1u << v : 0u;
+            fix |= kp && fabsf(a2) <= band[r] ? 1u << v : 0u;
+          }
+        }
+      }
+      // The flagged values in unit order, one lane each.
+      for (uint32_t todo = fix; todo != 0u; todo &= todo - 1u) {
+        const int v = __ffs((int)todo) - 1, nt = v >> 2, e = (v >> 1) & 1, r = v & 1;
+        fixv[v] = seq_a2(h1s + (r == 0 ? c0 : c1) * LDH, w2s + 8 * nt + 2 * q + e) +
+                  b2s[8 * nt + 2 * q + e];
+      }
+      float sdb[16], sdw[16];
+      float as0 = 0.f, as1 = 0.f;
+#pragma unroll
+      for (int nt = 0; nt < H2 / 8; ++nt) {
+        float d[2][2];
+#pragma unroll
+        for (int e = 0; e < 2; ++e) {
+          const int n = 8 * nt + 2 * q + e;
+          float hw[2];
+#pragma unroll
+          for (int r = 0; r < 2; ++r) {
+            const int v = 4 * nt + 2 * e + r;
+            float a2 = acc[nt][2 * r + e];
+            if ((fix >> v) & 1u) a2 = fixv[v];
+            const float m2 = (keep2 >> v) & 1u ? mk : 0.f;
+            float h2d = fmaxf(a2, 0.f);
+            float dh2 = w3s[n] * gc[r];
+            if (drop) {
+              h2d = h2d * m2;
+              dh2 = dh2 * m2;
+            }
+            d[r][e] = a2 > 0.f ? dh2 : 0.f;
+            hw[r] = h2d * gc[r];
+          }
+          sdb[2 * nt + e] = d[0][e] + d[1][e];
+          sdw[2 * nt + e] = hw[0] + hw[1];
+        }
+        as0 += fabsf(d[0][0]) + fabsf(d[0][1]);
+        as1 += fabsf(d[1][0]) + fabsf(d[1][1]);
+        const uint32_t r0 = pack_bf16(d[0][0], d[0][1]);
+        const uint32_t r1 = pack_bf16(d[1][0], d[1][1]);
+        da[nt / 2][2 * (nt % 2)] = r0;
+        da[nt / 2][2 * (nt % 2) + 1] = r1;
+        *reinterpret_cast<uint32_t*>(da2s + c0 * LDW + 8 * nt + 2 * q) = r0;
+        *reinterpret_cast<uint32_t*>(da2s + c1 * LDW + 8 * nt + 2 * q) = r1;
+      }
+      if constexpr (!MIRROR) {
+        row_sum(sdb, lane);
+        row_sum(sdw, lane);
+        db2acc[0] += sdb[0];
+        db2acc[1] += sdb[1];
+        dw3acc[0] += sdw[0];
+        dw3acc[1] += sdw[1];
+      }
+      as0 += __shfl_xor_sync(0xffffffffu, as0, 1);
+      as0 += __shfl_xor_sync(0xffffffffu, as0, 2);
+      as1 += __shfl_xor_sync(0xffffffffu, as1, 1);
+      as1 += __shfl_xor_sync(0xffffffffu, as1, 2);
+      // |dh1 (* scale)| of a slot is bounded by its sum(|da2|) * max |w2|
+      // (* scale): the window of the sums' noise around a bf16 midpoint of
+      // da1, which rounds when it is stored.
+      band3[0] = 0x1p-20f * as0 * *wmx * mk;
+      band3[1] = 0x1p-20f * as1 * *wmx * mk;
+    }
+    __syncwarp();   // da2s holds the warp's 16 rows for seq_dh1
+
+    // dh1 = rnd(da2) @ rnd(w2)^T in two halves of 64 units, each k-step's
+    // product started from 0 and added in f32; da1 = gate * dh1 (* scale
+    // with dropout), summed again in unit order where it is near a bf16
+    // midpoint, into (B1) db1 and, rounded, into the slots' da1 rows.  It
+    // needs only the warp's own rows and w2s, so in B1 it runs before the
+    // barrier that the dW2 product waits at.
+#pragma unroll
+    for (int half = 0; half < 2; ++half) {
+      float acc3[8][4];
+#pragma unroll
+      for (int nt = 0; nt < 8; ++nt)
+#pragma unroll
+        for (int c = 0; c < 4; ++c) acc3[nt][c] = 0.f;
+#pragma unroll
+      for (int ks = 0; ks < H2 / 16; ++ks) {
+#pragma unroll
+        for (int up = 0; up < 4; ++up) {
+          uint32_t b[4];
+          ldsm(b, smem_addr(w2s + (64 * half + 16 * up + (mi >> 1) * 8 + mr) * LDW +
+                            16 * ks + (mi & 1) * 8));
+          float p0[4] = {0.f, 0.f, 0.f, 0.f}, p1[4] = {0.f, 0.f, 0.f, 0.f};
+          mma_bf16(p0, da[ks], b[0], b[1]);
+          mma_bf16(p1, da[ks], b[2], b[3]);
+#pragma unroll
+          for (int c = 0; c < 4; ++c) {
+            acc3[2 * up][c] += p0[c];
+            acc3[2 * up + 1][c] += p1[c];
+          }
+        }
+      }
+      // acc3 becomes da1; the value v = 4 nt + c (c = 2 r + e) is flagged
+      // where its gate is open and it is near a midpoint.
+      uint32_t fix = 0u;
+#pragma unroll
+      for (int nt = 0; nt < 8; ++nt) {
+#pragma unroll
+        for (int c = 0; c < 4; ++c) {
+          const int r = c >> 1, x = 2 * (8 * half + nt) + (c & 1);
+          float s = acc3[nt][c];
+          if (drop) s = s * scale;
+          const bool open = (((r == 0 ? gate0 : gate1) >> x) & 1u) != 0u;
+          acc3[nt][c] = open ? s : 0.f;
+          fix |= open && near_mid(s, band3[r]) ? 1u << (4 * nt + c) : 0u;
+        }
+      }
+      for (uint32_t todo = fix; todo != 0u; todo &= todo - 1u) {
+        const int v = __ffs((int)todo) - 1, nt = v >> 2, r = (v >> 1) & 1, e = v & 1;
+        float s = seq_dh1(da2s + (r == 0 ? c0 : c1) * LDW,
+                          w2s + (64 * half + 8 * nt + 2 * q + e) * LDW);
+        if (drop) s = s * scale;
+        fixv[v] = s;
+      }
+      __nv_bfloat16* out0 = da1_out + (size_t)(e0 + c0) * H1 + 64 * half + 2 * q;
+      __nv_bfloat16* out1 = da1_out + (size_t)(e0 + c1) * H1 + 64 * half + 2 * q;
+#pragma unroll
+      for (int nt = 0; nt < 8; ++nt) {
+        float d[4];
+#pragma unroll
+        for (int c = 0; c < 4; ++c)
+          d[c] = (fix >> (4 * nt + c)) & 1u ? fixv[4 * nt + c] : acc3[nt][c];
+        if constexpr (!MIRROR) {
+          db1acc[half][2 * nt] += d[0] + d[2];
+          db1acc[half][2 * nt + 1] += d[1] + d[3];
+        }
+        if (v0) *reinterpret_cast<uint32_t*>(out0 + 8 * nt) = pack_bf16(d[0], d[1]);
+        if (v1) *reinterpret_cast<uint32_t*>(out1 + 8 * nt) = pack_bf16(d[2], d[3]);
+      }
+    }
+
+    if constexpr (!MIRROR) {
+      __syncthreads();   // h1s and da2s hold the whole tile
+
+      // dW2 rows 16 warp .. + 15 += rnd(h1d)^T @ rnd(da2) over the tile's slots.
+#pragma unroll
+      for (int ks = 0; ks < TS / 16; ++ks) {
+        uint32_t a[4];
+        ldsm_t(a, smem_addr(h1s + (16 * ks + (mi >> 1) * 8 + mr) * LDH +
+                            16 * warp + (mi & 1) * 8));
+#pragma unroll
+        for (int np = 0; np < H2 / 16; ++np) {
+          uint32_t b[4];
+          ldsm_t(b, smem_addr(da2s + (16 * ks + (mi & 1) * 8 + mr) * LDW +
+                              16 * np + (mi >> 1) * 8));
+          mma_bf16(dw2acc[2 * np], a, b[0], b[1]);
+          mma_bf16(dw2acc[2 * np + 1], a, b[2], b[3]);
+        }
+      }
+    }
+  }
+
+  if constexpr (!MIRROR) {
+    // db1 over the lanes of each column (fixed shuffle tree), then db1, db2
+    // and dw3 over the warps in order.
+    const int blk = blockIdx.x;
+#pragma unroll
+    for (int half = 0; half < 2; ++half) {
+      row_sum(db1acc[half], lane);   // [half][e]: units 64 half + 8 gq + 2 q + e
+      *reinterpret_cast<float2*>(red + warp * H1 + 64 * half + 8 * gq + 2 * q) =
+          make_float2(db1acc[half][0], db1acc[half][1]);
+    }
+    float* red2 = red + MW * H1;
+    *reinterpret_cast<float2*>(red2 + warp * 2 * H2 + 8 * gq + 2 * q) =
+        make_float2(db2acc[0], db2acc[1]);
+    *reinterpret_cast<float2*>(red2 + warp * 2 * H2 + H2 + 8 * gq + 2 * q) =
+        make_float2(dw3acc[0], dw3acc[1]);
+    float* dw2b = dw2_part + (size_t)blk * H1 * H2;
+#pragma unroll
+    for (int nt = 0; nt < H2 / 8; ++nt) {
+      const int n = 8 * nt + 2 * q;
+      *reinterpret_cast<float2*>(dw2b + (16 * warp + gq) * H2 + n) =
+          make_float2(dw2acc[nt][0], dw2acc[nt][1]);
+      *reinterpret_cast<float2*>(dw2b + (16 * warp + gq + 8) * H2 + n) =
+          make_float2(dw2acc[nt][2], dw2acc[nt][3]);
+    }
+    __syncthreads();
+    float s = 0.f;
+    if (t < H1) {
+      for (int w = 0; w < MW; ++w) s += red[w * H1 + t];
+      db1_part[(size_t)blk * H1 + t] = s;
+    } else {
+      const int c = t - H1;
+      for (int w = 0; w < MW; ++w) s += red2[w * 2 * H2 + c];
+      if (c < H2)
+        db2_part[(size_t)blk * H2 + c] = s;
+      else
+        dw3_part[(size_t)blk * H2 + c - H2] = s;
+    }
+  }
+}
+
+template <bool FROM_SAVED_A1, bool WEIGHT_GRADS>
 cudaError_t launch_bwd(const void* a1, const float* pd, const float* pv,
                        const int* drug, const int* dis, const int* eid,
                        const float* g, const float* b1, const float* w2,
@@ -361,12 +871,51 @@ cudaError_t launch_bwd(const void* a1, const float* pd, const float* pv,
                        uint32_t thresh, float scale, int use_drop, int n_split,
                        cudaStream_t s) {
   constexpr int smem = WEIGHT_GRADS ? BWD_SMEM_GRADS : BWD_SMEM_BASE;
-  auto kernel = scale_bwd_kernel<BF16, FROM_SAVED_A1, WEIGHT_GRADS>;
+  auto kernel = scale_bwd_kernel<FROM_SAVED_A1, WEIGHT_GRADS>;
   cudaError_t err = prepare(kernel, smem);
   if (err != cudaSuccess) return err;
   kernel<<<n_split, TS, smem * sizeof(float), s>>>(
-      static_cast<const store_t<BF16>*>(a1), pd, pv, drug, dis, eid, g, b1, w2,
-      b2, w3, seed, static_cast<store_t<BF16>*>(da1), db1_part, dw2_part,
+      static_cast<const float*>(a1), pd, pv, drug, dis, eid, g, b1, w2, b2, w3,
+      seed, static_cast<float*>(da1), db1_part, dw2_part, db2_part, dw3_part,
+      nd, nv, ne, thresh, scale, use_drop);
+  return cudaGetLastError();
+}
+
+// Blocks of scale_bwd_mma_kernel<MIRROR> resident on one SM of this card.
+template <bool MIRROR>
+cudaError_t mma_resident(int* blocks) {
+  auto kernel = scale_bwd_mma_kernel<MIRROR>;
+  cudaError_t err = prepare(kernel, mma_smem<MIRROR>() / (int)sizeof(float));
+  if (err != cudaSuccess) return err;
+  return cudaOccupancyMaxActiveBlocksPerMultiprocessor(blocks, kernel, MT,
+                                                       mma_smem<MIRROR>());
+}
+
+// B1 on n_split blocks (its partial slabs); the mirror, whose result does
+// not depend on the split, on every block the card holds resident.
+template <bool MIRROR>
+cudaError_t launch_mma(const void* a1, const float* pd, const float* pv,
+                       const int* drug, const int* dis, const int* eid,
+                       const float* g, const float* b1, const float* w2,
+                       const float* b2, const float* w3, const int* seed,
+                       void* da1, float* db1_part, float* dw2_part,
+                       float* db2_part, float* dw3_part, int nd, int nv, int ne,
+                       uint32_t thresh, float scale, int use_drop, int n_split,
+                       cudaStream_t s) {
+  int per_sm = 0, blocks = n_split;
+  cudaError_t err = mma_resident<MIRROR>(&per_sm);
+  if (err != cudaSuccess) return err;
+  if constexpr (MIRROR) {
+    int dev = 0, sms = 0;
+    err = cudaGetDevice(&dev);
+    if (err == cudaSuccess)
+      err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+    if (err != cudaSuccess) return err;
+    blocks = std::min((ne + TS - 1) / TS, std::max(per_sm, 1) * sms);
+  }
+  scale_bwd_mma_kernel<MIRROR><<<blocks, MT, mma_smem<MIRROR>(), s>>>(
+      static_cast<const __nv_bfloat16*>(a1), pd, pv, drug, dis, eid, g, b1, w2,
+      b2, w3, seed, static_cast<__nv_bfloat16*>(da1), db1_part, dw2_part,
       db2_part, dw3_part, nd, nv, ne, thresh, scale, use_drop);
   return cudaGetLastError();
 }
@@ -410,7 +959,8 @@ int scale_decoder_fwd(const float* pd, const float* pv, const int* drug,
 // dw3 (split, H2) are written; pd, pv, drug, dis and b1 are not read.
 // mirror = 1: a1 is recomputed from pd, pv, drug, dis and b1; the slabs and
 // a1 are not touched.  g (ne,) is the cotangent in this launch's slot order;
-// da1 (ne, H1) bf16 when bf16 else f32.
+// da1 (ne, H1) bf16 when bf16 else f32.  bf16 runs on the tensor cores
+// (scale_bwd_mma_kernel), fp32 on the CUDA cores (scale_bwd_kernel).
 int scale_decoder_bwd(const void* a1, const float* pd, const float* pv,
                       const int* drug, const int* dis, const int* eid,
                       const float* g, const float* b1, const float* w2,
@@ -421,18 +971,39 @@ int scale_decoder_bwd(const void* a1, const float* pd, const float* pv,
                       int mirror, void* stream) {
   const int n_split = scale_decoder_bwd_split(ne);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-#define SCALE_BWD(B, SAVED, GRADS)                                           \
-  launch_bwd<B, SAVED, GRADS>(a1, pd, pv, drug, dis, eid, g, b1, w2, b2, w3, \
-                              seed, da1, db1_part, dw2_part, db2_part,       \
-                              dw3_part, nd, nv, ne, thresh, scale, use_drop, \
-                              n_split, s)
+#define SCALE_BWD(LAUNCH)                                                    \
+  LAUNCH(a1, pd, pv, drug, dis, eid, g, b1, w2, b2, w3, seed, da1, db1_part, \
+         dw2_part, db2_part, dw3_part, nd, nv, ne, thresh, scale, use_drop,  \
+         n_split, s)
   cudaError_t err;
   if (bf16) {
-    err = mirror ? SCALE_BWD(true, false, false) : SCALE_BWD(true, true, true);
+    err = mirror ? SCALE_BWD(launch_mma<true>) : SCALE_BWD(launch_mma<false>);
   } else {
-    err = mirror ? SCALE_BWD(false, false, false) : SCALE_BWD(false, true, true);
+    err = mirror ? SCALE_BWD((launch_bwd<false, false>))
+                 : SCALE_BWD((launch_bwd<true, true>));
   }
 #undef SCALE_BWD
+  return (int)err;
+}
+
+// Residency of the backward of one dtype, B1 or the mirror, on one SM of
+// this card: occ[] receives {blocks, warps a block}.  Returns 0 or the CUDA
+// error.
+int scale_decoder_bwd_occupancy(int bf16, int mirror, int* occ) {
+  cudaError_t err;
+  int blocks = 0;
+  if (bf16) {
+    err = mirror ? mma_resident<true>(&blocks) : mma_resident<false>(&blocks);
+  } else {
+    const int smem = mirror ? BWD_SMEM_BASE : BWD_SMEM_GRADS;
+    auto kernel = mirror ? scale_bwd_kernel<false, false> : scale_bwd_kernel<true, true>;
+    err = prepare(kernel, smem);
+    if (err == cudaSuccess)
+      err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&blocks, kernel, TS,
+                                                          smem * sizeof(float));
+  }
+  occ[0] = blocks;
+  occ[1] = (bf16 ? MT : TS) / 32;
   return (int)err;
 }
 

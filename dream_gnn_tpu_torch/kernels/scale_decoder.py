@@ -43,8 +43,11 @@ orders.  The kernel widths are H1 = 128 (the JAX package's requirement,
 :824-827) and H2 = 64; the plain version takes any H2.
 
 Dispatch.  CUDA tensors launch the kernels and CPU tensors run the plain
-versions; there is no fallback.  ``LAUNCHES`` counts launches of K2
-(``k2``), B1 (``b1``) and the mirror (``mirror``).
+versions; there is no fallback.  The backward's kernel follows the dtype
+inside the C entry point: bf16 runs on the tensor cores
+(``scale_bwd_mma_kernel``), fp32 on the CUDA cores (``scale_bwd_kernel``).
+``LAUNCHES`` counts launches of K2 (``k2``), B1 (``b1``) and the mirror
+(``mirror``).
 """
 
 from __future__ import annotations
@@ -215,21 +218,22 @@ def scale_bwd_plain(a1, pd, pv, drug, dis, eid, g, b1, w2, b2, w3, seed,
     if use_drop:
         m1, m2 = slot_dropout_masks(eid, seed, a1.shape[1], w2.shape[1], rate)
         h1d = h1d * m1
-    a2 = round_to(h1d, dtype) @ round_to(w2, dtype) + b2
+    a2 = torch.matmul(round_to(h1d, dtype), round_to(w2, dtype)) + b2
     h2d = torch.relu(a2)
     dh2 = w3 * g[:, None]
     if use_drop:
         h2d = h2d * m2
         dh2 = dh2 * m2
     da2 = torch.where(a2 > 0.0, dh2, torch.zeros_like(dh2))
-    dh1 = round_to(da2, dtype) @ round_to(w2, dtype).T
+    dh1 = torch.matmul(round_to(da2, dtype), round_to(w2, dtype).T)
     if use_drop:
         dh1 = dh1 * m1
     da1 = torch.where(a1 > 0.0, dh1, torch.zeros_like(dh1))
     if not weight_grads:
         return _stored(da1, dtype)
     return (_stored(da1, dtype),
-            round_to(h1d, dtype).T @ round_to(da2, dtype), da2.sum(0),
+            torch.matmul(round_to(h1d, dtype).T, round_to(da2, dtype)),
+            da2.sum(0),
             (h2d * g[:, None]).sum(0), da1.sum(0))
 
 
@@ -249,6 +253,8 @@ def _load():
         lib.scale_decoder_bwd.restype = i
         lib.scale_decoder_bwd_split.argtypes = [i]
         lib.scale_decoder_bwd_split.restype = i
+        lib.scale_decoder_bwd_occupancy.argtypes = [i, i, p]
+        lib.scale_decoder_bwd_occupancy.restype = i
         _lib = lib
     return _lib
 
@@ -327,6 +333,18 @@ def _launch_bwd(a1, pd, pv, drug, dis, eid, g, b1, w2, b2, w3, seed, rate,
     # Sum each slab over its partial axis, in a fixed order.
     db1, dw2, db2, dw3 = (x.sum(0) for x in parts)
     return da1, dw2, db2, dw3, db1
+
+
+def bwd_occupancy(dtype, mirror: bool) -> tuple:
+    """(blocks, warps) of the ``dtype`` backward's kernel, B1 or the mirror,
+    resident on one SM of the current card, by CUDA's occupancy API."""
+    occ = (ctypes.c_int * 2)()
+    err = _load().scale_decoder_bwd_occupancy(int(dtype == torch.bfloat16),
+                                              int(mirror),
+                                              ctypes.addressof(occ))
+    if err != 0:
+        raise RuntimeError(f"scale_decoder_bwd_occupancy: CUDA error {err}")
+    return occ[0], occ[0] * occ[1]
 
 
 def launch_b1(a1, pd, pv, layout: ScaleDecoderLayout, g, b1, w2, b2, w3,

@@ -864,6 +864,186 @@ def test_scale_kernels_are_deterministic(cuda):
         assert torch.equal(x, y)
 
 
+def _scale_bwd(sd, args, layout, g, rate, dtype, mirror, kernel):
+    """B1 (da1, dW2, db2, dw3, db1) from K2's spill of a1, or the mirror's
+    (da1,), by the kernel or by the plain version."""
+    pd, pv, b1, w2, b2, w3, seed = args
+    common = (w2, b2, w3, seed, rate, True, dtype)
+    if mirror:
+        if kernel:
+            return (sd.launch_mirror(pd, pv, layout, g, b1, *common),)
+        return (sd.scale_bwd_plain(None, pd, pv, layout.drug_of_mslot,
+                                   layout.dis_of_mslot, layout.mirror_eid, g,
+                                   b1, *common, False),)
+    _, a1 = sd.launch_k2(pd, pv, b1, w2, b2, w3, layout.drug_of_slot,
+                         layout.dis_of_slot, layout.fwd_eid, seed, rate, True,
+                         dtype, True)
+    if kernel:
+        return sd.launch_b1(a1, pd, pv, layout, g, b1, *common)
+    return sd.scale_bwd_plain(a1, pd, pv, layout.drug_of_slot,
+                              layout.dis_of_slot, layout.fwd_eid, g, b1,
+                              *common, True)
+
+
+@pytest.mark.parametrize("rate", [0.0, 0.3])
+@pytest.mark.parametrize("mirror", [False, True])
+@pytest.mark.parametrize("nv", [1, 313])
+@pytest.mark.parametrize("nd", [1, 37, 593])
+@pytest.mark.parametrize("ne", [1, 15, 16, 17, 127, 128, 129, 1023,
+                                128 * 59 + 5, 128 * 300 + 5])
+def test_scale_bf16_bwd_matches_plain_across_tiles(cuda, monkeypatch, ne, nd,
+                                                   nv, mirror, rate):
+    """The tensor-core scale backward (bf16), B1 and the mirror, at slot
+    counts that straddle its 16-slot mma rows and 128-slot tiles, up to
+    more tiles than the grid has blocks: every output finite and within the
+    tolerance of the plain version with its products summed in unit order,
+    the order the kernel takes where the order can move a rounding or a
+    gate (tests/test_torch_port_scale_sum_order.py)."""
+    from dream_gnn_tpu_torch.kernels import scale_decoder as sd
+
+    args, layout, g = _scale_args(cuda, nd, nv, ne, seed=ne + nd + nv)
+    if mirror:
+        g = g[layout.gout_perm.long()]
+    got = _scale_bwd(sd, args, layout, g, rate, torch.bfloat16, mirror, True)
+    monkeypatch.setattr(torch, "matmul", _unit_order_matmul)
+    want = _scale_bwd(sd, args, layout, g, rate, torch.bfloat16, mirror,
+                      False)
+    monkeypatch.undo()
+    torch.cuda.synchronize()
+    assert len(got) == len(want) == (1 if mirror else 5)
+    for a, b in zip(got, want):
+        assert a.shape == b.shape and a.dtype == b.dtype
+        assert bool(torch.isfinite(a.float()).all())
+        assert _rel(a.float(), b.float()) <= TOL[torch.bfloat16]
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("rate", [0.0, 0.3])
+def test_scale_bwd_gates_at_zero_and_subnormal(cuda, monkeypatch, dtype,
+                                               rate):
+    """Units where a1 is exactly 0 (gate shut) or a subnormal positive
+    (gate open, though rnd(h1d) may round to 0), and columns where a2 is
+    exactly 0 (gate shut): B1 and the mirror gate on a1 > 0 and a2 > 0 as
+    the plain version does.  In bf16 the tables round first, so 1e-45
+    becomes 0 there and 1e-39 stays a subnormal."""
+    from dream_gnn_tpu_torch.kernels import scale_decoder as sd
+
+    nd, nv = 37, 45
+    args, layout, g = _scale_args(cuda, nd, nv, 3000, seed=5)
+    pd, pv, b1, w2, b2 = (x.clone() for x in args[:5])
+    s1, s2 = slice(0, 16), slice(0, 4)
+    pattern = torch.tensor([0.0, 1e-45, 1e-39, 3e-38, -0.3, 0.4],
+                           device=cuda)
+    sub = torch.arange(nd, device=cuda) % 6
+    pd[:, s1] = pattern[sub][:, None]
+    pv[:, s1] = 0.0
+    b1[s1] = 0.0
+    w2[:, s2] = 0.0
+    b2[s2] = 0.0
+    args = [pd, pv, b1, w2, b2, *args[5:]]
+    got = _scale_run(sd, args, layout, g, rate, dtype, True)
+    monkeypatch.setattr(torch, "matmul", _unit_order_matmul)
+    want = _scale_run(sd, args, layout, g, rate, dtype, False)
+    monkeypatch.undo()
+    torch.cuda.synchronize()
+    # The case bites: the slots of subnormal a1 carry da1 in those units,
+    # those of a1 = 0 none, and a2 = 0 leaves db2 exactly 0 there.
+    for da1, drug in ((want[2], layout.drug_of_slot),
+                      (want[7], layout.drug_of_mslot)):
+        s = sub[drug.long()]
+        part = da1.float()[:, s1]
+        assert float(part[(s == 1) | (s == 2)].abs().max()) \
+            > 0.05 * float(da1.float().abs().max())
+        assert not bool(part[s == 0].any())
+    assert not bool(want[4][s2].any()) and not bool(got[4][s2].any())
+    for a, b in zip(got, want):
+        assert _rel(a.float(), b.float()) <= TOL[dtype]
+
+
+def _one_slot(dev, w2, b2):
+    """One candidate (0, 0) with a1 = 1 in every unit (the tables round to
+    themselves), g = 1 and w3 = 1, and the given w2 and b2: the tables,
+    weights and seed, its layout and its cotangent."""
+    from dream_gnn_tpu_torch.kernels.scale_decoder import \
+        build_scale_decoder_layout
+
+    layout = build_scale_decoder_layout([0], [0], 1, 1, device=dev)
+    args = [torch.ones(1, 128, device=dev), torch.zeros(1, 128, device=dev),
+            torch.zeros(128, device=dev), w2.to(dev), b2.to(dev),
+            torch.ones(64, device=dev),
+            torch.zeros(1, dtype=torch.int32, device=dev)]
+    return args, layout, torch.ones(1, device=dev)
+
+
+@pytest.mark.parametrize("mirror", [False, True])
+def test_scale_bf16_bwd_sums_da1_in_unit_order_at_a_midpoint(cuda, mirror):
+    """One slot whose dh1[0] is the bf16 midpoint 1 + 2^-8 when summed in
+    unit order and lies above it when summed in reverse
+    (tests/test_torch_port_scale_sum_order.py): the kernel takes the unit
+    order, so the stored da1[0] = rnd(1 + 2^-8) = 1, and B1's db1 sums the
+    unrounded 1 + 2^-8."""
+    from dream_gnn_tpu_torch.kernels import scale_decoder as sd
+
+    w2 = torch.zeros(128, 64)
+    w2[0, :5] = torch.tensor([1.0, 2.0 ** -8, 2.0 ** -25, 2.0 ** -25,
+                              2.0 ** -25])
+    args, layout, g = _one_slot(cuda, w2, torch.ones(64))
+    out = _scale_bwd(sd, args, layout, g, 0.0, torch.bfloat16, mirror, True)
+    da1 = out[0].float()
+    assert float(da1[0, 0]) == 1.0
+    assert not bool(da1[0, 1:].any())
+    if not mirror:
+        assert float(out[4][0]) == 1.0 + 2.0 ** -8
+
+
+@pytest.mark.parametrize("mirror", [False, True])
+def test_scale_bf16_bwd_sums_a2_in_unit_order_at_the_gate(cuda, mirror):
+    """One slot whose a2[0] is 0 when summed in unit order and 2^-23 when
+    summed in reverse (tests/test_torch_port_scale_sum_order.py): the
+    kernel takes the unit order, so the gate of column 0 is shut, db2[0] =
+    0, and da1 sums only the 63 open columns, 63 * 2^-10 in every unit."""
+    from dream_gnn_tpu_torch.kernels import scale_decoder as sd
+
+    w2 = torch.zeros(128, 64)
+    w2[:4, 0] = torch.tensor([1.0, 2.0 ** -25, 2.0 ** -25, 2.0 ** -25])
+    w2[:, 1:] = 2.0 ** -10
+    b2 = torch.zeros(64)
+    b2[0] = -1.0
+    args, layout, g = _one_slot(cuda, w2, b2)
+    out = _scale_bwd(sd, args, layout, g, 0.0, torch.bfloat16, mirror, True)
+    assert bool((out[0].float() == 63 * 2.0 ** -10).all())
+    if not mirror:
+        assert float(out[2][0]) == 0.0
+        assert bool((out[2][1:] == 1.0).all())
+
+
+@pytest.mark.parametrize("mirror", [False, True])
+def test_scale_bf16_bwd_repeats_bit_for_bit(cuda, mirror):
+    """Two launches of the tensor-core B1 or mirror give the same bits, over
+    more tiles than the grid has blocks."""
+    from dream_gnn_tpu_torch.kernels import scale_decoder as sd
+
+    args, layout, g = _scale_args(cuda, 593, 313, 128 * 300 + 5, seed=3)
+    a = _scale_bwd(sd, args, layout, g, 0.3, torch.bfloat16, mirror, True)
+    b = _scale_bwd(sd, args, layout, g, 0.3, torch.bfloat16, mirror, True)
+    for x, y in zip(a, b):
+        assert torch.equal(x, y)
+
+
+@pytest.mark.parametrize("dtype,warps", [(torch.float32, 4),
+                                         (torch.bfloat16, 8)])
+@pytest.mark.parametrize("mirror", [False, True])
+def test_scale_bwd_occupancy_is_the_launch_block(cuda, dtype, warps, mirror):
+    """bwd_occupancy counts the blocks of the launch's own size (4 warps in
+    fp32, 8 on the tensor cores) that fit an SM, B1 or the mirror, and at
+    least one does."""
+    from dream_gnn_tpu_torch.kernels import scale_decoder as sd
+
+    blocks, resident = sd.bwd_occupancy(dtype, mirror)
+    assert blocks >= 1
+    assert resident == blocks * warps
+
+
 def test_scale_decoder_autograd_matches_cpu(cuda):
     """scale_decoder on the card (K2, B1, mirror, two seq_scatter launches)
     against the same call on the CPU: logits and the seven gradients."""
