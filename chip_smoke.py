@@ -7,16 +7,18 @@ Phases, each of which fails the run if it fails:
 1. device and build: the card's name and power limit, then the CUDA
    kernels built from the sources in the checkout, one nvcc per source in
    parallel (nvcc's register and shared-memory report is printed, and the
-   lines of the bf16 backwards, ``grid_bwd_mma_kernel``,
-   ``edge_bwd_mma_kernel`` and both instantiations of
-   ``scale_bwd_mma_kernel``, B1 and the mirror, once more);
+   lines of the bf16 kernels on the tensor cores once more: the forwards
+   ``grid_fwd_mma_kernel`` and ``edge_fwd_mma_kernel``, the backwards
+   ``grid_bwd_mma_kernel``, ``edge_bwd_mma_kernel`` and both
+   instantiations of ``scale_bwd_mma_kernel``, B1 and the mirror);
 2. kernels against their plain PyTorch versions at Gdataset width
    (593 drugs x 313 diseases), fp32 and bf16, dropout 0 and 0.3: forward
    logits and all six gradients, each within a stated tolerance; a
    control showing that the bf16 tolerance sees a kernel that does not
    round; then each kernel's time beside its bound and the plain
-   version's time, and the backward's TFLOP/s and residency (blocks and
-   warps an SM) in bf16 (tensor cores) and fp32 (CUDA cores);
+   version's time, and the forward's and the backward's TFLOP/s and
+   residency (blocks and warps an SM) in bf16 (tensor cores) and fp32
+   (CUDA cores);
 3. the fold-batched kernels the same way at F = 3 folds of the full grid,
    plus: fold f of a batched forward equals the single-fold kernel with
    seed[f] bit for bit, and two batched backward launches give the same
@@ -24,9 +26,9 @@ Phases, each of which fails the run if it fails:
 4. the per-edge kernels on fold 0's real train list (167,168 edges over
    the Gdataset tables) the same way, plus: an fp32 edge logit with
    dropout equals the grid kernel's cell [src, dst], and two backward
-   launches give the same bits; then their times, the backward's TFLOP/s
-   and residency in bf16 (tensor cores) and fp32 (CUDA cores), the CSR
-   build's time and the da1 buffer's size;
+   launches give the same bits; then their times, the forward's and the
+   backward's TFLOP/s and residency in bf16 (tensor cores) and fp32 (CUDA
+   cores), the CSR build's time and the da1 buffer's size;
 5. the fold-batched per-edge kernels at F = 3 folds' real lists, fold f
    equal to the single-fold kernel with seed[f] bit for bit, determinism;
    their times, rates and residency at F = 10, and the backward's device
@@ -47,11 +49,14 @@ Phases, each of which fails the run if it fails:
     finite metrics and no decoder kernel launched;
 12. a profile of ten default training steps: step time, device busy share
     and the kernels that take the device's time; the step must run the
-    tensor-core backward ``grid_bwd_mma_kernel`` and not ``grid_bwd_kernel``;
+    tensor-core forward and backward, ``grid_fwd_mma_kernel`` and
+    ``grid_bwd_mma_kernel``, and neither ``grid_fwd_kernel`` nor
+    ``grid_bwd_kernel``;
 13. the same profile of ten stacked steps of the 10 folds, whose kernels
     per step must stay within twice the sequential step's;
 14-15. the profiles of 12 and 13 in edges mode, which must run
-    ``edge_bwd_mma_kernel`` and not ``edge_bwd_kernel``;
+    ``edge_fwd_mma_kernel`` and ``edge_bwd_mma_kernel`` and neither
+    ``edge_fwd_kernel`` nor ``edge_bwd_kernel``;
 16. the scale path's kernels against their plain versions at its shapes
     (the planted 100k x 100k problem of ``train.scale``: the ~9M-edge
     rating-0 and ~1M-edge rating-1 relations, forward and transposed,
@@ -215,10 +220,12 @@ def phase_build():
     t0 = time.perf_counter()
     report = cuda_build.build(force=True)
     print(f"{report}  nvcc build: {time.perf_counter() - t0:.2f} s")
-    # The tensor-core backwards' registers, spills and shared memory; the
+    # The tensor-core kernels' registers, spills and shared memory; the
     # scale backward's <false> instantiation is B1, <true> the mirror.
     lines = report.splitlines()
-    for kernel, what in (("grid_bwd_mma_kernel", ("bf16 grid backward",)),
+    for kernel, what in (("grid_fwd_mma_kernel", ("bf16 grid forward",)),
+                         ("edge_fwd_mma_kernel", ("bf16 edge forward",)),
+                         ("grid_bwd_mma_kernel", ("bf16 grid backward",)),
                          ("edge_bwd_mma_kernel", ("bf16 edge backward",)),
                          ("scale_bwd_mma_kernel", ("bf16 scale B1",
                                                    "bf16 scale mirror"))):
@@ -252,14 +259,15 @@ def _compare(pairs, dtype, rate, label, err):
                                  f"disagrees with the plain version")
 
 
-def _print_bwd_rate(label: str, ms_bf16: float, ms_fp32: float, nf: int,
-                    occupancy, cells: int = ND * NV, flops=None):
-    """A decoder backward's rate and residency in each dtype (bf16: the
+def _print_rate(label: str, ms_bf16: float, ms_fp32: float, nf: int,
+                occupancy, cells: int = ND * NV, flops=None, fwd=False):
+    """A decoder kernel's rate and residency in each dtype (bf16: the
     tensor-core kernel, fp32: the CUDA-core one), at dropout 0.3;
-    ``occupancy`` is its module's ``bwd_occupancy``.  ``flops`` defaults
-    to the grid and per-edge backward's over ``cells``."""
+    ``occupancy`` is its module's ``fwd_occupancy`` or ``bwd_occupancy``.
+    ``flops`` defaults to the grid and per-edge forward's (``fwd``) or
+    backward's over ``cells``."""
     if flops is None:
-        flops = _decoder_flops(False, nf, cells)
+        flops = _decoder_flops(fwd, nf, cells)
     for name, ms, dtype in (("bf16", ms_bf16, torch.bfloat16),
                             ("fp32", ms_fp32, torch.float32)):
         blocks, warps = occupancy(dtype)
@@ -313,8 +321,12 @@ def phase_kernels():
         "bwd": _time_ms(lambda: gd.launch_bwd(*args, rate, True, dtype,
                                               x["g"])),
     }
-    t_fp32 = _time_ms(lambda: gd.launch_bwd(*args, rate, True, torch.float32,
-                                            x["g"]))
+    t32 = {
+        "fwd": _time_ms(lambda: gd.launch_fwd(*args, rate, True,
+                                              torch.float32)),
+        "bwd": _time_ms(lambda: gd.launch_bwd(*args, rate, True,
+                                              torch.float32, x["g"])),
+    }
     with torch.no_grad():
         tp = {
             "fwd": _time_ms(lambda: gd.grid_decoder_plain(*args, rate, True,
@@ -323,7 +335,9 @@ def phase_kernels():
                 *args, rate, True, dtype, x["g"]), reps=5),
         }
     gd.LAUNCHES.update(launches)
-    _print_bwd_rate("grid_decoder_bwd", t["bwd"], t_fp32, 1, gd.bwd_occupancy)
+    _print_rate("grid_decoder_fwd", t["fwd"], t32["fwd"], 1, gd.fwd_occupancy,
+                fwd=True)
+    _print_rate("grid_decoder_bwd", t["bwd"], t32["bwd"], 1, gd.bwd_occupancy)
     rows = []
     for kind, line in (("fwd", 102), ("bwd", 122)):
         bound, by = _bound_ms(kind == "fwd", dtype)
@@ -404,8 +418,12 @@ def phase_kernels_batched():
         "bwd": _time_ms(lambda: gd.launch_bwd_batched(*args, rate, True,
                                                       dtype, x["g"])),
     }
-    t_fp32 = _time_ms(lambda: gd.launch_bwd_batched(
-        *args, rate, True, torch.float32, x["g"]))
+    t32 = {
+        "fwd": _time_ms(lambda: gd.launch_fwd_batched(*args, rate, True,
+                                                      torch.float32)),
+        "bwd": _time_ms(lambda: gd.launch_bwd_batched(
+            *args, rate, True, torch.float32, x["g"])),
+    }
     with torch.no_grad():
         tp = {
             "fwd": _time_ms(lambda: gd.grid_decoder_batched_plain(
@@ -414,8 +432,10 @@ def phase_kernels_batched():
                 *args, rate, True, dtype, x["g"]), reps=3),
         }
     gd.LAUNCHES.update(launches)
-    _print_bwd_rate(f"grid_decoder_bwd_batched F={NF}", t["bwd"], t_fp32, NF,
-                    gd.bwd_occupancy)
+    _print_rate(f"grid_decoder_fwd_batched F={NF}", t["fwd"], t32["fwd"], NF,
+                gd.fwd_occupancy, fwd=True)
+    _print_rate(f"grid_decoder_bwd_batched F={NF}", t["bwd"], t32["bwd"], NF,
+                gd.bwd_occupancy)
     rows = []
     for kind, line in (("fwd", 406), ("bwd", 427)):
         bound, by = _bound_ms(kind == "fwd", dtype, NF)
@@ -517,7 +537,8 @@ def _edge_checks(ed, x, batched, label, err):
 
 def _edge_times(ed, x, batched):
     """Kernel and plain times, bf16 with dropout 0.3 (the main path); prints
-    the backward's rate and residency, timing the fp32 backward too."""
+    the forward's and the backward's rate and residency, timing the fp32
+    kernels too."""
     fwd = ed.launch_fwd_batched if batched else ed.launch_fwd
     bwd = ed.launch_bwd_batched if batched else ed.launch_bwd
     plain = ed.edge_decoder_batched_plain if batched else ed.edge_decoder_plain
@@ -529,17 +550,20 @@ def _edge_times(ed, x, batched):
     t = {"fwd": _time_ms(lambda: fwd(*args, rate, True, dtype)),
          "bwd": _time_ms(lambda: bwd(*args, rate, True, dtype, x["g"],
                                      x["csr"]))}
-    t_fp32 = _time_ms(lambda: bwd(*args, rate, True, torch.float32, x["g"],
-                                  x["csr"]))
+    t32 = {"fwd": _time_ms(lambda: fwd(*args, rate, True, torch.float32)),
+           "bwd": _time_ms(lambda: bwd(*args, rate, True, torch.float32,
+                                       x["g"], x["csr"]))}
     ed.LAUNCHES.update(launches)
     with torch.no_grad():
         tp = {"fwd": _time_ms(lambda: plain(*args, rate, True, dtype), reps=3),
               "bwd": _time_ms(lambda: plain_bwd(*args, rate, True, dtype,
                                                 x["g"]), reps=3)}
     nf = x["edges"].shape[0] if batched else 1
-    _print_bwd_rate(f"edge_decoder_bwd{'_batched' if batched else ''} F={nf}",
-                    t["bwd"], t_fp32, nf, ed.bwd_occupancy,
-                    cells=x["edges"].shape[-1])
+    for kind in ("fwd", "bwd"):
+        _print_rate(f"edge_decoder_{kind}{'_batched' if batched else ''} "
+                    f"F={nf}", t[kind], t32[kind], nf,
+                    getattr(ed, f"{kind}_occupancy"),
+                    cells=x["edges"].shape[-1], fwd=kind == "fwd")
     return t, tp
 
 
@@ -901,12 +925,13 @@ def _kernel_rows(prof, n_calls: int) -> list:
     return rows
 
 
-def _bwd_names(mode: str) -> dict:
-    """A bf16 step runs its decoder's tensor-core backward and not the fp32
-    CUDA-core one (``grid_bwd_kernel``, ``edge_bwd_kernel``)."""
+def _step_names(mode: str) -> dict:
+    """A bf16 step runs its decoder's tensor-core forward and backward and
+    not the fp32 CUDA-core ones (``grid_fwd_kernel``, ``grid_bwd_kernel``,
+    ``edge_fwd_kernel``, ``edge_bwd_kernel``)."""
     kind = {"grid": "grid", "edges": "edge"}[mode]
-    return dict(expect=(f"{kind}_bwd_mma_kernel",),
-                forbid=(f"{kind}_bwd_kernel",))
+    return dict(expect=(f"{kind}_fwd_mma_kernel", f"{kind}_bwd_mma_kernel"),
+                forbid=(f"{kind}_fwd_kernel", f"{kind}_bwd_kernel"))
 
 
 def phase_profile(path, n_steps: int = 10) -> float:
@@ -930,7 +955,7 @@ def phase_profile(path, n_steps: int = 10) -> float:
     w = ds.fold(0).train_w
     return _profile(f"sequential {mode}",
                     lambda: step(state, inputs, labels, w), n_steps,
-                    **_bwd_names(mode))
+                    **_step_names(mode))
 
 
 def phase_profile_stacked(path, seq_kernels: float, n_steps: int = 10):
@@ -960,7 +985,7 @@ def phase_profile_stacked(path, seq_kernels: float, n_steps: int = 10):
     kernels = _profile(f"stacked {mode} F={NF}",
                        lambda: step(state, stacked.inputs, stacked.labels,
                                     stacked.edge_weight), n_steps,
-                       **_bwd_names(mode))
+                       **_step_names(mode))
     if kernels > 2 * seq_kernels:
         raise AssertionError(f"stacked step launches {kernels:.0f} kernels, "
                              f"more than twice the sequential "
@@ -1259,9 +1284,9 @@ def _decoder_rows(layout, dev):
     del a1_32
     e = layout.n_pos
     for name, ops in (("b1", OPS_B1), ("mirror", OPS_MIRROR)):
-        _print_bwd_rate(f"scale_decoder_{name}", ms[name], ms32[name], 1,
-                        lambda dt, m=name == "mirror": sd.bwd_occupancy(dt, m),
-                        flops=ops * e)
+        _print_rate(f"scale_decoder_{name}", ms[name], ms32[name], 1,
+                    lambda dt, m=name == "mirror": sd.bwd_occupancy(dt, m),
+                    flops=ops * e)
     with torch.no_grad():
         plain = {"k2": _time_ms(lambda: sd.scale_fwd_plain(
                      pd, pv, b1, w2, b2, w3, *fwd, seed, rate, True, dtype,

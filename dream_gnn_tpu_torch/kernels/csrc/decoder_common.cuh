@@ -1,10 +1,11 @@
 // Device code shared by the decoder kernels (grid_decoder.cu, edge_decoder.cu,
 // scale_decoder.cu): the dropout hash, bf16 rounding, a warp sum, the first
-// layer of the per-cell MLP, the backward's block-count rule, and the
-// tensor-core helpers of the three bf16 backwards (grid_bwd_mma_kernel,
-// edge_bwd_mma_kernel, scale_bwd_mma_kernel): ldmatrix, mma.sync, fixed
-// shuffle trees, and the unit-order a2 and dh1 where a2 sits near a step
-// or da1 near a bf16 midpoint.
+// layer of the per-cell MLP, the block-count rules, the tensor-core helpers
+// of the three bf16 backwards (grid_bwd_mma_kernel, edge_bwd_mma_kernel,
+// scale_bwd_mma_kernel): ldmatrix, mma.sync, fixed shuffle trees, and the
+// unit-order a2 and dh1 where a2 sits near a step or da1 near a bf16
+// midpoint; and the tensor-core tile of the two bf16 forwards
+// (grid_fwd_mma_kernel, edge_fwd_mma_kernel): fwd_mma_rows.
 //
 // The grid and per-edge kernels' dropout bits are fmix32(cell_key(seed,
 // layer, i, j) ^ k) for drug i, disease j and unit k;
@@ -109,16 +110,15 @@ __device__ __forceinline__ void layer1(A1 a1_at, Bits bits, const float* w2s,
   }
 }
 
-// layer1 of one grid cell or edge: a1 from the two table rows, the grid
-// hash keyed by cell_key (key1).
-template <bool BF16, bool ROUND_ROWS = false>
+// layer1 of one grid cell or edge in fp32 (the CUDA-core kernels): a1 from
+// the two table rows, the grid hash keyed by cell_key (key1).
 __device__ __forceinline__ void cell_layer1(
     const float* pd_row, const float* pv_row, const float* b1s,
     const float* w2s, uint32_t key1, bool drop, uint32_t thresh, float scale,
     float (&acc)[H2], float* hrow) {
-  layer1<BF16>([=](int k) { return rows_a1<BF16, ROUND_ROWS>(pd_row, pv_row, b1s, k); },
-               [=](uint32_t k) { return fmix32(key1 ^ k); }, w2s, drop, thresh,
-               scale, acc, hrow);
+  layer1<false>([=](int k) { return rows_a1<false, false>(pd_row, pv_row, b1s, k); },
+                [=](uint32_t k) { return fmix32(key1 ^ k); }, w2s, drop, thresh,
+                scale, acc, hrow);
 }
 
 template <typename K>
@@ -129,20 +129,26 @@ cudaError_t prepare(K kernel, int smem_floats) {
 
 // A backward wave: one block per SM of an H100 (a backward block holds over
 // 170 KB of shared memory).  A backward splits each fold's work into
-// `split` blocks; the split aims at whole waves: it is the smallest split
-// (at most max_split) whose per_split * split blocks fill their last wave
-// to at least 15/16 of the waves they take, else the split that fills them
-// best.  It depends on the shapes only, so the order of the partial sums,
-// and with it the result, is the same on every run and every card.
+// `split` blocks; the split aims at whole waves of `slots` blocks: it is
+// the smallest split (at most max_split) whose per_split * split blocks
+// fill their last wave to at least 15/16 of the waves they take, else the
+// split that fills them best.  It depends on the shapes only, so the order
+// of the partial sums, and with it the result, is the same on every run
+// and every card.
 constexpr int BWD_BLOCKS = 132;
+// A bf16 forward wave: two blocks an SM (at most 128 registers a thread and
+// under 48 KB of shared memory a block).  The forward writes no partial
+// sums, so its split moves its time only, never its result.
+constexpr int FWD_RESIDENT = 2;
+constexpr int FWD_BLOCKS = FWD_RESIDENT * BWD_BLOCKS;
 
-int wave_split(int max_split, long per_split) {
+int wave_split(int max_split, long per_split, int slots = BWD_BLOCKS) {
   int best = 1;
   double best_fill = 0.0;
   for (int s = 1; s <= max_split; ++s) {
     const long blocks = per_split * s;
-    const long waves = (blocks + BWD_BLOCKS - 1) / BWD_BLOCKS;
-    const double fill = (double)blocks / (double)(waves * BWD_BLOCKS);
+    const long waves = (blocks + slots - 1) / slots;
+    const double fill = (double)blocks / (double)(waves * slots);
     if (fill >= 15.0 / 16.0) return s;
     if (fill > best_fill) {
       best = s;
@@ -282,6 +288,109 @@ __device__ __forceinline__ float seq_dh1(const __nv_bfloat16* drow,
     s = fmaf(d.y, w.y, s);
   }
   return s;
+}
+
+// ---------------------------------------------------------------------------
+// The bf16 forwards on the tensor cores (grid_fwd_mma_kernel,
+// edge_fwd_mma_kernel): a block of MW = 8 warps, each owning 16 rows (cells
+// or edges) of a 128-row tile.  In the fragment layout of mma m16n8k16
+// (lane = 4 gq + q) a thread holds rows c0 = gq and c1 = gq + 8 of its
+// warp's 16 and, of each 128-unit row, the units 16 ks + 8 h + 2 q + e
+// (k-step ks < 8; h, e < 2); of the a2 accumulator, the same rows at the
+// columns 8 nt + 2 q + e of n-tile nt < 8.
+//
+// Unlike the backwards, a forward needs no unit-order recompute: it rounds
+// neither a2 nor h2d = relu(a2 + b2) * m2, and the logit is continuous in
+// a2, so the order of a2's f32 sum moves it by f32 noise only
+// (tests/test_torch_port_fwd_sum_order.py).  So a2 accumulates across the
+// k-steps in the mma itself.
+
+// a1 of units k, k + 1 of rows c0 and c1 from their table values there:
+// {c0: k, k + 1; c1: k, k + 1} = (rnd(pd) + rnd(pv)) + b1 when ROUND_ROWS
+// (the per-edge kernel), else without the rounding (the grid kernel).
+template <bool ROUND_ROWS>
+__device__ __forceinline__ float4 pair_a1(float2 pd0, float2 pv0, float2 pd1,
+                                          float2 pv1, float2 b) {
+  if constexpr (ROUND_ROWS) {
+    pd0 = make_float2(rnd<true>(pd0.x), rnd<true>(pd0.y));
+    pv0 = make_float2(rnd<true>(pv0.x), rnd<true>(pv0.y));
+    pd1 = make_float2(rnd<true>(pd1.x), rnd<true>(pd1.y));
+    pv1 = make_float2(rnd<true>(pv1.x), rnd<true>(pv1.y));
+  }
+  return make_float4((pd0.x + pv0.x) + b.x, (pd0.y + pv0.y) + b.y,
+                     (pd1.x + pv1.x) + b.x, (pd1.y + pv1.y) + b.y);
+}
+
+// The logits of rows c0 and c1, s = sum_n m2[n] * relu(a2[n] + b2[n]) *
+// w3[n] with a2 = rnd(h1d) @ rnd(w2), each the same in the four lanes of a
+// quad.  a1_at(ks, x) gives x[h] = a1 of units 16 ks + 8 h + 2 q (+ 1) of
+// rows c0 and c1 (pair_a1); it is called once per k-step, in order.  key1
+// and key2 are the rows' cell keys of layers 1 and 2; w2s holds rnd(w2) in
+// bf16 at row stride LDW.  rnd(h1d) is built straight into the A
+// fragments.  A thread sums its 16 columns of a row in column order, then
+// the quad's four partials meet in a fixed tree (lanes 1, then 2 apart):
+// a row's logit does not depend on where the row sits in the tile.
+template <class A1>
+__device__ __forceinline__ float2 fwd_mma_rows(
+    A1 a1_at, const __nv_bfloat16* w2s, const float* b2s, const float* w3s,
+    const uint32_t (&key1)[2], const uint32_t (&key2)[2], bool drop,
+    uint32_t thresh, float scale, int lane) {
+  const int q = lane & 3, mi = lane >> 3, mr = lane & 7;
+  float acc[H2 / 8][4];
+#pragma unroll
+  for (int nt = 0; nt < H2 / 8; ++nt)
+#pragma unroll
+    for (int c = 0; c < 4; ++c) acc[nt][c] = 0.f;
+#pragma unroll 1
+  for (int ks = 0; ks < H1 / 16; ++ks) {
+    float4 x[2];
+    a1_at(ks, x);
+    uint32_t a[4];
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      const uint32_t k = (uint32_t)(16 * ks + 8 * h + 2 * q);
+      float v[4] = {x[h].x, x[h].y, x[h].z, x[h].w};
+#pragma unroll
+      for (int u = 0; u < 4; ++u) {
+        v[u] = fmaxf(v[u], 0.f);
+        if (drop)
+          v[u] = v[u] * (fmix32(key1[u >> 1] ^ (k + (uint32_t)(u & 1))) >= thresh ? scale
+                                                                                  : 0.f);
+      }
+      a[2 * h] = pack_bf16(v[0], v[1]);
+      a[2 * h + 1] = pack_bf16(v[2], v[3]);
+    }
+#pragma unroll
+    for (int np = 0; np < H2 / 16; ++np) {
+      uint32_t b[4];
+      ldsm_t(b, smem_addr(w2s + (16 * ks + (mi & 1) * 8 + mr) * LDW + 16 * np +
+                          (mi >> 1) * 8));
+      mma_bf16(acc[2 * np], a, b[0], b[1]);
+      mma_bf16(acc[2 * np + 1], a, b[2], b[3]);
+    }
+  }
+  // acc[nt][c]: row c >> 1 (c0, c1), column 8 nt + 2 q + (c & 1).
+  float s[2] = {0.f, 0.f};
+#pragma unroll
+  for (int nt = 0; nt < H2 / 8; ++nt) {
+    const int n = 8 * nt + 2 * q;
+    const float2 bn = *reinterpret_cast<const float2*>(b2s + n);
+    const float2 wn = *reinterpret_cast<const float2*>(w3s + n);
+#pragma unroll
+    for (int c = 0; c < 4; ++c) {
+      const int r = c >> 1, e = c & 1;
+      float h2 = fmaxf(acc[nt][c] + (e ? bn.y : bn.x), 0.f);
+      if (drop)
+        h2 = h2 * (fmix32(key2[r] ^ (uint32_t)(n + e)) >= thresh ? scale : 0.f);
+      s[r] += h2 * (e ? wn.y : wn.x);
+    }
+  }
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    s[r] += __shfl_xor_sync(0xffffffffu, s[r], 1);
+    s[r] += __shfl_xor_sync(0xffffffffu, s[r], 2);
+  }
+  return make_float2(s[0], s[1]);
 }
 
 }  // namespace

@@ -23,11 +23,21 @@
 // kFLOP backward against a few bytes per edge, so operations, by far.
 //
 // Design:
-// - forward (one design for both dtypes; its products run on the CUDA
-//   cores in f32): one thread per edge, 128 edges a block, the fold on
-//   blockIdx.y.  w2, b1, b2 and w3 sit in shared memory; each thread reads
-//   its two table rows from global memory (the tables stay in L2) and keeps
-//   its 64 a2 sums in registers.
+// - forward, the fold on blockIdx.y:
+//   - bf16 (edge_fwd_mma_kernel): the a2 product on the tensor cores, as
+//     in grid_fwd_mma_kernel (grid_decoder.cu) and with the same tile
+//     (fwd_mma_rows, decoder_common.cuh): 8 warps of 16 edges, 128 edges a
+//     tile, rnd(h1d) built in the A fragments from the rounded table rows.
+//     A block stages w2 in bf16 once and walks a fixed, strided subset of
+//     its fold's tiles, in whole waves of two blocks an SM; each thread
+//     reads its two edges' table rows from L2 one k-step ahead of the mma,
+//     as edge_bwd_mma_kernel does.  No unit-order recompute: h2d is not
+//     rounded and the logit is continuous in a2.
+//   - fp32 (edge_fwd_kernel): on the CUDA cores, where TF32 would round
+//     what the fp32 Pallas kernel does not: one thread per edge, 128 edges
+//     a block.  w2, b1, b2 and w3 sit in shared memory; each thread reads
+//     its two table rows from global memory (the tables stay in L2) and
+//     keeps its 64 a2 sums in registers.
 // - backward, pass 1: a block walks a fixed, strided subset of one fold's
 //   128-edge tiles.  Per tile it recomputes the forward, forms da2 and da1,
 //   sums dW2, db1, db2 and dw3 over its tiles, and writes each edge's
@@ -91,7 +101,9 @@ constexpr int MMA_SMEM = H1 * LDW * 2     // w2, bf16
                        + 4                // max |rnd(w2)|
                        + MT * FIX_LD * 4; // a2 and da1 taken again, per thread
 
-template <bool BF16>
+// The bf16 forward, in bytes: w2 in bf16, b1, b2, w3.
+constexpr int FWD_MMA_SMEM = H1 * LDW * 2 + (H1 + 2 * H2) * 4;
+
 __global__ void __launch_bounds__(TE) edge_fwd_kernel(
     const float* __restrict__ pd, const float* __restrict__ pv,
     const float* __restrict__ b1, const float* __restrict__ w2,
@@ -115,7 +127,7 @@ __global__ void __launch_bounds__(TE) edge_fwd_kernel(
   edges += (size_t)f * 2 * ne;
   out += (size_t)f * ne;
   const int t = threadIdx.x;
-  for (int e = t; e < H1 * H2; e += TE) w2s[e] = rnd<BF16>(w2[e]);
+  for (int e = t; e < H1 * H2; e += TE) w2s[e] = w2[e];
   b1s[t] = b1[t];
   if (t < H2) {
     b2s[t] = b2[t];
@@ -130,9 +142,8 @@ __global__ void __launch_bounds__(TE) edge_fwd_kernel(
   const bool drop = use_drop != 0;
   const uint32_t seed = (uint32_t)seed_ptr[f];
   float acc[H2];
-  cell_layer1<BF16, true>(pd + (size_t)i * H1, pv + (size_t)j * H1, b1s, w2s,
-                          cell_key(seed, 1u, i, j), drop, thresh, scale, acc,
-                          nullptr);
+  cell_layer1(pd + (size_t)i * H1, pv + (size_t)j * H1, b1s, w2s,
+              cell_key(seed, 1u, i, j), drop, thresh, scale, acc, nullptr);
   const uint32_t key2 = cell_key(seed, 2u, i, j);
   float s = 0.f;
 #pragma unroll
@@ -206,8 +217,8 @@ __global__ void __launch_bounds__(TE) edge_bwd_kernel(
     // Per edge: recompute the forward, then da2 = (a2 > 0) * g * w3 * m2.
     {
       float acc[H2];
-      cell_layer1<false>(pd_row, pv_row, b1s, w2s, cell_key(seed, 1u, i, j), drop,
-                         thresh, scale, acc, hbuf + t * LD1);
+      cell_layer1(pd_row, pv_row, b1s, w2s, cell_key(seed, 1u, i, j), drop, thresh,
+                  scale, acc, hbuf + t * LD1);
       const uint32_t key2 = cell_key(seed, 2u, i, j);
 #pragma unroll
       for (int n = 0; n < H2; ++n) {
@@ -328,6 +339,96 @@ __global__ void __launch_bounds__(TE) edge_bwd_kernel(
   if (t < H2) {
     db2_part[(size_t)blk * H2 + t] = db2acc;
     dw3_part[(size_t)blk * H2 + t] = dw3acc;
+  }
+}
+
+// The bf16 forward on the tensor cores (fwd_mma_rows, decoder_common.cuh):
+// a thread of warp w holds edges c0 = 16 w + gq and c1 = c0 + 8 of a tile
+// (lane = 4 gq + q).  An edge past ne computes on row 0 and is not
+// written; a warp whose 16 edges all lie past ne skips the tile.
+__global__ void __launch_bounds__(MT, FWD_RESIDENT) edge_fwd_mma_kernel(
+    const float* __restrict__ pd, const float* __restrict__ pv,
+    const float* __restrict__ b1, const float* __restrict__ w2,
+    const float* __restrict__ b2, const float* __restrict__ w3,
+    const int* __restrict__ edges, const int* __restrict__ seed_ptr,
+    float* __restrict__ out, int nd, int nv, int ne, uint32_t thresh,
+    float scale, int use_drop) {
+  extern __shared__ float4 smem4[];
+  __nv_bfloat16* w2s = reinterpret_cast<__nv_bfloat16*>(smem4);
+  float* b1s = reinterpret_cast<float*>(w2s + H1 * LDW);
+  float* b2s = b1s + H1;
+  float* w3s = b2s + H2;
+
+  const int t = threadIdx.x, lane = t % 32, warp = t / 32;
+  const int gq = lane >> 2, q = lane & 3;
+  const int f = blockIdx.y, n_tiles = (ne + TE - 1) / TE;
+  const bool drop = use_drop != 0;
+  const uint32_t seed = (uint32_t)seed_ptr[f];
+  pd += (size_t)f * nd * H1;
+  pv += (size_t)f * nv * H1;
+  b1 += f * H1;
+  w2 += f * H1 * H2;
+  b2 += f * H2;
+  w3 += f * H2;
+  edges += (size_t)f * 2 * ne;
+  out += (size_t)f * ne;
+
+  for (int e = t; e < H1 * H2 / 2; e += MT) {
+    const int k = e / (H2 / 2), n = 2 * (e % (H2 / 2));
+    const float2 v = *reinterpret_cast<const float2*>(w2 + k * H2 + n);
+    *reinterpret_cast<uint32_t*>(w2s + k * LDW + n) = pack_bf16(v.x, v.y);
+  }
+  if (t < H1) b1s[t] = b1[t];
+  if (t < H2) {
+    b2s[t] = b2[t];
+    w3s[t] = w3[t];
+  }
+  __syncthreads();
+
+  const int c0 = warp * 16 + gq, c1 = c0 + 8;
+  const float* b1q = b1s + 2 * q;
+  for (int tile = blockIdx.x; tile < n_tiles; tile += gridDim.x) {
+    const int e0 = tile * TE;
+    if (e0 + warp * 16 >= ne) continue;
+    const bool v0 = e0 + c0 < ne, v1 = e0 + c1 < ne;
+    const int i0 = v0 ? edges[e0 + c0] : 0, j0 = v0 ? edges[ne + e0 + c0] : 0;
+    const int i1 = v1 ? edges[e0 + c1] : 0, j1 = v1 ? edges[ne + e0 + c1] : 0;
+    assert(0 <= i0 && i0 < nd && 0 <= j0 && j0 < nv);   // a row outside the tables
+    assert(0 <= i1 && i1 < nd && 0 <= j1 && j1 < nv);
+    const uint32_t key1[2] = {drop ? cell_key(seed, 1u, i0, j0) : 0u,
+                              drop ? cell_key(seed, 1u, i1, j1) : 0u};
+    const uint32_t key2[2] = {drop ? cell_key(seed, 2u, i0, j0) : 0u,
+                              drop ? cell_key(seed, 2u, i1, j1) : 0u};
+    const float* rows[4] = {pd + (size_t)i0 * H1 + 2 * q, pv + (size_t)j0 * H1 + 2 * q,
+                            pd + (size_t)i1 * H1 + 2 * q, pv + (size_t)j1 * H1 + 2 * q};
+    // The rows' values at the thread's units of the next k-step: [h][row].
+    float2 nxt[2][4];
+#pragma unroll
+    for (int h = 0; h < 2; ++h)
+#pragma unroll
+      for (int r = 0; r < 4; ++r) nxt[h][r] = *reinterpret_cast<const float2*>(rows[r] + 8 * h);
+    auto a1_at = [&](int ks, float4(&x)[2]) {
+      float2 cur[2][4];
+#pragma unroll
+      for (int h = 0; h < 2; ++h)
+#pragma unroll
+        for (int r = 0; r < 4; ++r) cur[h][r] = nxt[h][r];
+      if (ks + 1 < H1 / 16) {
+#pragma unroll
+        for (int h = 0; h < 2; ++h)
+#pragma unroll
+          for (int r = 0; r < 4; ++r)
+            nxt[h][r] = *reinterpret_cast<const float2*>(rows[r] + 16 * (ks + 1) + 8 * h);
+      }
+#pragma unroll
+      for (int h = 0; h < 2; ++h)
+        x[h] = pair_a1<true>(cur[h][0], cur[h][1], cur[h][2], cur[h][3],
+                             *reinterpret_cast<const float2*>(b1q + 16 * ks + 8 * h));
+    };
+    const float2 s = fwd_mma_rows(a1_at, w2s, b2s, w3s, key1, key2, drop, thresh, scale,
+                                  lane);
+    if (q == 0 && v0) out[e0 + c0] = s.x;
+    if (q == 1 && v1) out[e0 + c1] = s.y;
   }
 }
 
@@ -782,23 +883,39 @@ int edge_decoder_bwd_split(int nf, int ne) {
 
 // nf folds in one launch: pd (nf, nd, H1), pv (nf, nv, H1), b1 (nf, H1),
 // w2 (nf, H1, H2), b2 (nf, H2), w3 (nf, H2), edges (nf, 2, ne) int32
-// [src; dst], seed (nf,), out (nf, ne).  One fold is nf = 1.
+// [src; dst], seed (nf,), out (nf, ne).  One fold is nf = 1.  bf16 runs
+// on the tensor cores, fp32 on the CUDA cores.
 int edge_decoder_fwd(const float* pd, const float* pv, const float* b1,
                      const float* w2, const float* b2, const float* w3,
                      const int* edges, const int* seed, float* out, int nf,
                      int nd, int nv, int ne, unsigned int thresh, float scale,
                      int use_drop, int bf16, void* stream) {
-  const dim3 grid((ne + TE - 1) / TE, nf);
-  const size_t smem = FWD_SMEM * sizeof(float);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (bf16) {
-    edge_fwd_kernel<true><<<grid, TE, smem, s>>>(pd, pv, b1, w2, b2, w3, edges, seed,
-                                                 out, nd, nv, ne, thresh, scale, use_drop);
+    // Blocks per fold: whole waves of two blocks an SM (wave_split).  For 10
+    // folds of 167,168 edges (1,306 tiles a fold) 25, blocks of 52 or 53 tiles.
+    const int split = wave_split((ne + TE - 1) / TE, (long)nf, FWD_BLOCKS);
+    edge_fwd_mma_kernel<<<dim3(split, nf), MT, FWD_MMA_SMEM, s>>>(
+        pd, pv, b1, w2, b2, w3, edges, seed, out, nd, nv, ne, thresh, scale, use_drop);
   } else {
-    edge_fwd_kernel<false><<<grid, TE, smem, s>>>(pd, pv, b1, w2, b2, w3, edges, seed,
-                                                  out, nd, nv, ne, thresh, scale, use_drop);
+    edge_fwd_kernel<<<dim3((ne + TE - 1) / TE, nf), TE, FWD_SMEM * sizeof(float), s>>>(
+        pd, pv, b1, w2, b2, w3, edges, seed, out, nd, nv, ne, thresh, scale, use_drop);
   }
   return (int)cudaGetLastError();
+}
+
+// Residency of the forward kernel of one dtype on one SM of this card:
+// occ[] receives {blocks, warps a block}.  Returns 0 or the CUDA error.
+int edge_decoder_fwd_occupancy(int bf16, int* occ) {
+  int blocks = 0;
+  const cudaError_t err =
+      bf16 ? cudaOccupancyMaxActiveBlocksPerMultiprocessor(&blocks, edge_fwd_mma_kernel, MT,
+                                                           FWD_MMA_SMEM)
+           : cudaOccupancyMaxActiveBlocksPerMultiprocessor(&blocks, edge_fwd_kernel, TE,
+                                                           FWD_SMEM * sizeof(float));
+  occ[0] = blocks;
+  occ[1] = (bf16 ? MT : TE) / 32;
+  return (int)err;
 }
 
 // Its backward: g (nf, ne); the CSR orderings src_perm / dst_perm (nf, ne)

@@ -29,11 +29,26 @@
 // elementwise work around them) against a few bytes of table rows, so the
 // backward's bound is its tensor-core time.
 //
-// Forward (one design for both dtypes; its products still run on the CUDA
-// cores): one block of 128 threads per 4 x 32 tile of cells, one thread
-// per cell; w2, b1, b2, w3 and the tile's Pd / Pv rows sit in shared
-// memory; each thread keeps its 64 a2 sums in registers and reads w2 rows
-// as float4 broadcasts.
+// Forward.
+// - bf16 (grid_fwd_mma_kernel): the a2 product on the tensor cores, as
+//   mma.sync m16n8k16 bf16 x bf16 -> f32 on the operands the plain version
+//   rounds to (fwd_mma_rows, decoder_common.cuh).  8 warps, each owning 16
+//   cells of a 4 x 32 tile (one drug row, 16 disease columns); rnd(h1d) is
+//   built straight into the A fragments with its dropout hash, and the B
+//   fragments of rnd(w2) come by ldmatrix from a bf16 copy in shared
+//   memory.  A block owns one 32-disease column of one fold: it stages w2
+//   and the column's 32 Pv rows once, then walks a fixed, strided subset
+//   of the 4-drug row tiles, each warp reading its drug row's Pd values
+//   from L2 one k-step ahead, with no barrier in the walk.  The split into
+//   blocks aims at whole waves of two blocks an SM (wave_split); it moves
+//   the time only, since a cell's logit depends on its own inputs alone.
+//   Unlike the backward it needs no unit-order recompute: h2d is not
+//   rounded and the logit is continuous in a2.
+// - fp32 (grid_fwd_kernel): the tensor cores would take fp32 operands only
+//   as TF32, so the product stays on the CUDA cores: one block of 128
+//   threads per 4 x 32 tile of cells, one thread per cell; w2, b1, b2, w3
+//   and the tile's Pd / Pv rows sit in shared memory; each thread keeps its
+//   64 a2 sums in registers and reads w2 rows as float4 broadcasts.
 //
 // Backward.  A block owns one 32-disease column of tiles of one fold and
 // walks over a fixed, strided subset of the 4-drug row tiles.  Per tile it
@@ -98,7 +113,7 @@ constexpr int BWD_SMEM = H1 * H2          // w2 (rounded)
                        + H1 * LD2         // dW2 accumulator
                        + TJ * H1;         // dPv accumulator
 
-// The bf16 backward on the tensor cores: MW = 8 warps (decoder_common.cuh),
+// The bf16 kernels on the tensor cores: MW = 8 warps (decoder_common.cuh),
 // each owning 16 cells of a tile; f32 Pv rows padded by 32 bytes, so that
 // the lanes of a float2 load fall in distinct banks.
 constexpr int LDP = H1 + 8;      // f32 row stride of the Pv rows
@@ -119,7 +134,10 @@ constexpr int MMA_SMEM = H1 * LDW * 2     // w2, bf16
                        + 4                // max |rnd(w2)|
                        + MT * FIX_LD * 4; // a2 taken again, per thread
 
-template <bool BF16>
+// The bf16 forward, in bytes: w2 in bf16, the block's Pv rows, b1, b2, w3.
+constexpr int FWD_MMA_SMEM = H1 * LDW * 2 + TJ * LDP * 4 + (H1 + 2 * H2) * 4;
+static_assert(FWD_MMA_SMEM <= 48 * 1024, "the bf16 forward needs no opt-in");
+
 __global__ void __launch_bounds__(NT) grid_fwd_kernel(
     const float* __restrict__ pd, const float* __restrict__ pv,
     const float* __restrict__ b1, const float* __restrict__ w2,
@@ -144,7 +162,7 @@ __global__ void __launch_bounds__(NT) grid_fwd_kernel(
   out += (size_t)f * nd * nv;
   const int t = threadIdx.x;
   const int i0 = blockIdx.y * TI, j0 = blockIdx.x * TJ;
-  for (int e = t; e < H1 * H2; e += NT) w2s[e] = rnd<BF16>(w2[e]);
+  for (int e = t; e < H1 * H2; e += NT) w2s[e] = w2[e];
   for (int e = t; e < TJ * H1; e += NT) {
     const int r = e / H1, k = e % H1, j = j0 + r;
     pvs[r * LD1 + k] = j < nv ? pv[(size_t)j * H1 + k] : 0.f;
@@ -164,8 +182,8 @@ __global__ void __launch_bounds__(NT) grid_fwd_kernel(
   const bool drop = use_drop != 0;
   const uint32_t seed = (uint32_t)seed_ptr[f];
   float acc[H2];
-  cell_layer1<BF16>(pds + ti * H1, pvs + tj * LD1, b1s, w2s,
-                    cell_key(seed, 1u, i, j), drop, thresh, scale, acc, nullptr);
+  cell_layer1(pds + ti * H1, pvs + tj * LD1, b1s, w2s, cell_key(seed, 1u, i, j),
+              drop, thresh, scale, acc, nullptr);
   const uint32_t key2 = cell_key(seed, 2u, i, j);
   float s = 0.f;
 #pragma unroll
@@ -256,8 +274,8 @@ __global__ void __launch_bounds__(NT) grid_bwd_kernel(
     {
       float acc[H2];
       const uint32_t key1 = cell_key(seed, 1u, i, j);
-      cell_layer1<false>(pds + ti * H1, pvs + tj * LD1, b1s, w2s, key1, drop,
-                        thresh, scale, acc, hbuf + t * LD1);
+      cell_layer1(pds + ti * H1, pvs + tj * LD1, b1s, w2s, key1, drop, thresh,
+                  scale, acc, hbuf + t * LD1);
       const uint32_t key2 = cell_key(seed, 2u, i, j);
       const float gc = gs[t];
 #pragma unroll
@@ -389,6 +407,94 @@ __global__ void __launch_bounds__(NT) grid_bwd_kernel(
   if (t < H2) {
     db2_part[(size_t)blk * H2 + t] = db2acc;
     dw3_part[(size_t)blk * H2 + t] = dw3acc;
+  }
+}
+
+// ---------------------------------------------------------------------------
+// The bf16 forward on the tensor cores (fwd_mma_rows, decoder_common.cuh).
+// Warp w owns drug row w / 2 of a tile and the disease columns tj0 = 16 (w
+// % 2) + gq and tj1 = tj0 + 8 of the block's 32 (lane = 4 gq + q): its
+// rows c0 and c1.  A warp whose drug row lies past nd (the ragged last
+// tile) skips the tile; a column past nv computes on the zero Pv row staged
+// for it and is not written.
+__global__ void __launch_bounds__(MT, FWD_RESIDENT) grid_fwd_mma_kernel(
+    const float* __restrict__ pd, const float* __restrict__ pv,
+    const float* __restrict__ b1, const float* __restrict__ w2,
+    const float* __restrict__ b2, const float* __restrict__ w3,
+    const int* __restrict__ seed_ptr, float* __restrict__ out, int nd, int nv,
+    uint32_t thresh, float scale, int use_drop) {
+  extern __shared__ float4 smem4[];
+  __nv_bfloat16* w2s = reinterpret_cast<__nv_bfloat16*>(smem4);
+  float* pvs = reinterpret_cast<float*>(w2s + H1 * LDW);
+  float* b1s = pvs + TJ * LDP;
+  float* b2s = b1s + H1;
+  float* w3s = b2s + H2;
+
+  const int t = threadIdx.x, lane = t % 32, warp = t / 32;
+  const int gq = lane >> 2, q = lane & 3;
+  const int j0 = blockIdx.x * TJ, n_it = (nd + TI - 1) / TI;
+  const int f = blockIdx.z;
+  const bool drop = use_drop != 0;
+  const uint32_t seed = (uint32_t)seed_ptr[f];
+  pd += (size_t)f * nd * H1;
+  pv += (size_t)f * nv * H1;
+  b1 += f * H1;
+  w2 += f * H1 * H2;
+  b2 += f * H2;
+  w3 += f * H2;
+  out += (size_t)f * nd * nv;
+
+  for (int e = t; e < H1 * H2 / 2; e += MT) {
+    const int k = e / (H2 / 2), n = 2 * (e % (H2 / 2));
+    const float2 v = *reinterpret_cast<const float2*>(w2 + k * H2 + n);
+    *reinterpret_cast<uint32_t*>(w2s + k * LDW + n) = pack_bf16(v.x, v.y);
+  }
+  for (int e = t; e < TJ * H1; e += MT) {
+    const int r = e / H1, k = e % H1, j = j0 + r;
+    pvs[r * LDP + k] = j < nv ? pv[(size_t)j * H1 + k] : 0.f;
+  }
+  if (t < H1) b1s[t] = b1[t];
+  if (t < H2) {
+    b2s[t] = b2[t];
+    w3s[t] = w3[t];
+  }
+  __syncthreads();
+
+  const int ti = warp / 2, tj0 = 16 * (warp % 2) + gq, tj1 = tj0 + 8;
+  const int jc0 = j0 + tj0, jc1 = j0 + tj1;
+  const float* pv0 = pvs + tj0 * LDP + 2 * q;
+  const float* pv1 = pvs + tj1 * LDP + 2 * q;
+  const float* b1q = b1s + 2 * q;
+  for (int it = blockIdx.y; it < n_it; it += gridDim.y) {
+    const int i = it * TI + ti;
+    if (i >= nd) continue;
+    const uint32_t key1[2] = {drop ? cell_key(seed, 1u, i, jc0) : 0u,
+                              drop ? cell_key(seed, 1u, i, jc1) : 0u};
+    const uint32_t key2[2] = {drop ? cell_key(seed, 2u, i, jc0) : 0u,
+                              drop ? cell_key(seed, 2u, i, jc1) : 0u};
+    // The drug row's values at the thread's units of the next k-step.
+    const float* pdr = pd + (size_t)i * H1 + 2 * q;
+    float2 nxt[2] = {*reinterpret_cast<const float2*>(pdr),
+                     *reinterpret_cast<const float2*>(pdr + 8)};
+    auto a1_at = [&](int ks, float4(&x)[2]) {
+      const float2 cur[2] = {nxt[0], nxt[1]};
+      if (ks + 1 < H1 / 16) {
+        nxt[0] = *reinterpret_cast<const float2*>(pdr + 16 * (ks + 1));
+        nxt[1] = *reinterpret_cast<const float2*>(pdr + 16 * (ks + 1) + 8);
+      }
+#pragma unroll
+      for (int h = 0; h < 2; ++h) {
+        const int k = 16 * ks + 8 * h;
+        x[h] = pair_a1<false>(cur[h], *reinterpret_cast<const float2*>(pv0 + k), cur[h],
+                              *reinterpret_cast<const float2*>(pv1 + k),
+                              *reinterpret_cast<const float2*>(b1q + k));
+      }
+    };
+    const float2 s = fwd_mma_rows(a1_at, w2s, b2s, w3s, key1, key2, drop, thresh, scale,
+                                  lane);
+    float* orow = out + (size_t)i * nv;
+    if (q == 0 && jc0 < nv) orow[jc0] = s.x;
+    if (q == 1 && jc1 < nv) orow[jc1] = s.y;
   }
 }
 
@@ -782,25 +888,31 @@ int bwd_split(int n_it, int n_jt, int nf) {
   return wave_split(n_it, (long)nf * n_jt);
 }
 
+// The bf16 forward's split of the drug tiles: whole waves of two blocks an
+// SM (wave_split).  For one fold at Gdataset width (n_jt = 10, n_it = 149)
+// it is 26, 260 blocks of 5 or 6 tiles; for 10 folds it is 5, 500 blocks
+// of 29 or 30 tiles.
+int fwd_split(int n_it, int n_jt, int nf) {
+  return wave_split(n_it, (long)nf * n_jt, FWD_BLOCKS);
+}
+
+// bf16 runs the forward on the tensor cores, fp32 on the CUDA cores.
 int launch_fwd(const float* pd, const float* pv, const float* b1,
                const float* w2, const float* b2, const float* w3,
                const int* seed, float* out, int nf, int nd, int nv,
                unsigned int thresh, float scale, int use_drop, int bf16,
                void* stream) {
-  const dim3 grid((nv + TJ - 1) / TJ, (nd + TI - 1) / TI, nf);
-  const size_t smem = FWD_SMEM * sizeof(float);
+  const int n_jt = (nv + TJ - 1) / TJ, n_it = (nd + TI - 1) / TI;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  cudaError_t err;
   if (bf16) {
-    err = prepare(grid_fwd_kernel<true>, FWD_SMEM);
-    if (err != cudaSuccess) return (int)err;
-    grid_fwd_kernel<true><<<grid, NT, smem, s>>>(pd, pv, b1, w2, b2, w3, seed, out,
-                                                 nd, nv, thresh, scale, use_drop);
+    const dim3 grid(n_jt, fwd_split(n_it, n_jt, nf), nf);
+    grid_fwd_mma_kernel<<<grid, MT, FWD_MMA_SMEM, s>>>(pd, pv, b1, w2, b2, w3, seed, out,
+                                                       nd, nv, thresh, scale, use_drop);
   } else {
-    err = prepare(grid_fwd_kernel<false>, FWD_SMEM);
+    const cudaError_t err = prepare(grid_fwd_kernel, FWD_SMEM);
     if (err != cudaSuccess) return (int)err;
-    grid_fwd_kernel<false><<<grid, NT, smem, s>>>(pd, pv, b1, w2, b2, w3, seed, out,
-                                                  nd, nv, thresh, scale, use_drop);
+    grid_fwd_kernel<<<dim3(n_jt, n_it, nf), NT, FWD_SMEM * sizeof(float), s>>>(
+        pd, pv, b1, w2, b2, w3, seed, out, nd, nv, thresh, scale, use_drop);
   }
   return (int)cudaGetLastError();
 }
@@ -864,6 +976,25 @@ int grid_decoder_bwd_occupancy(int bf16, int* occ) {
     if (err == cudaSuccess)
       err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&blocks, grid_bwd_kernel, NT,
                                                           BWD_SMEM * sizeof(float));
+  }
+  occ[0] = blocks;
+  occ[1] = (bf16 ? MT : NT) / 32;
+  return (int)err;
+}
+
+// Residency of the forward kernel of one dtype on one SM of this card:
+// occ[] receives {blocks, warps a block}.  Returns 0 or the CUDA error.
+int grid_decoder_fwd_occupancy(int bf16, int* occ) {
+  cudaError_t err;
+  int blocks = 0;
+  if (bf16) {
+    err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&blocks, grid_fwd_mma_kernel, MT,
+                                                        FWD_MMA_SMEM);
+  } else {
+    err = prepare(grid_fwd_kernel, FWD_SMEM);
+    if (err == cudaSuccess)
+      err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&blocks, grid_fwd_kernel, NT,
+                                                          FWD_SMEM * sizeof(float));
   }
   occ[0] = blocks;
   occ[1] = (bf16 ? MT : NT) / 32;

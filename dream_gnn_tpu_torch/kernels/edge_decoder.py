@@ -25,9 +25,10 @@ cell ``[src[e], dst[e]]``, whatever the tiling, and fold f of a batched
 call draws those of a single-fold call with ``seed[f]``.  A pair listed
 twice draws one mask for both; the loader's candidate pairs are unique.
 
-The backward's first pass runs its three products on the tensor cores in
-bf16 (``edge_bwd_mma_kernel``) and on the CUDA cores in fp32, where TF32
-would round what the fp32 Pallas kernel does not.  Its gradient scatter
+The forward and the backward's first pass run their products on the
+tensor cores in bf16 (``edge_fwd_mma_kernel``, ``edge_bwd_mma_kernel``)
+and on the CUDA cores in fp32, where TF32 would round what the fp32 Pallas
+kernel does not.  The backward's gradient scatter
 into dPd and dPv runs without atomics: the first pass writes every edge's
 rnd(da1) row to an (F, E, 128) buffer, and the second sums each node's
 rows in list order over a CSR ordering of the edges by src and by dst
@@ -53,7 +54,7 @@ import torch
 from dream_gnn_tpu_torch.kernels import cuda_build
 from dream_gnn_tpu_torch.kernels.grid_decoder import (
     H1, H2, check_inputs, drop_args, dropout_seeds, hash_bits, keep_scale,
-    keep_threshold, node_projections, round_to, stream_ptr)
+    keep_threshold, node_projections, occupancy, round_to, stream_ptr)
 
 LAUNCHES = {"fwd": 0, "bwd": 0, "fwd_b": 0, "bwd_b": 0}
 
@@ -200,8 +201,9 @@ def _load():
         lib.edge_decoder_bwd.restype = i
         lib.edge_decoder_bwd_split.argtypes = [i, i]
         lib.edge_decoder_bwd_split.restype = i
-        lib.edge_decoder_bwd_occupancy.argtypes = [i, p]
-        lib.edge_decoder_bwd_occupancy.restype = i
+        for kind in ("fwd", "bwd"):
+            getattr(lib, f"edge_decoder_{kind}_occupancy").argtypes = [i, p]
+            getattr(lib, f"edge_decoder_{kind}_occupancy").restype = i
         _lib = lib
     return _lib
 
@@ -273,15 +275,16 @@ def _launch_bwd(pd, pv, b1, w2, b2, w3, edges, seed, rate, train, dtype, g,
     return dpd, dpv, db1, dw2, db2, dw3
 
 
+def fwd_occupancy(dtype) -> tuple:
+    """(blocks, warps) of the ``dtype`` forward kernel resident on one SM
+    of the current card, by CUDA's occupancy API."""
+    return occupancy(_load(), "edge_decoder_fwd_occupancy", dtype)
+
+
 def bwd_occupancy(dtype) -> tuple:
     """(blocks, warps) of the ``dtype`` backward's pass-1 kernel resident on
     one SM of the current card, by CUDA's occupancy API."""
-    occ = (ctypes.c_int * 2)()
-    err = _load().edge_decoder_bwd_occupancy(int(dtype == torch.bfloat16),
-                                             ctypes.addressof(occ))
-    if err != 0:
-        raise RuntimeError(f"edge_decoder_bwd_occupancy: CUDA error {err}")
-    return occ[0], occ[0] * occ[1]
+    return occupancy(_load(), "edge_decoder_bwd_occupancy", dtype)
 
 
 def launch_fwd(pd, pv, b1, w2, b2, w3, edges, seed, rate, train, dtype):

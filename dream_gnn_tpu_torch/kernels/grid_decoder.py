@@ -36,12 +36,13 @@ What bounds the kernel on an H100.  At Gdataset width (593 x 313 cells,
 H1 = 128, H2 = 64) the forward does about 16.6 kFLOP per cell, about
 3.1 GFLOP in all, against about 1.2 MB of traffic: operations bound it,
 by a wide margin.  The backward does about three times the work.  A stack
-of F folds does F times the work in one launch.  The bf16 backward runs
-its three products on the tensor cores (``mma.sync`` bf16 -> f32, the
-operands the plain version rounds to); the forwards and the fp32 backward
-run theirs on the CUDA cores in f32, since fp32 operands would reach the
-tensor cores only as TF32.  ``csrc/grid_decoder.cu`` says why and how;
-``PERF.md`` carries the measured times beside the bound.
+of F folds does F times the work in one launch.  In bf16 the forward
+(``grid_fwd_mma_kernel``) and the backward (``grid_bwd_mma_kernel``) run
+their products on the tensor cores (``mma.sync`` bf16 -> f32, the
+operands the plain version rounds to); in fp32 both run theirs on the
+CUDA cores in f32, since fp32 operands would reach the tensor cores only
+as TF32.  ``csrc/grid_decoder.cu`` says why and how; ``PERF.md`` carries
+the measured times beside the bound.
 
 Dispatch.  ``fused_grid_decoder`` and ``fused_grid_decoder_batched`` run
 the kernel for CUDA tensors and the plain version only for CPU tensors;
@@ -233,8 +234,9 @@ def _load():
         lib.grid_decoder_bwd_batched.restype = i
         lib.grid_decoder_bwd_layout_batched.argtypes = [i, i, i, p]
         lib.grid_decoder_bwd_layout_batched.restype = None
-        lib.grid_decoder_bwd_occupancy.argtypes = [i, p]
-        lib.grid_decoder_bwd_occupancy.restype = i
+        for kind in ("fwd", "bwd"):
+            getattr(lib, f"grid_decoder_{kind}_occupancy").argtypes = [i, p]
+            getattr(lib, f"grid_decoder_{kind}_occupancy").restype = i
         _lib = lib
     return _lib
 
@@ -331,15 +333,26 @@ def _launch_bwd(pd, pv, b1, w2, b2, w3, seed, rate, train, dtype, g, folds):
     return dpd[..., :nd, :], dpv[..., :nv, :], db1, dw2, db2, dw3
 
 
-def bwd_occupancy(dtype) -> tuple:
-    """(blocks, warps) of the ``dtype`` backward kernel resident on one SM
-    of the current card, by CUDA's occupancy API."""
+def occupancy(lib, name: str, dtype) -> tuple:
+    """(blocks, warps) of the ``dtype`` kernel behind the C occupancy entry
+    point ``name`` of ``lib`` resident on one SM of the current card, by
+    CUDA's occupancy API."""
     occ = (ctypes.c_int * 2)()
-    err = _load().grid_decoder_bwd_occupancy(int(dtype == torch.bfloat16),
-                                             ctypes.addressof(occ))
+    err = getattr(lib, name)(int(dtype == torch.bfloat16),
+                             ctypes.addressof(occ))
     if err != 0:
-        raise RuntimeError(f"grid_decoder_bwd_occupancy: CUDA error {err}")
+        raise RuntimeError(f"{name}: CUDA error {err}")
     return occ[0], occ[0] * occ[1]
+
+
+def fwd_occupancy(dtype) -> tuple:
+    """(blocks, warps) of the ``dtype`` forward kernel resident on one SM."""
+    return occupancy(_load(), "grid_decoder_fwd_occupancy", dtype)
+
+
+def bwd_occupancy(dtype) -> tuple:
+    """(blocks, warps) of the ``dtype`` backward kernel resident on one SM."""
+    return occupancy(_load(), "grid_decoder_bwd_occupancy", dtype)
 
 
 def launch_fwd(pd, pv, b1, w2, b2, w3, seed, rate, train, dtype):

@@ -1,5 +1,6 @@
 """Card-only checks of the port: the CUDA decoder kernels (grid and per
-edge, single-fold and fold-batched), the scale path's kernels (the
+edge, single-fold and fold-batched, forward and backward; in bf16 on the
+tensor cores, in fp32 on the CUDA cores), the scale path's kernels (the
 segmented sum behind spmm_slab and seq_scatter, the scale decoder's K2, B1
 and mirror) and the scale benchmark's (the same segmented sum behind
 spmm_gather and spmm_blocked) against their plain versions at ragged
@@ -583,6 +584,128 @@ def test_edge_bwd_occupancy_is_the_launch_block(cuda, dtype, warps):
     fp32, 8 on the tensor cores) that fit an SM, and at least one does."""
     blocks, resident = ed.bwd_occupancy(dtype)
     assert blocks >= 1
+    assert resident == blocks * warps
+
+
+# ---------------------------------------------------------------------------
+# The bf16 forwards on the tensor cores: grid_fwd_mma_kernel and
+# edge_fwd_mma_kernel.
+
+def _fwd(kind, args, rate, train, nf):
+    """Kernel and plain forward of ``kind`` ("grid" or "edge"), bf16:
+    single-fold for ``nf`` None, else batched."""
+    mod = gd if kind == "grid" else ed
+    if nf is None:
+        launch, plain = mod.launch_fwd, (gd.grid_decoder_plain if kind == "grid"
+                                         else ed.edge_decoder_plain)
+    else:
+        launch, plain = mod.launch_fwd_batched, (
+            gd.grid_decoder_batched_plain if kind == "grid"
+            else ed.edge_decoder_batched_plain)
+    return (launch(*args, rate, train, torch.bfloat16),
+            plain(*args, rate, train, torch.bfloat16))
+
+
+@pytest.mark.parametrize("train", [True, False])
+@pytest.mark.parametrize("rate", [0.0, 0.3])
+@pytest.mark.parametrize("nf", [None, 3])
+@pytest.mark.parametrize("nv", [1, 7, 33, 313])
+@pytest.mark.parametrize("nd", [1, 17, 37, 593])
+def test_grid_bf16_fwd_matches_plain_across_tiles(cuda, nd, nv, nf, rate,
+                                                  train):
+    """The tensor-core grid forward at shapes that straddle its 4 x 32 tiles
+    and its 16-cell mma rows (nd, nv not multiples of 4 or 32), for one
+    fold and F = 3, in training and in eval."""
+    args, _ = _grid_case(cuda, nf, nd, nv, seed=nd + nv)
+    out, ref = _fwd("grid", args, rate, train, nf)
+    torch.cuda.synchronize()
+    assert out.shape == ref.shape
+    assert bool(torch.isfinite(out).all())
+    assert _rel(out, ref) <= TOL[torch.bfloat16]
+
+
+@pytest.mark.parametrize("train", [True, False])
+@pytest.mark.parametrize("rate", [0.0, 0.3])
+@pytest.mark.parametrize("nf", [None, 3])
+@pytest.mark.parametrize("nodes", [(37, 45), (593, 313)])
+@pytest.mark.parametrize("ne", [1, 15, 16, 17, 127, 128, 129, 1023, 4097])
+def test_edge_bf16_fwd_matches_plain_across_tiles(cuda, ne, nodes, nf, rate,
+                                                  train):
+    """The tensor-core edge forward at edge counts that straddle its 16-edge
+    mma rows and 128-edge tiles (ne not a multiple of 128), on random pairs
+    in no order and with repeats, for one fold and F = 3."""
+    args, _ = _edge_args(cuda, nf, *nodes, ne, seed=ne + sum(nodes))
+    args[6][..., -1] = args[6][..., 0]          # a repeated pair
+    if ne >= 15:
+        assert not bool((args[6][..., 0, :].diff(dim=-1) >= 0).all())
+    out, ref = _fwd("edge", args, rate, train, nf)
+    torch.cuda.synchronize()
+    assert out.shape == ref.shape
+    assert bool(torch.isfinite(out).all())
+    assert _rel(out, ref) <= TOL[torch.bfloat16]
+
+
+def _gate_and_midpoint_case(dev, kind, nd, nv):
+    """Every cell (or edge) with h1d = 1 in all units and a2 = 1 + 2^-8 in
+    column 0, a bf16 midpoint of h2d up to the last bit of its f32 sum, and
+    a2 = 0 in column 1, the relu gate, up to the same (w2[:4, 1] = (1,
+    2^-25, 2^-25, 2^-25), b2[1] = -1); the other columns are 0.125."""
+    w2 = torch.zeros(128, 64, device=dev)
+    w2[:5, 0] = torch.tensor([1.0, 2.0 ** -8, 2.0 ** -25, 2.0 ** -25,
+                              2.0 ** -25], device=dev)
+    w2[:4, 1] = torch.tensor([1.0, 2.0 ** -25, 2.0 ** -25, 2.0 ** -25],
+                             device=dev)
+    w2[:, 2:] = 2.0 ** -10
+    b2 = torch.zeros(64, device=dev)
+    b2[1] = -1.0
+    args = [torch.ones(nd, 128, device=dev), torch.zeros(nv, 128, device=dev),
+            torch.zeros(128, device=dev), w2, b2, torch.ones(64, device=dev)]
+    seed = torch.zeros(1, dtype=torch.int32, device=dev)
+    if kind == "grid":
+        return args + [seed]
+    rng = np.random.default_rng(0)
+    edges = np.stack([rng.integers(0, nd, 300), rng.integers(0, nv, 300)])
+    return args + [torch.tensor(edges, dtype=torch.int32, device=dev), seed]
+
+
+@pytest.mark.parametrize("kind", ["grid", "edge"])
+def test_bf16_fwd_at_the_gate_and_a_midpoint(cuda, kind):
+    """a2 at the relu gate and at a bf16 midpoint of h2d: the forward does
+    not round h2d, so the kernel's own sum order moves the logit by f32
+    noise only (tests/test_torch_port_fwd_sum_order.py), and every cell,
+    whatever its place in the tile, gives the same bits."""
+    args = _gate_and_midpoint_case(cuda, kind, 37, 45)
+    out, ref = _fwd(kind, args, 0.0, False, None)
+    torch.cuda.synchronize()
+    expect = 1.0 + 2.0 ** -8 + 62 * 0.125
+    assert abs(float(ref.flatten()[0]) - expect) <= 2.0 ** -20
+    assert _rel(out, ref) <= TOL[torch.bfloat16]
+    assert bool((out == out.flatten()[0]).all())
+
+
+@pytest.mark.parametrize("kind", ["grid", "edge"])
+@pytest.mark.parametrize("nf", [None, 3])
+def test_bf16_fwd_repeats_bit_for_bit(cuda, kind, nf):
+    """Two launches of a tensor-core forward give the same bits, over
+    Gdataset-sized tables, for one fold and for F = 3."""
+    if kind == "grid":
+        args, _ = _grid_case(cuda, nf, 593, 313, seed=3)
+    else:
+        args, _ = _edge_args(cuda, nf, 593, 313, 20000, seed=3)
+    a, _ = _fwd(kind, args, 0.3, True, nf)
+    b, _ = _fwd(kind, args, 0.3, True, nf)
+    assert torch.equal(a, b)
+
+
+@pytest.mark.parametrize("kind", ["grid", "edge"])
+@pytest.mark.parametrize("dtype,warps", [(torch.float32, 4),
+                                         (torch.bfloat16, 8)])
+def test_fwd_occupancy_is_the_launch_block(cuda, kind, dtype, warps):
+    """fwd_occupancy counts the blocks of the launch's own size (4 warps in
+    fp32, 8 on the tensor cores) that fit an SM; the bf16 forward's split
+    assumes two (FWD_RESIDENT in csrc/decoder_common.cuh)."""
+    blocks, resident = (gd if kind == "grid" else ed).fwd_occupancy(dtype)
+    assert blocks >= (2 if dtype == torch.bfloat16 else 1)
     assert resident == blocks * warps
 
 
