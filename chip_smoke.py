@@ -8,9 +8,11 @@ Phases, each of which fails the run if it fails:
    kernels built from the sources in the checkout, one nvcc per source in
    parallel (nvcc's register and shared-memory report is printed, and the
    lines of the bf16 kernels on the tensor cores once more: the forwards
-   ``grid_fwd_mma_kernel`` and ``edge_fwd_mma_kernel``, the backwards
-   ``grid_bwd_mma_kernel``, ``edge_bwd_mma_kernel`` and both
-   instantiations of ``scale_bwd_mma_kernel``, B1 and the mirror);
+   ``grid_fwd_mma_kernel``, ``edge_fwd_mma_kernel`` and both
+   instantiations of ``scale_fwd_mma_kernel`` (K2 with and without its a1
+   spill), the backwards ``grid_bwd_mma_kernel``, ``edge_bwd_mma_kernel``
+   and both instantiations of ``scale_bwd_mma_kernel``, B1 and the
+   mirror);
 2. kernels against their plain PyTorch versions at Gdataset width
    (593 drugs x 313 diseases), fp32 and bf16, dropout 0 and 0.3: forward
    logits and all six gradients, each within a stated tolerance; a
@@ -61,20 +63,22 @@ Phases, each of which fails the run if it fails:
     (the planted 100k x 100k problem of ``train.scale``: the ~9M-edge
     rating-0 and ~1M-edge rating-1 relations, forward and transposed,
     d = 128; 1M candidates over the 100k-row tables), fp32 and bf16,
-    dropout 0 and 0.3, every output within a stated tolerance, two launches
-    the same bits, the bf16 control; then each kernel's time beside its
-    bound, its plain version's and one PyTorch call's where there is one
-    (and for the segment sums of 16 and 20, the rate at which they gather
-    rows of x, entries x row bytes / time), and B1's and the mirror's
-    TFLOP/s and residency in bf16 (tensor cores) and fp32 (CUDA cores);
+    dropout 0 and 0.3, every output within a stated tolerance (the bf16 K2
+    against the plain version with its a2 product in unit order), two
+    launches the same bits, the bf16 control; then each kernel's time
+    beside its bound, its plain version's and one PyTorch call's where
+    there is one (and for the segment sums of 16 and 20, the rate at which
+    they gather rows of x, entries x row bytes / time), and K2's, B1's and
+    the mirror's TFLOP/s and residency in bf16 (tensor cores) and fp32
+    (CUDA cores);
 17. the scale model's eval forward on the card (kernels) against the CPU
     (plain versions) at 10k x 10k nodes, 1M edges, 100k candidates;
 18. the scale trainer through ``train.scale`` at full size, 20 steps with an
     eval every 10: ms/step, peak memory, the layout build time and the
     launch counts the path implies;
 19. a profile of ten scale training steps, which must run the tensor-core
-    ``scale_bwd_mma_kernel`` (B1 and the mirror) and not
-    ``scale_bwd_kernel``;
+    ``scale_fwd_mma_kernel`` (K2) and ``scale_bwd_mma_kernel`` (B1 and the
+    mirror) and neither ``scale_fwd_kernel`` nor ``scale_bwd_kernel``;
 20. the scale benchmark's SpMMs, grouped (``spmm_gather``) and blocked
     (``spmm_blocked``), against their plain versions at their paths'
     shapes: the ~7M-edge rating-0 and ~3M-edge rating-1 relations of
@@ -220,24 +224,27 @@ def phase_build():
     t0 = time.perf_counter()
     report = cuda_build.build(force=True)
     print(f"{report}  nvcc build: {time.perf_counter() - t0:.2f} s")
-    # The tensor-core kernels' registers, spills and shared memory; the
-    # scale backward's <false> instantiation is B1, <true> the mirror.
+    # The tensor-core kernels' registers, spills and shared memory, each
+    # instantiation by its mangled template argument: K2's <true> spills a1,
+    # the scale backward's <false> is B1, <true> the mirror.
     lines = report.splitlines()
-    for kernel, what in (("grid_fwd_mma_kernel", ("bf16 grid forward",)),
-                         ("edge_fwd_mma_kernel", ("bf16 edge forward",)),
-                         ("grid_bwd_mma_kernel", ("bf16 grid backward",)),
-                         ("edge_bwd_mma_kernel", ("bf16 edge backward",)),
-                         ("scale_bwd_mma_kernel", ("bf16 scale B1",
-                                                   "bf16 scale mirror"))):
+    for kernel, label in (
+            ("grid_fwd_mma_kernel", "bf16 grid forward"),
+            ("edge_fwd_mma_kernel", "bf16 edge forward"),
+            ("scale_fwd_mma_kernelILb1E", "bf16 scale K2, a1 spilled"),
+            ("scale_fwd_mma_kernelILb0E", "bf16 scale K2, eval"),
+            ("grid_bwd_mma_kernel", "bf16 grid backward"),
+            ("edge_bwd_mma_kernel", "bf16 edge backward"),
+            ("scale_bwd_mma_kernelILb0E", "bf16 scale B1"),
+            ("scale_bwd_mma_kernelILb1E", "bf16 scale mirror")):
         at = [n for n, line in enumerate(lines)
               if "Compiling entry function" in line and kernel in line]
-        if len(at) != len(what):
+        if len(at) != 1:
             raise AssertionError(f"nvcc's report names {kernel} {len(at)} "
-                                 f"times, not {len(what)}")
-        for n, label in zip(at, what):
-            print(f"  {kernel} ({label}), nvcc -Xptxas -v:")
-            for line in lines[n + 1:n + 4]:
-                print(f"    {line.strip()}")
+                                 f"times, not once")
+        print(f"  {kernel} ({label}), nvcc -Xptxas -v:")
+        for line in lines[at[0] + 1:at[0] + 4]:
+            print(f"    {line.strip()}")
 
 
 def _compare(pairs, dtype, rate, label, err):
@@ -1191,9 +1198,32 @@ def _seq_row(layout, dev):
                       gathered=(g.n_slots, 128 * 2))
 
 
+def _unit_order(fn, *args):
+    """``fn(*args)`` with each torch.matmul of depth 128 (K2's a2 =
+    rnd(h1d) @ rnd(w2)) summed one unit at a time in unit order, in f32:
+    the order that the tensor-core K2 takes where h2d sits near a bf16
+    midpoint (a product of two bf16 values is exact in f32)."""
+    matmul = torch.matmul
+
+    def unit(x, y):
+        if x.shape[-1] != 128 or y.dim() != 2 or y.shape[0] != 128:
+            return matmul(x, y)
+        acc = torch.zeros(*x.shape[:-1], y.shape[1], device=x.device)
+        for u in range(128):
+            acc += x[..., u:u + 1] * y[u:u + 1, :]
+        return acc
+
+    torch.matmul = unit
+    try:
+        return fn(*args)
+    finally:
+        torch.matmul = matmul
+
+
 def _decoder_rows(layout, dev):
     """Rows 13-15: K2, B1 and the mirror over 1M candidates and the
-    100k-row tables, fp32 and bf16, dropout 0 and 0.3."""
+    100k-row tables, fp32 and bf16, dropout 0 and 0.3.  The bf16 K2 is held
+    against the plain version with its a2 product in unit order."""
     from dream_gnn_tpu_torch.kernels import scale_decoder as sd
 
     rng = np.random.default_rng(2)
@@ -1220,8 +1250,11 @@ def _decoder_rows(layout, dev):
             return (out, a1, *sd.launch_b1(a1, pd, pv, layout, g, b1,
                                            *common),
                     sd.launch_mirror(pd, pv, layout, g_m, b1, *common))
-        out, a1 = sd.scale_fwd_plain(pd, pv, b1, w2, b2, w3, *fwd, seed,
-                                     rate, True, dtype, True)
+        out, a1 = _unit_order(sd.scale_fwd_plain, pd, pv, b1, w2, b2, w3,
+                              *fwd, seed, rate, True, dtype, True) \
+            if dtype == torch.bfloat16 else \
+            sd.scale_fwd_plain(pd, pv, b1, w2, b2, w3, *fwd, seed, rate,
+                               True, dtype, True)
         return (out, a1, *sd.scale_bwd_plain(a1, pd, pv, *fwd, g, b1, *common,
                                              True),
                 sd.scale_bwd_plain(None, pd, pv, *mir, g_m, b1, *common,
@@ -1272,17 +1305,22 @@ def _decoder_rows(layout, dev):
                                                 *common)),
           "mirror": _time_ms(lambda: sd.launch_mirror(pd, pv, layout, g_m,
                                                         b1, *common))}
-    # B1's and the mirror's rate and residency in each dtype (bf16: the
-    # tensor-core kernel, fp32: the CUDA-core one), at dropout 0.3.
+    # K2's, B1's and the mirror's rate and residency in each dtype (bf16:
+    # the tensor-core kernel, fp32: the CUDA-core one), at dropout 0.3.
     _, a1_32 = sd.launch_k2(pd, pv, b1, w2, b2, w3, *fwd, seed, rate, True,
                             torch.float32, True)
     common32 = (w2, b2, w3, seed, rate, True, torch.float32)
-    ms32 = {"b1": _time_ms(lambda: sd.launch_b1(a1_32, pd, pv, layout, g, b1,
+    ms32 = {"k2": _time_ms(lambda: sd.launch_k2(pd, pv, b1, w2, b2, w3, *fwd,
+                                                  seed, rate, True,
+                                                  torch.float32, True)),
+            "b1": _time_ms(lambda: sd.launch_b1(a1_32, pd, pv, layout, g, b1,
                                                   *common32)),
             "mirror": _time_ms(lambda: sd.launch_mirror(pd, pv, layout, g_m,
                                                           b1, *common32))}
     del a1_32
     e = layout.n_pos
+    _print_rate("scale_decoder_k2", ms["k2"], ms32["k2"], 1, sd.fwd_occupancy,
+                flops=OPS_K2 * e)
     for name, ops in (("b1", OPS_B1), ("mirror", OPS_MIRROR)):
         _print_rate(f"scale_decoder_{name}", ms[name], ms32[name], 1,
                     lambda dt, m=name == "mirror": sd.bwd_occupancy(dt, m),
@@ -1326,8 +1364,10 @@ def phase_scale_kernels(tin):
 
 def phase_scale_profile(tin, lab, w, n_steps: int = 10):
     """Where a scale training step's time goes.  The bf16 step must run
-    the tensor-core backward, ``scale_bwd_mma_kernel<false>`` (B1) and
-    ``<true>`` (the mirror), and not the CUDA-core ``scale_bwd_kernel``."""
+    the tensor-core K2, ``scale_fwd_mma_kernel``, and backward,
+    ``scale_bwd_mma_kernel<false>`` (B1) and ``<true>`` (the mirror), and
+    neither CUDA-core kernel, ``scale_fwd_kernel`` or
+    ``scale_bwd_kernel``."""
     from dream_gnn_tpu_torch.config import TrainConfig
     from dream_gnn_tpu_torch.model.dream_gnn import init_params
     from dream_gnn_tpu_torch.train.scale import model_config
@@ -1341,8 +1381,8 @@ def phase_scale_profile(tin, lab, w, n_steps: int = 10):
     step = make_one_step(mcfg, cfg)
     # Every kernel, so that the step's kernel count can be accounted for.
     _profile("scale step", lambda: step(state, tin, lab, w), n_steps,
-             top=None, expect=("scale_bwd_mma_kernel",),
-             forbid=("scale_bwd_kernel",))
+             top=None, expect=("scale_fwd_mma_kernel", "scale_bwd_mma_kernel"),
+             forbid=("scale_fwd_kernel", "scale_bwd_kernel"))
 
 
 def phase_scale_model():

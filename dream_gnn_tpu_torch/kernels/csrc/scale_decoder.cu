@@ -32,13 +32,41 @@
 // same masks in their different slot orders.
 //
 // What bounds it on an H100: about 16.8 kFLOP per slot forward and 50.2 kFLOP
-// backward against about 1 KB of rows, so operations.
+// backward against about 1 KB of rows read and (K2's spill, B1's and the
+// mirror's da1) 256 bytes written, so bytes at the tensor cores' peak.
 //
 // Design, the per-edge kernels' (edge_decoder.cu) with another hash and
 // other rounding points:
-// - K2 (one design for both dtypes; its products run on the CUDA cores in
-//   f32): one thread per slot, 128 slots a block; w2, b1, b2, w3 in shared
-//   memory; each thread gathers its two table rows from global memory.
+// - K2:
+//   - bf16 (scale_fwd_mma_kernel): the a2 product on the tensor cores as
+//     mma.sync m16n8k16 bf16 x bf16 -> f32, laid out as the grid and
+//     per-edge forwards' tile (fwd_mma_rows, decoder_common.cuh) but
+//     written out here, as its hash, spill, rounding and sum order differ:
+//     8 warps of 16 slots, 128 slots a tile; rnd(h1d) built in the A
+//     fragments from the rounded table rows, each unit hashed once; w2
+//     staged once a block in bf16; blocks walk a strided set of tiles, as
+//     many blocks as the card holds resident (two an SM); each thread reads
+//     its two slots' table rows one k-step ahead of the mma (the forward
+//     slots are drug-sorted, so neighbouring slots share Pd rows through
+//     L2).  In training it
+//     spills a1 from the same registers, before the relu, as 4-byte stores
+//     (a quad writes 32 contiguous bytes of a row a k-step).  Unlike those
+//     forwards, K2 rounds h2d before the logit's dot (_mlp_fwd :408-411),
+//     so an a2 whose h2d sits near a bf16 midpoint would move the logit by
+//     one bf16 step of h2d times |w3| if the tensor cores' sum order put it
+//     on the other side (tests/test_torch_port_k2_sum_order.py).  So each
+//     k-step's product starts from 0 and is added in f32, as in the
+//     backwards, and an a2 whose h2d lies within the window of a midpoint
+//     (near_h2d_mid) is summed again in unit order (seq_a2) from the warp's
+//     rnd(h1d) rows in shared memory.  relu and rnd are continuous at 0,
+//     so the gate needs no test.  A thread sums its 16 columns in column
+//     order and the quad's partials meet in a fixed shuffle tree: a slot's
+//     logit depends only on its inputs.
+//   - fp32 (scale_fwd_kernel): the tensor cores would take fp32 operands
+//     only as TF32, which rounds where the fp32 Pallas kernel does not, so
+//     the products stay on the CUDA cores: one thread per slot, 128 slots a
+//     block; w2, b1, b2, w3 in shared memory; each thread gathers its two
+//     table rows from global memory.
 // - backward: a block walks a fixed, strided subset of the 128-slot tiles;
 //   per tile it recomputes the forward, forms da2 and da1, writes each
 //   slot's rounded da1 row, and (B1) sums dW2, db1, db2 and dw3 over its
@@ -134,9 +162,6 @@ __device__ __forceinline__ void a1_prefetch(__nv_bfloat16* a1s,
   }
 }
 
-template <bool BF16>
-using store_t = typename std::conditional<BF16, __nv_bfloat16, float>::type;
-
 // The PRF of _prf_masks: the hash bits of unit u of the slot with base b.
 __device__ __forceinline__ uint32_t slot_base(uint32_t eid, uint32_t seed) {
   return eid * 0x9E3779B9u ^ seed;
@@ -151,24 +176,17 @@ __device__ __forceinline__ float4 load4(const float* p) {
 __device__ __forceinline__ void store4(float* p, float4 v) {
   *reinterpret_cast<float4*>(p) = v;
 }
-__device__ __forceinline__ void store4(__nv_bfloat16* p, float4 v) {
-  __nv_bfloat162 lo = __floats2bfloat162_rn(v.x, v.y);
-  __nv_bfloat162 hi = __floats2bfloat162_rn(v.z, v.w);
-  uint2 raw;
-  raw.x = *reinterpret_cast<uint32_t*>(&lo);
-  raw.y = *reinterpret_cast<uint32_t*>(&hi);
-  *reinterpret_cast<uint2*>(p) = raw;
-}
 
-template <bool BF16, bool SAVE_A1>
+// K2 in fp32 on the CUDA cores.
+template <bool SAVE_A1>
 __global__ void __launch_bounds__(TS) scale_fwd_kernel(
     const float* __restrict__ pd, const float* __restrict__ pv,
     const int* __restrict__ drug, const int* __restrict__ dis,
     const int* __restrict__ eid, const float* __restrict__ b1,
     const float* __restrict__ w2, const float* __restrict__ b2,
     const float* __restrict__ w3, const int* __restrict__ seed_ptr,
-    float* __restrict__ out, store_t<BF16>* __restrict__ a1_out, int nd,
-    int nv, int ne, uint32_t thresh, float scale, int use_drop) {
+    float* __restrict__ out, float* __restrict__ a1_out, int nd, int nv,
+    int ne, uint32_t thresh, float scale, int use_drop) {
   extern __shared__ float4 smem4[];
   float* w2s = reinterpret_cast<float*>(smem4);
   float* b1s = w2s + H1 * H2;
@@ -176,11 +194,11 @@ __global__ void __launch_bounds__(TS) scale_fwd_kernel(
   float* w3s = b2s + H2;
 
   const int t = threadIdx.x;
-  for (int q = t; q < H1 * H2; q += TS) w2s[q] = rnd<BF16>(w2[q]);
+  for (int q = t; q < H1 * H2; q += TS) w2s[q] = w2[q];
   b1s[t] = b1[t];
   if (t < H2) {
     b2s[t] = b2[t];
-    w3s[t] = rnd<BF16>(w3[t]);
+    w3s[t] = w3[t];
   }
   __syncthreads();
 
@@ -193,9 +211,9 @@ __global__ void __launch_bounds__(TS) scale_fwd_kernel(
   const bool drop = use_drop != 0;
   const uint32_t base = slot_base((uint32_t)eid[e], (uint32_t)seed_ptr[0]);
   float acc[H2];
-  layer1<BF16>(
+  layer1<false>(
       [=](int k) {
-        const float4 a = rows_a1<BF16, true>(pd_row, pv_row, b1s, k);
+        const float4 a = rows_a1<false, true>(pd_row, pv_row, b1s, k);
         if constexpr (SAVE_A1) store4(a1_out + (size_t)e * H1 + k, a);
         return a;
       },
@@ -206,9 +224,235 @@ __global__ void __launch_bounds__(TS) scale_fwd_kernel(
   for (int n = 0; n < H2; ++n) {
     float h2 = fmaxf(acc[n] + b2s[n], 0.f);
     if (drop) h2 = h2 * (slot_bits(base, (uint32_t)(H1 + n)) >= thresh ? scale : 0.f);
-    s += rnd<BF16>(h2) * w3s[n];
+    s += h2 * w3s[n];
   }
   out[e] = s;
+}
+
+// h2d = a2 * m2 (a2 > 0) near a bf16 midpoint, where the order of a2's f32
+// sum can decide rnd(h2d): within MID_ULPS f32 ulps of it (near_step's
+// midpoint branch), or within the absolute band, which bounds the sums'
+// noise where |a2| is small against its terms (near_step_abs,
+// edge_decoder.cu).  At a2 = 0 relu and rnd are continuous, so an a2 near
+// the gate moves the logit by f32 noise only and is not flagged.
+__device__ __forceinline__ bool near_h2d_mid(float a2, float m2, float band) {
+  if (a2 <= 0.f) return false;
+  const float h = a2 * m2;
+  const int lo = (int)(__float_as_uint(h) & 0xFFFFu);
+  return abs(lo - 0x8000) <= MID_ULPS || near_mid(h, band * m2);
+}
+
+// Shared memory of the bf16 K2, in bytes.
+constexpr int FWD_MMA_SMEM = H1 * LDW * 2      // w2, bf16
+                             + TS * LDH * 2    // rnd(h1d) of the tile
+                             + (H1 + 2 * H2) * 4   // b1, b2, rnd(w3)
+                             + 4               // max |rnd(w2)|
+                             + MT * FIX_LD * 4;    // a2 taken again, per thread
+
+// K2 in bf16 on the tensor cores.  The fragment layout of mma m16n8k16
+// (lane = 4 gq + q; see fwd_mma_rows) gives a thread of warp w slots c0 =
+// 16 w + gq and c1 = c0 + 8 of a tile and, of each 128-unit row, the units
+// 16 ks + 8 h + 2 q + e (k-step ks < 8; h, e < 2); of the a2 accumulator,
+// the same slots at the columns 8 nt + 2 q + e of n-tile nt < 8.  A slot
+// past ne computes on slot 0 and writes nothing, neither its logit nor its
+// a1 row; a warp whose 16 slots all lie past ne skips the tile.  A warp
+// reads only its own rows of h1s, so the tile loop has no block barrier.
+template <bool SAVE_A1>
+__global__ void __launch_bounds__(MT, FWD_RESIDENT) scale_fwd_mma_kernel(
+    const float* __restrict__ pd, const float* __restrict__ pv,
+    const int* __restrict__ drug, const int* __restrict__ dis,
+    const int* __restrict__ eid, const float* __restrict__ b1,
+    const float* __restrict__ w2, const float* __restrict__ b2,
+    const float* __restrict__ w3, const int* __restrict__ seed_ptr,
+    float* __restrict__ out, __nv_bfloat16* __restrict__ a1_out, int nd,
+    int nv, int ne, uint32_t thresh, float scale, int use_drop) {
+  extern __shared__ float4 smem4[];
+  __nv_bfloat16* w2s = reinterpret_cast<__nv_bfloat16*>(smem4);
+  __nv_bfloat16* h1s = w2s + H1 * LDW;
+  float* b1s = reinterpret_cast<float*>(h1s + TS * LDH);
+  float* b2s = b1s + H1;
+  float* w3s = b2s + H2;
+  float* wmx = w3s + H2;
+  float* fixv = wmx + 1 + threadIdx.x * FIX_LD;
+
+  const int t = threadIdx.x, lane = t % 32, warp = t / 32;
+  const int gq = lane >> 2, q = lane & 3;
+  const int mi = lane >> 3, mr = lane & 7;   // ldmatrix: matrix and row
+  const int n_tiles = (ne + TS - 1) / TS;
+  const bool drop = use_drop != 0;
+  const uint32_t seed = (uint32_t)seed_ptr[0];
+
+  for (int e = t; e < H1 * H2 / 2; e += MT) {
+    const int k = e / (H2 / 2), n = 2 * (e % (H2 / 2));
+    const float2 v = *reinterpret_cast<const float2*>(w2 + k * H2 + n);
+    *reinterpret_cast<uint32_t*>(w2s + k * LDW + n) = pack_bf16(v.x, v.y);
+  }
+  if (t < H1) b1s[t] = b1[t];
+  if (t < H2) {
+    b2s[t] = b2[t];
+    w3s[t] = rnd<true>(w3[t]);
+  }
+  __syncthreads();
+  if (warp == 0) {
+    float m = 0.f;
+    for (int e = lane; e < H1 * H2; e += 32)
+      m = fmaxf(m, fabsf(__bfloat162float(w2s[(e / H2) * LDW + e % H2])));
+#pragma unroll
+    for (int o = 16; o > 0; o >>= 1) m = fmaxf(m, __shfl_xor_sync(0xffffffffu, m, o));
+    if (lane == 0) *wmx = m;
+  }
+  __syncthreads();   // wmx
+
+  const int c0 = warp * 16 + gq, c1 = c0 + 8;
+  const float mk = drop ? scale : 1.f;
+  for (int tile = blockIdx.x; tile < n_tiles; tile += gridDim.x) {
+    const int e0 = tile * TS;
+    if (e0 + warp * 16 >= ne) continue;
+    const bool v0 = e0 + c0 < ne, v1 = e0 + c1 < ne;
+    const int s0 = v0 ? e0 + c0 : 0, s1 = v1 ? e0 + c1 : 0;
+    const int i0 = drug[s0], j0 = dis[s0], i1 = drug[s1], j1 = dis[s1];
+    assert(0 <= i0 && i0 < nd && 0 <= j0 && j0 < nv);   // a row outside the tables
+    assert(0 <= i1 && i1 < nd && 0 <= j1 && j1 < nv);
+    const uint32_t base0 = drop ? slot_base((uint32_t)eid[s0], seed) : 0u;
+    const uint32_t base1 = drop ? slot_base((uint32_t)eid[s1], seed) : 0u;
+    const float* rows[4] = {pd + (size_t)i0 * H1 + 2 * q, pv + (size_t)j0 * H1 + 2 * q,
+                            pd + (size_t)i1 * H1 + 2 * q, pv + (size_t)j1 * H1 + 2 * q};
+    // The rows' values at the thread's units of the next k-step: [h][row].
+    float2 nxt[2][4];
+#pragma unroll
+    for (int h = 0; h < 2; ++h)
+#pragma unroll
+      for (int r = 0; r < 4; ++r) nxt[h][r] = *reinterpret_cast<const float2*>(rows[r] + 8 * h);
+    __syncwarp();   // the warp's lanes are done with its rows of h1s
+
+    // a2 = rnd(h1d) @ rnd(w2), each k-step's product started from 0 and
+    // added in f32; hs0 / hs1 sum the slots' h1d, which bounds |a2 - b2|
+    // over max |w2|.
+    float acc[H2 / 8][4];
+#pragma unroll
+    for (int nt = 0; nt < H2 / 8; ++nt)
+#pragma unroll
+      for (int c = 0; c < 4; ++c) acc[nt][c] = 0.f;
+    float hs0 = 0.f, hs1 = 0.f;
+#pragma unroll 1
+    for (int ks = 0; ks < H1 / 16; ++ks) {
+      float2 cur[2][4];
+#pragma unroll
+      for (int h = 0; h < 2; ++h)
+#pragma unroll
+        for (int r = 0; r < 4; ++r) cur[h][r] = nxt[h][r];
+      if (ks + 1 < H1 / 16) {
+#pragma unroll
+        for (int h = 0; h < 2; ++h)
+#pragma unroll
+          for (int r = 0; r < 4; ++r)
+            nxt[h][r] = *reinterpret_cast<const float2*>(rows[r] + 16 * (ks + 1) + 8 * h);
+      }
+      uint32_t a[4];
+#pragma unroll
+      for (int h = 0; h < 2; ++h) {
+        const int k = 16 * ks + 8 * h + 2 * q;
+        const float4 x = pair_a1<true>(cur[h][0], cur[h][1], cur[h][2], cur[h][3],
+                                       *reinterpret_cast<const float2*>(b1s + k));
+        if constexpr (SAVE_A1) {
+          if (v0)
+            *reinterpret_cast<uint32_t*>(a1_out + (size_t)s0 * H1 + k) = pack_bf16(x.x, x.y);
+          if (v1)
+            *reinterpret_cast<uint32_t*>(a1_out + (size_t)s1 * H1 + k) = pack_bf16(x.z, x.w);
+        }
+        float v[4] = {x.x, x.y, x.z, x.w};
+#pragma unroll
+        for (int u = 0; u < 4; ++u) {
+          v[u] = fmaxf(v[u], 0.f);
+          if (drop)
+            v[u] = v[u] * (slot_bits(u < 2 ? base0 : base1, (uint32_t)(k + (u & 1))) >= thresh
+                               ? scale
+                               : 0.f);
+        }
+        hs0 += v[0] + v[1];
+        hs1 += v[2] + v[3];
+        a[2 * h] = pack_bf16(v[0], v[1]);
+        a[2 * h + 1] = pack_bf16(v[2], v[3]);
+        *reinterpret_cast<uint32_t*>(h1s + c0 * LDH + k) = a[2 * h];
+        *reinterpret_cast<uint32_t*>(h1s + c1 * LDH + k) = a[2 * h + 1];
+      }
+#pragma unroll
+      for (int np = 0; np < H2 / 16; ++np) {
+        uint32_t b[4];
+        ldsm_t(b, smem_addr(w2s + (16 * ks + (mi & 1) * 8 + mr) * LDW + 16 * np +
+                            (mi >> 1) * 8));
+        float p0[4] = {0.f, 0.f, 0.f, 0.f}, p1[4] = {0.f, 0.f, 0.f, 0.f};
+        mma_bf16(p0, a, b[0], b[1]);
+        mma_bf16(p1, a, b[2], b[3]);
+#pragma unroll
+        for (int c = 0; c < 4; ++c) {
+          acc[2 * np][c] += p0[c];
+          acc[2 * np + 1][c] += p1[c];
+        }
+      }
+    }
+    hs0 += __shfl_xor_sync(0xffffffffu, hs0, 1);
+    hs0 += __shfl_xor_sync(0xffffffffu, hs0, 2);
+    hs1 += __shfl_xor_sync(0xffffffffu, hs1, 1);
+    hs1 += __shfl_xor_sync(0xffffffffu, hs1, 2);
+    __syncwarp();   // h1s holds the warp's 16 rows for seq_a2
+
+    // acc becomes a2 = acc + b2; the thread's value v = 4 nt + 2 e + r
+    // (slot r, column 8 nt + 2 q + e) gets its m2 keep bit, and a flag
+    // where its h2d is near a bf16 midpoint; the flagged ones are taken
+    // again in unit order, one lane each.
+    const float band[2] = {0x1p-20f * hs0 * *wmx, 0x1p-20f * hs1 * *wmx};
+    uint32_t keep2 = 0u, fix = 0u;
+#pragma unroll
+    for (int nt = 0; nt < H2 / 8; ++nt) {
+#pragma unroll
+      for (int e = 0; e < 2; ++e) {
+        const int n = 8 * nt + 2 * q + e;
+        const float bn = b2s[n];
+#pragma unroll
+        for (int r = 0; r < 2; ++r) {
+          const int v = 4 * nt + 2 * e + r;
+          const float a2 = acc[nt][2 * r + e] + bn;
+          acc[nt][2 * r + e] = a2;
+          const bool kp = !drop || slot_bits(r == 0 ? base0 : base1,
+                                             (uint32_t)(H1 + n)) >= thresh;
+          keep2 |= kp ? 1u << v : 0u;
+          fix |= kp && near_h2d_mid(a2, mk, band[r]) ? 1u << v : 0u;
+        }
+      }
+    }
+    for (uint32_t todo = fix; todo != 0u; todo &= todo - 1u) {
+      const int v = __ffs((int)todo) - 1, nt = v >> 2, e = (v >> 1) & 1, r = v & 1;
+      fixv[v] = seq_a2(h1s + (r == 0 ? c0 : c1) * LDH, w2s + 8 * nt + 2 * q + e) +
+                b2s[8 * nt + 2 * q + e];
+    }
+
+    // The logits: s = sum_n rnd(m2 * relu(a2)) * rnd(w3), each thread's 16
+    // columns in column order, then the quad's partials in a fixed tree.
+    float s[2] = {0.f, 0.f};
+#pragma unroll
+    for (int nt = 0; nt < H2 / 8; ++nt) {
+#pragma unroll
+      for (int e = 0; e < 2; ++e) {
+        const int n = 8 * nt + 2 * q + e;
+#pragma unroll
+        for (int r = 0; r < 2; ++r) {
+          const int v = 4 * nt + 2 * e + r;
+          const float a2 = (fix >> v) & 1u ? fixv[v] : acc[nt][2 * r + e];
+          float h2 = fmaxf(a2, 0.f);
+          if (drop) h2 = h2 * ((keep2 >> v) & 1u ? scale : 0.f);
+          s[r] += rnd<true>(h2) * w3s[n];
+        }
+      }
+    }
+#pragma unroll
+    for (int r = 0; r < 2; ++r) {
+      s[r] += __shfl_xor_sync(0xffffffffu, s[r], 1);
+      s[r] += __shfl_xor_sync(0xffffffffu, s[r], 2);
+    }
+    if (q == 0 && v0) out[e0 + c0] = s[0];
+    if (q == 1 && v1) out[e0 + c1] = s[1];
+  }
 }
 
 // The fp32 backward on the CUDA cores.  FROM_SAVED_A1: B1 (a1 from the
@@ -881,18 +1125,29 @@ cudaError_t launch_bwd(const void* a1, const float* pd, const float* pv,
   return cudaGetLastError();
 }
 
-// Blocks of scale_bwd_mma_kernel<MIRROR> resident on one SM of this card.
-template <bool MIRROR>
-cudaError_t mma_resident(int* blocks) {
-  auto kernel = scale_bwd_mma_kernel<MIRROR>;
-  cudaError_t err = prepare(kernel, mma_smem<MIRROR>() / (int)sizeof(float));
+// Blocks of kernel, of MT threads and smem bytes of shared memory, resident
+// on one SM of this card.
+template <typename K>
+cudaError_t mma_resident(K kernel, int smem, int* blocks) {
+  cudaError_t err = prepare(kernel, smem / (int)sizeof(float));
   if (err != cudaSuccess) return err;
-  return cudaOccupancyMaxActiveBlocksPerMultiprocessor(blocks, kernel, MT,
-                                                       mma_smem<MIRROR>());
+  return cudaOccupancyMaxActiveBlocksPerMultiprocessor(blocks, kernel, MT, smem);
 }
 
-// B1 on n_split blocks (its partial slabs); the mirror, whose result does
-// not depend on the split, on every block the card holds resident.
+// The grid of a kernel whose result does not depend on it (K2 in bf16, the
+// mirror): every block the card holds resident, at most one a tile.
+template <typename K>
+cudaError_t resident_grid(K kernel, int smem, int n_tiles, int* blocks) {
+  int per_sm = 0, dev = 0, sms = 0;
+  cudaError_t err = mma_resident(kernel, smem, &per_sm);
+  if (err == cudaSuccess) err = cudaGetDevice(&dev);
+  if (err == cudaSuccess)
+    err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+  *blocks = std::min(n_tiles, std::max(per_sm, 1) * sms);
+  return err;
+}
+
+// B1 on n_split blocks (its partial slabs); the mirror on resident_grid.
 template <bool MIRROR>
 cudaError_t launch_mma(const void* a1, const float* pd, const float* pv,
                        const int* drug, const int* dis, const int* eid,
@@ -902,21 +1157,42 @@ cudaError_t launch_mma(const void* a1, const float* pd, const float* pv,
                        float* db2_part, float* dw3_part, int nd, int nv, int ne,
                        uint32_t thresh, float scale, int use_drop, int n_split,
                        cudaStream_t s) {
-  int per_sm = 0, blocks = n_split;
-  cudaError_t err = mma_resident<MIRROR>(&per_sm);
+  auto kernel = scale_bwd_mma_kernel<MIRROR>;
+  constexpr int smem = mma_smem<MIRROR>();
+  int blocks = n_split;
+  const cudaError_t err = MIRROR ? resident_grid(kernel, smem, (ne + TS - 1) / TS, &blocks)
+                                 : prepare(kernel, smem / (int)sizeof(float));
   if (err != cudaSuccess) return err;
-  if constexpr (MIRROR) {
-    int dev = 0, sms = 0;
-    err = cudaGetDevice(&dev);
-    if (err == cudaSuccess)
-      err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
-    if (err != cudaSuccess) return err;
-    blocks = std::min((ne + TS - 1) / TS, std::max(per_sm, 1) * sms);
-  }
-  scale_bwd_mma_kernel<MIRROR><<<blocks, MT, mma_smem<MIRROR>(), s>>>(
+  kernel<<<blocks, MT, smem, s>>>(
       static_cast<const __nv_bfloat16*>(a1), pd, pv, drug, dis, eid, g, b1, w2,
       b2, w3, seed, static_cast<__nv_bfloat16*>(da1), db1_part, dw2_part,
       db2_part, dw3_part, nd, nv, ne, thresh, scale, use_drop);
+  return cudaGetLastError();
+}
+
+// K2 over ne slots, a1 spilled when SAVE_A1: bf16 on the tensor cores, on
+// resident_grid; fp32 on the CUDA cores, one block a tile.
+template <bool SAVE_A1>
+cudaError_t launch_fwd(const float* pd, const float* pv, const int* drug,
+                       const int* dis, const int* eid, const float* b1,
+                       const float* w2, const float* b2, const float* w3,
+                       const int* seed, float* out, void* a1, int nd, int nv,
+                       int ne, uint32_t thresh, float scale, int use_drop,
+                       bool bf16, cudaStream_t s) {
+  const int n_tiles = (ne + TS - 1) / TS;
+  if (!bf16) {
+    scale_fwd_kernel<SAVE_A1><<<n_tiles, TS, FWD_SMEM * sizeof(float), s>>>(
+        pd, pv, drug, dis, eid, b1, w2, b2, w3, seed, out, static_cast<float*>(a1),
+        nd, nv, ne, thresh, scale, use_drop);
+    return cudaGetLastError();
+  }
+  auto kernel = scale_fwd_mma_kernel<SAVE_A1>;
+  int blocks = 0;
+  const cudaError_t err = resident_grid(kernel, FWD_MMA_SMEM, n_tiles, &blocks);
+  if (err != cudaSuccess) return err;
+  kernel<<<blocks, MT, FWD_MMA_SMEM, s>>>(
+      pd, pv, drug, dis, eid, b1, w2, b2, w3, seed, out,
+      static_cast<__nv_bfloat16*>(a1), nd, nv, ne, thresh, scale, use_drop);
   return cudaGetLastError();
 }
 
@@ -931,27 +1207,33 @@ int scale_decoder_bwd_split(int ne) {
 
 // K2 over ne slots: pd (nd, H1), pv (nv, H1), drug / dis / eid (ne,) int32,
 // b1 (H1,), w2 (H1, H2), b2 (H2,), w3 (H2,), seed (1,), out (ne,).  a1 (ne,
-// H1), bf16 when bf16 else f32, is written when it is not null.
+// H1), bf16 when bf16 else f32, is written when it is not null.  bf16 runs
+// on the tensor cores (scale_fwd_mma_kernel), fp32 on the CUDA cores
+// (scale_fwd_kernel).
 int scale_decoder_fwd(const float* pd, const float* pv, const int* drug,
                       const int* dis, const int* eid, const float* b1,
                       const float* w2, const float* b2, const float* w3,
                       const int* seed, float* out, void* a1, int nd, int nv,
                       int ne, unsigned int thresh, float scale, int use_drop,
                       int bf16, void* stream) {
-  const dim3 grid((ne + TS - 1) / TS);
-  const size_t smem = FWD_SMEM * sizeof(float);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-#define SCALE_FWD(B, S)                                                      \
-  scale_fwd_kernel<B, S><<<grid, TS, smem, s>>>(                             \
-      pd, pv, drug, dis, eid, b1, w2, b2, w3, seed, out,                     \
-      static_cast<store_t<B>*>(a1), nd, nv, ne, thresh, scale, use_drop)
-  if (bf16) {
-    if (a1) SCALE_FWD(true, true); else SCALE_FWD(true, false);
-  } else {
-    if (a1) SCALE_FWD(false, true); else SCALE_FWD(false, false);
-  }
-#undef SCALE_FWD
-  return (int)cudaGetLastError();
+  const auto launch = a1 ? launch_fwd<true> : launch_fwd<false>;
+  return (int)launch(pd, pv, drug, dis, eid, b1, w2, b2, w3, seed, out, a1, nd,
+                     nv, ne, thresh, scale, use_drop, bf16 != 0, s);
+}
+
+// Residency of K2 of one dtype (the instantiation that spills a1) on one SM
+// of this card: occ[] receives {blocks, warps a block}.  Returns 0 or the
+// CUDA error.
+int scale_decoder_fwd_occupancy(int bf16, int* occ) {
+  int blocks = 0;
+  const cudaError_t err =
+      bf16 ? mma_resident(scale_fwd_mma_kernel<true>, FWD_MMA_SMEM, &blocks)
+           : cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+                 &blocks, scale_fwd_kernel<true>, TS, FWD_SMEM * sizeof(float));
+  occ[0] = blocks;
+  occ[1] = (bf16 ? MT : TS) / 32;
+  return (int)err;
 }
 
 // The backward over ne slots.  mirror = 0 (B1): a1 (ne, H1) is the forward's
@@ -993,7 +1275,8 @@ int scale_decoder_bwd_occupancy(int bf16, int mirror, int* occ) {
   cudaError_t err;
   int blocks = 0;
   if (bf16) {
-    err = mirror ? mma_resident<true>(&blocks) : mma_resident<false>(&blocks);
+    err = mirror ? mma_resident(scale_bwd_mma_kernel<true>, mma_smem<true>(), &blocks)
+                 : mma_resident(scale_bwd_mma_kernel<false>, mma_smem<false>(), &blocks);
   } else {
     const int smem = mirror ? BWD_SMEM_BASE : BWD_SMEM_GRADS;
     auto kernel = mirror ? scale_bwd_kernel<false, false> : scale_bwd_kernel<true, true>;

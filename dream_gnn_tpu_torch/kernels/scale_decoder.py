@@ -43,9 +43,14 @@ orders.  The kernel widths are H1 = 128 (the JAX package's requirement,
 :824-827) and H2 = 64; the plain version takes any H2.
 
 Dispatch.  CUDA tensors launch the kernels and CPU tensors run the plain
-versions; there is no fallback.  The backward's kernel follows the dtype
-inside the C entry point: bf16 runs on the tensor cores
-(``scale_bwd_mma_kernel``), fp32 on the CUDA cores (``scale_bwd_kernel``).
+versions; there is no fallback.  Each kernel follows the dtype inside its C
+entry point: bf16 runs on the tensor cores (K2 ``scale_fwd_mma_kernel``, B1
+and the mirror ``scale_bwd_mma_kernel``), fp32 on the CUDA cores
+(``scale_fwd_kernel``, ``scale_bwd_kernel``).  In bf16, K2 and the
+backward sum a2 in the tensor cores' order and again in unit order (the
+plain version's on the card) wherever the order could move a rounding
+(tests/test_torch_port_k2_sum_order.py,
+tests/test_torch_port_scale_sum_order.py).
 ``LAUNCHES`` counts launches of K2 (``k2``), B1 (``b1``) and the mirror
 (``mirror``).
 """
@@ -62,7 +67,7 @@ from dream_gnn_tpu_torch.graph.grouped import GroupedCoo, grouped_from_arrays
 from dream_gnn_tpu_torch.kernels import cuda_build
 from dream_gnn_tpu_torch.kernels.grid_decoder import (
     H1, H2, check_inputs, drop_args, dropout_seeds, fmix32, keep_scale,
-    keep_threshold, mul32, node_projections, round_to, stream_ptr)
+    keep_threshold, mul32, node_projections, occupancy, round_to, stream_ptr)
 from dream_gnn_tpu_torch.kernels.seq_scatter import (SeqScatter,
                                                       build_seq_scatter,
                                                       seq_scatter)
@@ -198,7 +203,7 @@ def scale_fwd_plain(pd, pv, b1, w2, b2, w3, drug, dis, eid, seed, rate: float,
     if use_drop:
         m1, m2 = slot_dropout_masks(eid, seed, pd.shape[1], w2.shape[1], rate)
         h = h * m1
-    a2 = round_to(h, dtype) @ round_to(w2, dtype) + b2
+    a2 = torch.matmul(round_to(h, dtype), round_to(w2, dtype)) + b2
     h2 = torch.relu(a2)
     if use_drop:
         h2 = h2 * m2
@@ -255,6 +260,8 @@ def _load():
         lib.scale_decoder_bwd_split.restype = i
         lib.scale_decoder_bwd_occupancy.argtypes = [i, i, p]
         lib.scale_decoder_bwd_occupancy.restype = i
+        lib.scale_decoder_fwd_occupancy.argtypes = [i, p]
+        lib.scale_decoder_fwd_occupancy.restype = i
         _lib = lib
     return _lib
 
@@ -333,6 +340,12 @@ def _launch_bwd(a1, pd, pv, drug, dis, eid, g, b1, w2, b2, w3, seed, rate,
     # Sum each slab over its partial axis, in a fixed order.
     db1, dw2, db2, dw3 = (x.sum(0) for x in parts)
     return da1, dw2, db2, dw3, db1
+
+
+def fwd_occupancy(dtype) -> tuple:
+    """(blocks, warps) of the ``dtype`` K2 kernel resident on one SM of the
+    current card, by CUDA's occupancy API."""
+    return occupancy(_load(), "scale_decoder_fwd_occupancy", dtype)
 
 
 def bwd_occupancy(dtype, mirror: bool) -> tuple:

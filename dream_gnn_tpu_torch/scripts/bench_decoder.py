@@ -1,6 +1,7 @@
-"""The grid and per-edge decoder kernels at Gdataset width, for comparing
-two checkouts of the port on one card: each forward's time in bf16 and in
-fp32, and a digest of every kernel output at fixed inputs.
+"""The decoder kernels, for comparing two checkouts of the port on one
+card: the grid and per-edge decoders at Gdataset width and the scale
+decoder at its 1M-slot shape; each forward's time in bf16 and in fp32, and
+a digest of every kernel output at fixed inputs.
 
     python -m dream_gnn_tpu_torch.scripts.bench_decoder
     PYTHONPATH=<other checkout> python <this file>
@@ -9,13 +10,17 @@ The second form runs the other checkout's kernels with this script.  The
 inputs are chip_smoke.py's: random Gdataset-sized tables and weights
 (``default_rng(0)``) over the 593 x 313 grid, or over fold 0's train list
 (167,168 edges); one fold, and the 10 folds of seed 0 stacked; dropout 0.3
-in training.  A time is the mean of 20 launches after 3 warm-ups (CUDA
-events), with the operations of the forward (16,768 a cell or edge) over
-it.  A digest is the first 16 hex digits of the sha256 of an output's
-bytes, for the logits and the six gradients of every kernel in both
-dtypes: two checkouts whose kernels do the same arithmetic in the same
-order print the same digests.  The card's name and power limit come
-first.
+in training.  The scale decoder runs on chip_smoke.py's 100k-row tables
+and weights (``default_rng(2)``) over 1M random candidates, dropout 0.3:
+K2 in training (a1 spilled) and in eval (no dropout, no spill), then B1
+from the training spill and the mirror.  A time is the mean of 20 launches
+after 3 warm-ups (CUDA events), with the operations of the forward (16,768
+a cell, edge or slot) over it.  A digest is the first 16 hex digits of the
+sha256 of an output's bytes, for the logits and the six gradients of every
+grid and per-edge kernel, and for K2's training logits and spill, its eval
+logits, B1's five outputs and the mirror's da1, in both dtypes: two
+checkouts whose kernels do the same arithmetic in the same order print the
+same digests.  The card's name and power limit come first.
 """
 
 from __future__ import annotations
@@ -27,6 +32,7 @@ import numpy as np
 import torch
 
 ND, NV, NF = 593, 313, 10
+SCALE_N, SCALE_E = 100_000, 1_000_000   # the scale decoder's tables, slots
 FWD_OPS = 2 * 128 * 64 + 2 * 128 + 2 * 64      # a cell's forward operations
 DTYPES = {"bf16": torch.bfloat16, "fp32": torch.float32}
 
@@ -86,7 +92,8 @@ def _time_ms(fn, reps: int = 20) -> float:
 
 
 def _digest(x: torch.Tensor) -> str:
-    return hashlib.sha256(x.detach().cpu().numpy().tobytes()).hexdigest()[:16]
+    raw = x.detach().contiguous().cpu().view(torch.uint8).numpy()
+    return hashlib.sha256(raw.tobytes()).hexdigest()[:16]
 
 
 def _report(label, fwd, bwd, cells):
@@ -100,6 +107,49 @@ def _report(label, fwd, bwd, cells):
               f"{cells * FWD_OPS / ms / 1e9:.2f} TFLOP/s; digests fwd "
               f"{_digest(out[0])} bwd "
               + " ".join(_digest(x) for x in out[1:]), flush=True)
+
+
+def _scale(dev, rate=0.3):
+    """K2's times in training and in eval, and the digests of K2, B1 and the
+    mirror, in both dtypes, at the scale decoder's 1M-slot shape."""
+    from dream_gnn_tpu_torch.kernels import scale_decoder as sd
+
+    rng = np.random.default_rng(2)
+
+    def t(x):
+        return torch.tensor(np.asarray(x, np.float32), device=dev)
+
+    pd = t(rng.normal(0, 0.5, (SCALE_N, 128)))
+    pv = t(rng.normal(0, 0.5, (SCALE_N, 128)))
+    b1, w2 = t(rng.uniform(-.06, .06, 128)), t(rng.uniform(-.09, .09,
+                                                             (128, 64)))
+    b2, w3 = t(rng.uniform(-.09, .09, 64)), t(rng.uniform(-.12, .12, 64))
+    seed = torch.tensor([918273], dtype=torch.int32, device=dev)
+    layout = sd.build_scale_decoder_layout(
+        rng.integers(0, SCALE_N, SCALE_E), rng.integers(0, SCALE_N, SCALE_E),
+        SCALE_N, SCALE_N, build_seq=False, device=dev)
+    g = t(rng.normal(0, 1e-3, SCALE_E))
+    g_m = g[layout.gout_perm.long()]
+    fwd = (layout.drug_of_slot, layout.dis_of_slot, layout.fwd_eid)
+    for name, dtype in DTYPES.items():
+        def k2(train, dtype=dtype):
+            return sd.launch_k2(pd, pv, b1, w2, b2, w3, *fwd, seed, rate,
+                                train, dtype, train)
+
+        ms = {train: _time_ms(lambda: k2(train)) for train in (True, False)}
+        out, a1 = k2(True)
+        common = (w2, b2, w3, seed, rate, True, dtype)
+        outs = [out, a1, k2(False)[0],
+                *sd.launch_b1(a1, pd, pv, layout, g, b1, *common),
+                sd.launch_mirror(pd, pv, layout, g_m, b1, *common)]
+        torch.cuda.synchronize()
+        rates = ", ".join(f"{'train' if tr else 'eval'} {ms[tr]:.4f} ms "
+                          f"{SCALE_E * FWD_OPS / ms[tr] / 1e9:.2f} TFLOP/s"
+                          for tr in (True, False))
+        print(f"scale E={SCALE_E} {name}: K2 {rates}; digests k2 "
+              + " ".join(_digest(x) for x in outs[:3]) + " b1 "
+              + " ".join(_digest(x) for x in outs[3:8]) + " mirror "
+              + _digest(outs[8]), flush=True)
 
 
 def main() -> int:
@@ -133,6 +183,9 @@ def main() -> int:
                 lambda d: fwd(*args, rate, True, d),
                 lambda d: bwd(*args, rate, True, d, g, csr),
                 (nf or 1) * edges.shape[-1])
+    del ds
+    torch.cuda.empty_cache()
+    _scale(dev)
     return 0
 
 

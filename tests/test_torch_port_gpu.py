@@ -987,6 +987,141 @@ def test_scale_kernels_are_deterministic(cuda):
         assert torch.equal(x, y)
 
 
+def _k2(sd, args, layout, rate, train, kernel):
+    """K2 in bf16 over the layout's forward slots, by the kernel or by the
+    plain version with its a2 product in unit order: (logits, a1 spill);
+    training spills a1 and draws dropout at ``rate``, an eval neither."""
+    pd, pv, b1, w2, b2, w3, seed = args
+    fwd = (layout.drug_of_slot, layout.dis_of_slot, layout.fwd_eid)
+    call = (pd, pv, b1, w2, b2, w3, *fwd, seed, rate, train, torch.bfloat16,
+            train)
+    if kernel:
+        return sd.launch_k2(*call)
+    mp = pytest.MonkeyPatch()
+    mp.setattr(torch, "matmul", _unit_order_matmul)
+    try:
+        return sd.scale_fwd_plain(*call)
+    finally:
+        mp.undo()
+
+
+@pytest.mark.parametrize("train", [True, False])
+@pytest.mark.parametrize("rate", [0.0, 0.3])
+@pytest.mark.parametrize("nv", [1, 313])
+@pytest.mark.parametrize("nd", [1, 37, 593])
+@pytest.mark.parametrize("ne", [1, 15, 16, 17, 127, 128, 129, 1023,
+                                128 * 59 + 5, 128 * 300 + 5])
+def test_scale_bf16_fwd_matches_plain_across_tiles(cuda, ne, nd, nv, rate,
+                                                   train):
+    """The tensor-core K2 (bf16) at slot counts that straddle its 16-slot
+    mma rows and 128-slot tiles, up to more tiles than the grid has blocks,
+    in training (dropout at ``rate``, a1 spilled) and in eval (neither):
+    the logits finite and within the tolerance of the plain version with
+    its a2 product in unit order, the order the kernel takes where h2d sits
+    near a bf16 midpoint (tests/test_torch_port_k2_sum_order.py); the spill
+    equal to the plain version's stored a1, bit for bit, as B1 reads it."""
+    from dream_gnn_tpu_torch.kernels import scale_decoder as sd
+
+    args, layout, _ = _scale_args(cuda, nd, nv, ne, seed=ne + nd + nv)
+    out, a1 = _k2(sd, args, layout, rate, train, True)
+    ref, a1_ref = _k2(sd, args, layout, rate, train, False)
+    torch.cuda.synchronize()
+    assert out.shape == ref.shape == (ne,)
+    assert bool(torch.isfinite(out).all())
+    assert _rel(out, ref) <= TOL[torch.bfloat16]
+    if train:
+        assert a1.dtype == torch.bfloat16 and torch.equal(a1, a1_ref)
+    else:
+        assert a1 is None and a1_ref is None
+
+
+@pytest.mark.parametrize("case", ["midpoint", "gate"])
+def test_scale_bf16_fwd_sums_a2_in_unit_order_at_a_midpoint(cuda, case):
+    """One slot whose a2[0] is the bf16 midpoint 1 + 2^-8 of h2d when
+    summed in unit order and lies above it when summed in reverse, or 0 in
+    unit order and 2^-23 reversed, the relu gate
+    (tests/test_torch_port_k2_sum_order.py).  At the midpoint the kernel
+    takes the unit order, so rnd(h2d[0]) = 1 and the logit is the
+    unit-order plain logit 1 + 63 * 0.125, bit for bit; at the gate the
+    logit moves by f32 noise only, and is 63 * 0.125 within 2^-20."""
+    from dream_gnn_tpu_torch.kernels import scale_decoder as sd
+
+    w2 = torch.zeros(128, 64)
+    b2 = torch.zeros(64)
+    if case == "midpoint":
+        w2[:5, 0] = torch.tensor([1.0, 2.0 ** -8, 2.0 ** -25, 2.0 ** -25,
+                                  2.0 ** -25])
+    else:
+        w2[:4, 0] = torch.tensor([1.0, 2.0 ** -25, 2.0 ** -25, 2.0 ** -25])
+        b2[0] = -1.0
+    w2[:, 1:] = 2.0 ** -10
+    args, layout, _ = _one_slot(cuda, w2, b2)
+    out, _ = _k2(sd, args, layout, 0.0, True, True)
+    ref, _ = _k2(sd, args, layout, 0.0, True, False)
+    if case == "midpoint":
+        assert float(ref[0]) == 1.0 + 63 * 0.125
+        assert torch.equal(out, ref)
+    else:
+        assert abs(float(out[0]) - 63 * 0.125) <= 2.0 ** -20
+
+
+def test_scale_bf16_fwd_repeats_bit_for_bit(cuda):
+    """Two launches of the tensor-core K2 give the same logits and spill,
+    over more tiles than the grid has blocks."""
+    from dream_gnn_tpu_torch.kernels import scale_decoder as sd
+
+    args, layout, _ = _scale_args(cuda, 593, 313, 128 * 300 + 5, seed=3)
+    a = _k2(sd, args, layout, 0.3, True, True)
+    b = _k2(sd, args, layout, 0.3, True, True)
+    for x, y in zip(a, b):
+        assert torch.equal(x, y)
+
+
+@pytest.mark.parametrize("train", [True, False])
+@pytest.mark.parametrize("ne", [1, 17, 129, 128 * 300 + 5])
+def test_scale_bf16_fwd_writes_nothing_past_ne(cuda, ne, train):
+    """The C entry point of K2 with output buffers longer than ne, filled
+    with a sentinel: the slots of the last tile past ne write neither a
+    logit nor an a1 row, and the first ne are the wrapper's."""
+    from dream_gnn_tpu_torch.kernels import grid_decoder as gd
+    from dream_gnn_tpu_torch.kernels import scale_decoder as sd
+
+    args, layout, _ = _scale_args(cuda, 37, 45, ne, seed=ne)
+    pd, pv, b1, w2, b2, w3, seed = args
+    fwd = (layout.drug_of_slot, layout.dis_of_slot, layout.fwd_eid)
+    pad = ne + 128 + 5
+    out = torch.full((pad,), 7.0, device=cuda)
+    a1 = torch.full((pad, 128), 7.0, dtype=torch.bfloat16, device=cuda) \
+        if train else None
+    err = sd._load().scale_decoder_fwd(
+        *[x.data_ptr() for x in (pd, pv, *fwd, b1, w2, b2, w3, seed, out)],
+        sd._ptr(a1), pd.shape[0], pv.shape[0], ne,
+        *gd.drop_args(0.3, train), 1, gd.stream_ptr(cuda))
+    assert err == 0
+    want, a1_want = sd.launch_k2(pd, pv, b1, w2, b2, w3, *fwd, seed, 0.3,
+                                 train, torch.bfloat16, train)
+    torch.cuda.synchronize()
+    assert torch.equal(out[:ne], want)
+    assert bool((out[ne:] == 7.0).all())
+    if train:
+        assert torch.equal(a1[:ne], a1_want)
+        assert bool((a1[ne:] == 7.0).all())
+
+
+@pytest.mark.parametrize("dtype,warps", [(torch.float32, 4),
+                                         (torch.bfloat16, 8)])
+def test_scale_fwd_occupancy_is_the_launch_block(cuda, dtype, warps):
+    """fwd_occupancy counts the K2 blocks of the launch's own size (4 warps
+    in fp32, 8 on the tensor cores) that fit an SM: at least one, and on
+    the tensor cores the two that FWD_RESIDENT (csrc/decoder_common.cuh)
+    promises its launch bounds."""
+    from dream_gnn_tpu_torch.kernels import scale_decoder as sd
+
+    blocks, resident = sd.fwd_occupancy(dtype)
+    assert blocks >= (2 if dtype == torch.bfloat16 else 1)
+    assert resident == blocks * warps
+
+
 def _scale_bwd(sd, args, layout, g, rate, dtype, mirror, kernel):
     """B1 (da1, dW2, db2, dw3, db1) from K2's spill of a1, or the mirror's
     (da1,), by the kernel or by the plain version."""
