@@ -97,7 +97,27 @@ Phases, each of which fails the run if it fails:
     exactly 12 forward and 12 backward ``spmm_gather`` per step, the COO
     layout no kernel;
 23. ``scripts.bench_spmm`` at full size with its launch counts, then a
-    profile of ten ``bench_scale --grouped`` steps.
+    profile of ten ``bench_scale --grouped`` steps;
+24. the ``.mat`` path: the Gdataset preset written with the port's
+    ``save_mat`` as ``raw_data/drug_data/Gdataset/Gdataset.mat`` in a
+    working directory, where the CLI loads exactly the preset's arrays from
+    it and trains 20 steps on the grid kernels;
+25. cut and resume: ``--fold_parallel --checkpoint_every 20`` over 60
+    steps at the CLI's default width, uninterrupted, then cut right after
+    its checkpoint at step 40 and resumed with ``--resume``: the two runs'
+    CSVs must be the same (the largest loss difference is printed), and the
+    resumed run launches rows 3 and 4; then a stacked checkpoint's write
+    and load times;
+26. novel predictions in grid and edges mode from a 20-step run's best
+    params: the top-200 CSV is written, and the novel forward on the card
+    (one launch of row 1, or of row 5 over all 183,676 zero cells) equals
+    the plain versions on the CPU within phase 6's tolerance, its top-200
+    order the CPU's apart from ties within it;
+27. ``--profile_dir``: the trace of the first fold names
+    ``grid_fwd_mma_kernel`` and ``grid_bwd_mma_kernel``, and ms/step with
+    the trace on and off;
+28. ``utils.timing.chained_ms`` times row 3 beside its bound, and its floor
+    guard raises on a floor above the reading.
 
 Each trainer phase sets every launch count to 0 just before it drives its
 entry point and reads the counts just after.
@@ -111,6 +131,7 @@ from __future__ import annotations
 
 import dataclasses
 import json
+import os
 import subprocess
 import sys
 import tempfile
@@ -120,9 +141,11 @@ from pathlib import Path
 import numpy as np
 import torch
 
-# Published H100 SXM peaks (NVIDIA data sheet), used for the bound.
-PEAK_BYTES_S = 3.35e12
-PEAK_FLOPS_S = {torch.bfloat16: 989e12, torch.float32: 67e12}
+# The H100's published peaks and the kernels' bounds.
+from dream_gnn_tpu_torch.utils.timing import (OPS_B1, OPS_K2, OPS_MIRROR,
+                                              PEAK_BYTES_S, PEAK_FLOPS_S,
+                                              bound_ms, decoder_bound_ms,
+                                              decoder_flops, tensor_bytes)
 
 ND, NV = 593, 313            # Gdataset preset (data/synthetic.py)
 NF_CHECK, NF = 3, 10         # folds: batched checks, batched timing and trainer
@@ -188,35 +211,6 @@ def _decoder_inputs(dev, nf=None):
                           dtype=torch.int32, device=dev))
 
 
-def _decoder_flops(fwd: bool, nf: int = 1, cells: int = ND * NV) -> int:
-    """Operations of the decoder MLP over ``cells`` grid cells or edges per
-    fold, forward or backward."""
-    h1, h2 = 128, 64
-    per_cell = 2 * h1 * h2 + 2 * h1 + 2 * h2             # a2 product, a1, w3 dot
-    if not fwd:
-        # The recomputed forward, the dh1 and dW2 products, then g * w3,
-        # the db2 and dw3 sums and the dPd, dPv and db1 sums.
-        per_cell += 2 * (2 * h1 * h2) + 4 * h2 + 3 * h1
-    return nf * cells * per_cell
-
-
-def _bound_ms(fwd: bool, dtype, nf: int = 1, cells: int = ND * NV,
-              index_bytes: int = 0) -> tuple:
-    """(least ms, "operations" or "bytes") of the decoder MLP over ``cells``
-    grid cells or edges per fold; ``index_bytes`` are the edge ids read."""
-    h1, h2 = 128, 64
-    flops = _decoder_flops(fwd, nf, cells)
-    table_bytes = nf * (ND + NV) * h1 * 4
-    weight_bytes = nf * (h1 + h1 * h2 + 2 * h2) * 4
-    grid_bytes = nf * cells * 4                           # out, or g
-    nbytes = table_bytes + weight_bytes + grid_bytes + index_bytes
-    if not fwd:
-        nbytes += table_bytes + weight_bytes              # the gradients
-    t_bytes = nbytes / PEAK_BYTES_S * 1e3
-    t_ops = flops / PEAK_FLOPS_S[dtype] * 1e3
-    return (t_ops, "operations") if t_ops >= t_bytes else (t_bytes, "bytes")
-
-
 def phase_build():
     from dream_gnn_tpu_torch.kernels import cuda_build
 
@@ -274,7 +268,7 @@ def _print_rate(label: str, ms_bf16: float, ms_fp32: float, nf: int,
     ``flops`` defaults to the grid and per-edge forward's (``fwd``) or
     backward's over ``cells``."""
     if flops is None:
-        flops = _decoder_flops(fwd, nf, cells)
+        flops = decoder_flops(fwd, cells, nf)
     for name, ms, dtype in (("bf16", ms_bf16, torch.bfloat16),
                             ("fp32", ms_fp32, torch.float32)):
         blocks, warps = occupancy(dtype)
@@ -347,7 +341,7 @@ def phase_kernels():
     _print_rate("grid_decoder_bwd", t["bwd"], t32["bwd"], 1, gd.bwd_occupancy)
     rows = []
     for kind, line in (("fwd", 102), ("bwd", 122)):
-        bound, by = _bound_ms(kind == "fwd", dtype)
+        bound, by = decoder_bound_ms(kind == "fwd", dtype, ND, NV)
         print(f"  grid_decoder_{kind}: {t[kind]:.4f} ms, bound {bound:.4f} ms "
               f"({by}), plain {tp[kind]:.4f} ms; no single PyTorch call "
               f"computes this function")
@@ -445,7 +439,8 @@ def phase_kernels_batched():
                 gd.bwd_occupancy)
     rows = []
     for kind, line in (("fwd", 406), ("bwd", 427)):
-        bound, by = _bound_ms(kind == "fwd", dtype, NF)
+        bound, by = decoder_bound_ms(kind == "fwd", dtype, ND, NV,
+                                     nf=NF)
         print(f"  grid_decoder_{kind}_batched F={NF}: {t[kind]:.4f} ms "
               f"({t[kind] / NF:.4f} ms per fold), bound {bound:.4f} ms "
               f"({by}), plain {tp[kind]:.4f} ms; no single PyTorch call "
@@ -488,8 +483,8 @@ def _edge_row(kind, batched, err, t, tp, dtype, ne, nf=1):
             ("fwd", True): "pallas_decoder_batched.py:43",
             ("bwd", True): "pallas_decoder_batched.py:63"}[kind, batched]
     name = f"edge_decoder_{kind}" + ("_batched" if batched else "")
-    bound, by = _bound_ms(kind == "fwd", dtype, nf, cells=ne,
-                          index_bytes=nf * 2 * ne * 4)
+    bound, by = decoder_bound_ms(kind == "fwd", dtype, ND, NV, cells=ne,
+                                 nf=nf, index_bytes=nf * 2 * ne * 4)
     print(f"  {name} F={nf} E={ne}: {t[kind]:.4f} ms ({t[kind] / nf:.4f} ms "
           f"per fold), bound {bound:.5f} ms ({by}), plain {tp[kind]:.4f} ms; "
           f"no single PyTorch call computes this function")
@@ -1011,19 +1006,6 @@ SCALE_N = 100_000            # train.scale's drugs and diseases at full size
 # plain SpMM's index_add runs in no fixed order on the card).  The largest
 # error measured on the H100 was below 6e-6 (PERF.md).
 SCALE_TOL = 1e-4
-# Operations per candidate slot of the decoder MLP (H1 = 128, H2 = 64):
-# forward: the a2 product, a1 and the logit dot; B1: the recomputed forward,
-# the dh1 and dW2 products, g * w3 and the db2, dw3, db1 sums; the mirror:
-# the recomputed forward, the dh1 product, g * w3 and the da1 mask.
-OPS_K2 = 2 * 128 * 64 + 2 * 128 + 2 * 64
-OPS_B1 = OPS_K2 + 2 * (2 * 128 * 64) + 4 * 64 + 3 * 128
-OPS_MIRROR = OPS_K2 + 2 * 128 * 64 + 2 * 64 + 128
-
-
-def _nbytes(*tensors) -> int:
-    return sum(t.numel() * t.element_size() for t in tensors if t is not None)
-
-
 def _gather_rate(entries: int, row_bytes: int, ms: float) -> str:
     """The segment sum's achieved gather rate: entries x row bytes / time,
     to hold against the L2's bandwidth (x is read once per entry)."""
@@ -1036,10 +1018,7 @@ def _scale_row(name, replaces, err, ms, plain_ms, nbytes, flops, dtype,
     """A kernel-table row for a scale kernel: the bound is the larger of
     ``nbytes`` over the memory rate and ``flops`` over the peak for
     ``dtype``.  ``gathered``: (entries, row bytes) of a segment sum."""
-    t_bytes = nbytes / PEAK_BYTES_S * 1e3
-    t_ops = flops / PEAK_FLOPS_S[dtype] * 1e3
-    bound, by = (t_ops, "operations") if t_ops >= t_bytes \
-        else (t_bytes, "bytes")
+    bound, by = bound_ms(nbytes, flops, dtype)
     src = "scale_decoder" if name.startswith("scale_decoder") else "spmm"
     print(f"  {name}: {ms:.4f} ms, bound {bound:.5f} ms ({by}; "
           f"{nbytes / 1e6:.1f} MB, {flops / 1e9:.3f} GFLOP), "
@@ -1152,7 +1131,7 @@ def _spmm_rows(graph, dev):
     print(f"  torch.sparse.mm (CSR, f32) vs the kernel without rounding: "
           f"rel={float((lib - ours).abs().max()) / float(ours.abs().max()):.3e}")
     lib_ms = _time_ms(lambda: torch.sparse.mm(csr, xf))
-    nbytes = _nbytes(g.row_ptr, g.src, g.val, x) + g.n_dst * 128 * 4
+    nbytes = tensor_bytes(g.row_ptr, g.src, g.val, x) + g.n_dst * 128 * 4
     return _scale_row("spmm_slab", "pallas_spmm_slab.py:61", err,
                       t[0, "fwd"], plain_ms, nbytes, 2 * g.n_live * 128,
                       torch.bfloat16, lib_ms,
@@ -1191,7 +1170,7 @@ def _seq_row(layout, dev):
     node, xf = layout.drug_of_slot.long(), x.float()
     out = torch.zeros(g.n_dst, 128, device=dev)
     lib_ms = _time_ms(lambda: out.zero_().index_add_(0, node, xf))
-    nbytes = _nbytes(g.offsets, val, x) + g.n_dst * 128 * 4
+    nbytes = tensor_bytes(g.offsets, val, x) + g.n_dst * 128 * 4
     return _scale_row("seq_scatter", "pallas_seq_scatter.py:144", err, ms,
                       plain_ms, nbytes, g.n_slots * 128, torch.bfloat16,
                       lib_ms, "index_add_ in f32",
@@ -1336,17 +1315,17 @@ def _decoder_rows(layout, dev):
     return [
         _scale_row("scale_decoder_k2", "pallas_scale_decoder.py:460",
                    err["k2"], ms["k2"], plain["k2"],
-                   _nbytes(pd, pv, *fwd, *weights, out, a1), OPS_K2 * e,
-                   dtype),
+                   tensor_bytes(pd, pv, *fwd, *weights, out, a1),
+                   OPS_K2 * e, dtype),
         _scale_row("scale_decoder_b1", "pallas_scale_decoder.py:579",
                    err["b1"], ms["b1"], plain["b1"],
-                   _nbytes(a1, fwd[2], g, *weights, da1)
-                   + _nbytes(w2, b1, b2, w3),          # the weight gradients
+                   tensor_bytes(a1, fwd[2], g, *weights, da1)
+                   + tensor_bytes(w2, b1, b2, w3),      # the weight gradients
                    OPS_B1 * e, dtype),
         _scale_row("scale_decoder_mirror", "pallas_scale_decoder.py:679",
                    err["mirror"], ms["mirror"], plain["mirror"],
-                   _nbytes(pd, pv, *mir, g_m, *weights, da1), OPS_MIRROR * e,
-                   dtype)]
+                   tensor_bytes(pd, pv, *mir, g_m, *weights, da1),
+                   OPS_MIRROR * e, dtype)]
 
 
 def phase_scale_kernels(tin):
@@ -1493,7 +1472,7 @@ def _spmm_row(name, replaces, err, g, x, raw, plain):
                                   size=(g.n_dst, g.n_src))
     xf = x.float()
     lib_ms = _time_ms(lambda: torch.sparse.mm(csr, xf))
-    nbytes = _nbytes(g.row_ptr, g.src, g.val, x.bfloat16()) \
+    nbytes = tensor_bytes(g.row_ptr, g.src, g.val, x.bfloat16()) \
         + g.n_dst * x.shape[1] * 4
     return _scale_row(name, replaces, err, ms, plain_ms, nbytes,
                       2 * g.n_live * x.shape[1], torch.bfloat16, lib_ms,
@@ -1622,7 +1601,7 @@ def _grouped_scatter(dev):
     node, xf = lay.drug_of_slot.long(), x.float()
     out = torch.zeros(BENCH_N, 128, device=dev)
     lib_ms = _time_ms(lambda: out.zero_().index_add_(0, node, xf))
-    nbytes = _nbytes(g.row_ptr, g.src, g.val, x) + BENCH_N * 128 * 4
+    nbytes = tensor_bytes(g.row_ptr, g.src, g.val, x) + BENCH_N * 128 * 4
     print(f"  scatter: {ms:.4f} ms, bound {nbytes / PEAK_BYTES_S * 1e3:.5f} "
           f"ms (bytes), {_gather_rate(n_cand, 128 * 2, ms)}, index_add_ in "
           f"f32: {lib_ms:.4f} ms")
@@ -1770,6 +1749,332 @@ def phase_bench_spmm(graph, n_steps: int = 10):
     return launches
 
 
+# ---------------------------------------------------------------------------
+# The protocol's own tooling: the .mat path, checkpoint and resume, novel
+# predictions, --profile_dir and chained_ms (phases 24-28).
+
+SHORT_20 = ["--train_max_iter", "21", "--train_valid_interval", "10"]
+
+
+def phase_mat_path():
+    """The CLI where the working directory holds the reference .mat: the
+    Gdataset preset written with the port's ``save_mat`` is what it loads,
+    and the grid kernels run on it."""
+    from dream_gnn_tpu_torch.data.matio import save_mat
+    from dream_gnn_tpu_torch.data.synthetic import synthetic_raw_data
+    from dream_gnn_tpu_torch.train import cli
+
+    raw = synthetic_raw_data("Gdataset")
+    cwd = os.getcwd()
+    with tempfile.TemporaryDirectory() as work:
+        mat = Path(work, "raw_data", "drug_data", "Gdataset", "Gdataset.mat")
+        mat.parent.mkdir(parents=True)
+        t0 = time.perf_counter()
+        save_mat(str(mat), raw)
+        print(f"== .mat path: {mat.relative_to(work)} written "
+              f"({mat.stat().st_size / 1e6:.1f} MB, "
+              f"{time.perf_counter() - t0:.2f} s)")
+        os.chdir(work)
+        try:
+            args = cli.build_parser().parse_args(["--data_name", "Gdataset"])
+            t0 = time.perf_counter()
+            ds = cli.resolve_dataset(args, cli.config_from_args(args),
+                                     torch.device("cuda", 0))
+            print(f"  the CLI resolves the .mat: loaded and built on the "
+                  f"card in {time.perf_counter() - t0:.2f} s")
+            for name in ("association", "drug_sim", "dis_sim", "drug_embed",
+                         "dis_embed"):
+                if not np.array_equal(getattr(ds.raw, name),
+                                      getattr(raw, name)):
+                    raise AssertionError(f"the .mat's {name} is not the "
+                                         f"preset's")
+            if ds.raw.drug_ids != raw.drug_ids:
+                raise AssertionError("the .mat's Wrname is not the preset's")
+            print(f"  every array of the file equals the preset's "
+                  f"({ds.n_drug} x {ds.n_dis}, "
+                  f"{int(ds.raw.association.sum())} positives)")
+            del ds
+            _, launches = _run_trainer(".mat trainer",
+                                       ["--folds", "0", *SHORT_20], 1, 2)
+        finally:
+            os.chdir(cwd)
+    _expect_launches(launches, "grid", ("fwd", "bwd"), ".mat")
+    return launches
+
+
+class _Cut(Exception):
+    """Ends a run right after a checkpoint, as a preemption would."""
+
+
+def _csv_texts(d: Path) -> dict:
+    return {str(p.relative_to(d)): p.read_text()
+            for p in sorted(d.rglob("*.csv"))}
+
+
+def _hold_csvs(full: dict, cut: dict) -> None:
+    """The resumed run's CSVs equal the uninterrupted run's.  Prints the
+    largest difference in the loss column (0 when bit-identical)."""
+    if set(full) != set(cut):
+        raise AssertionError(f"CSV files differ: {sorted(full)} vs "
+                             f"{sorted(cut)}")
+    worst = {}
+    for name in full:
+        a, b = full[name].split(), cut[name].split()
+        if len(a) != len(b) or a[0] != b[0]:
+            raise AssertionError(f"{name}: rows {len(a)} vs {len(b)}")
+        for ra, rb in zip(a[1:], b[1:]):
+            for col, x, y in zip(a[0].split(","), ra.split(","),
+                                 rb.split(",")):
+                if col in ("fold", "experiment", "seed"):
+                    if x != y:
+                        raise AssertionError(f"{name}: {x} != {y}")
+                    continue
+                if x == y:
+                    d = 0.0
+                elif x in ("NA", "average") or y in ("NA", "average"):
+                    raise AssertionError(f"{name}: {x} != {y}")
+                else:
+                    d = abs(float(x) - float(y))
+                worst[col] = max(worst.get(col, 0.0), d)
+    same = all(full[n] == cut[n] for n in full)
+    print(f"  {len(full)} CSVs {'identical' if same else 'NOT identical'}; "
+          f"largest loss difference {worst.get('loss', 0.0):.4f}, largest "
+          f"of any metric {max(worst.values()):.4f}")
+    if not same and max(worst.values()) > 1e-4 + 1e-9:
+        raise AssertionError(f"resumed CSVs differ beyond their printed "
+                             f"4th decimal: {worst}")
+
+
+def phase_resume():
+    """--fold_parallel --checkpoint_every 20 at the CLI's default width:
+    an uninterrupted run of 60 steps, a run cut right after its checkpoint
+    at step 40, and that run resumed with --resume, which must write the
+    uninterrupted run's CSVs; then one stacked checkpoint's write and load
+    times.  Returns the resumed run's launch counts."""
+    import dream_gnn_tpu_torch.train.stacked as stacked
+    from dream_gnn_tpu_torch.train.cli import main
+
+    flags = ["--data_name", "Gdataset", "--seeds", "77", "--fold_parallel",
+             "--train_max_iter", "61", "--train_valid_interval", "20",
+             "--checkpoint_every", "20"]
+    print(f"== cut and resume: python -m dream_gnn_tpu_torch.train.cli "
+          f"{' '.join(flags)}")
+    real_save = stacked.save_train_state
+    times = []
+
+    def cut_after_40(path, state, step, *args, **kw):
+        t0 = time.perf_counter()
+        real_save(path, state, step, *args, **kw)
+        times.append(time.perf_counter() - t0)
+        if step == 40:
+            raise _Cut
+
+    with tempfile.TemporaryDirectory() as work:
+        full, cut = Path(work, "full"), Path(work, "cut")
+        main([*flags, "--save_dir", str(full)])
+        stacked.save_train_state = cut_after_40
+        try:
+            main([*flags, "--save_dir", str(cut)])
+            raise AssertionError("the run went past its checkpoint at 40")
+        except _Cut:
+            pass
+        finally:
+            stacked.save_train_state = real_save
+        ckpt = cut / "seed_77" / "ckpt_stacked.npz"
+        print(f"  cut after the checkpoint at step 40: {ckpt.name} "
+              f"{ckpt.stat().st_size / 1e6:.1f} MB, written in "
+              + ", ".join(f"{1e3 * t:.1f}" for t in times) + " ms")
+        _zero_launches()
+        main([*flags, "--save_dir", str(cut), "--resume"])
+        torch.cuda.synchronize()
+        launches = _launches()
+        print(f"  launches on the resumed path: {launches}")
+        _expect_launches(launches, "grid", ("fwd_b", "bwd_b"), "resumed")
+        _hold_csvs(_csv_texts(full), _csv_texts(cut))
+        rows = (cut / "seed_77" / "test_metric1.csv").read_text().split()
+        if [int(r.split(",")[0]) for r in rows[1:]] != [20, 40, 60]:
+            raise AssertionError(f"resumed rows: {rows}")
+        _time_checkpoint(ckpt)
+    return launches
+
+
+def _time_checkpoint(ckpt: Path) -> None:
+    """Write and load times of a stacked train state of the 10 folds at the
+    CLI's default width (host clock, the card synchronised)."""
+    from dream_gnn_tpu_torch.config import ModelConfig, TrainConfig
+    from dream_gnn_tpu_torch.data.loader import DreamDataset
+    from dream_gnn_tpu_torch.train.checkpoint import (load_train_state,
+                                                      save_train_state)
+    from dream_gnn_tpu_torch.train.loop import derive_model_cfg
+    from dream_gnn_tpu_torch.train.optim import PlateauScheduler
+    from dream_gnn_tpu_torch.train.stacked import (init_params_stacked,
+                                                   init_state_stacked)
+
+    cfg = TrainConfig(model=ModelConfig(**MAIN_PATH))
+    ds = DreamDataset.load("Gdataset", device="cuda:0")
+    mcfg = derive_model_cfg(cfg, ds)
+    folds = list(range(NF))
+    gen = torch.Generator(device="cuda:0").manual_seed(1)
+    state = init_state_stacked(init_params_stacked(mcfg, [77], folds,
+                                                   "cuda:0"), gen, cfg)
+    scheds = [PlateauScheduler(cfg.train_lr) for _ in folds]
+    path = str(ckpt.parent / "timing.npz")
+    t_save, t_load = [], []
+    for _ in range(3):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        save_train_state(path, state, 40, scheds, [dict.fromkeys(
+            ("aupr", "auroc", "iter", "train_aupr", "train_auroc"), 0.0)]
+            * NF)
+        t_save.append(time.perf_counter() - t0)
+        t0 = time.perf_counter()
+        load_train_state(path, state, scheds)
+        torch.cuda.synchronize()
+        t_load.append(time.perf_counter() - t0)
+    n = sum(t.numel() for t in state.opt.params)
+    print(f"  stacked checkpoint of {NF} folds ({n / 1e6:.2f}M params, "
+          f"{Path(path).stat().st_size / 1e6:.1f} MB): write "
+          + "/".join(f"{1e3 * t:.1f}" for t in t_save) + " ms, load "
+          + "/".join(f"{1e3 * t:.1f}" for t in t_load) + " ms (3 each)")
+
+
+def phase_novel():
+    """--save_model --generate_top_predictions in grid and edges mode, one
+    fold: the top-k CSV is written; then the novel forward from the saved
+    best params on the card (one grid decoder launch, or one edge decoder
+    launch over all 183,676 zero cells) against the plain versions on the
+    CPU.  Returns the forwards' launch counts."""
+    from dream_gnn_tpu_torch.data.loader import DreamDataset
+    from dream_gnn_tpu_torch.eval.novel import novel_scores
+    from dream_gnn_tpu_torch.model.dream_gnn import init_params
+    from dream_gnn_tpu_torch.train import cli
+    from dream_gnn_tpu_torch.train.checkpoint import load_params
+    from dream_gnn_tpu_torch.train.loop import derive_model_cfg
+
+    ds = {dev: DreamDataset.load("Gdataset", device=dev)
+          for dev in ("cuda:0", "cpu")}
+    n_zero = ND * NV - int(ds["cpu"].raw.association.sum())
+    out = {}
+    for path in (MAIN_PATH, EDGES_PATH):
+        mode = path["decode_mode"]
+        flags = ["--data_name", "Gdataset", "--seeds", "77", "--folds", "0",
+                 *SHORT_20, "--decode_mode", mode, "--save_model",
+                 "--generate_top_predictions"]
+        print(f"== novel predictions, {mode} mode: python -m "
+              f"dream_gnn_tpu_torch.train.cli {' '.join(flags)}")
+        with tempfile.TemporaryDirectory() as work:
+            _zero_launches()
+            cli.main([*flags, "--save_dir", work])
+            torch.cuda.synchronize()
+            print(f"  launches on this path: {_launches()}")
+            seed_dir = Path(work, "seed_77")
+            rows = (seed_dir / "top200_novel_predictions_fold1.csv") \
+                .read_text().split()
+            if rows[0] != "drug_id,disease_id,score,drug_name" \
+                    or len(rows) != 201:
+                raise AssertionError(f"top-200 CSV: {rows[:2]}, "
+                                     f"{len(rows)} lines")
+            mcfg = derive_model_cfg(cli.config_from_args(
+                cli.build_parser().parse_args(flags)), ds["cpu"])
+            params = load_params(str(seed_dir / "best_model_fold1.npz"),
+                                 init_params(torch.Generator(), mcfg))
+        _zero_launches()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        zr, zc, card = novel_scores(params, mcfg, ds["cuda:0"], 0)
+        ms = (time.perf_counter() - t0) * 1e3
+        launches = _launches()
+        kind = "grid" if mode == "grid" else "edge"
+        _expect_launches(launches, kind, ("fwd",), f"novel {mode}")
+        if launches[kind]["fwd"] != 1 or len(zr) != n_zero:
+            raise AssertionError(f"novel {mode}: {launches[kind]['fwd']} "
+                                 f"launches over {len(zr)} cells")
+        _, _, cpu = novel_scores(params, mcfg, ds["cpu"], 0)
+        rel = float(np.abs(card - cpu).max() / np.abs(cpu).max())
+        tol = 1e-2 * float(np.abs(cpu).max())
+        top = np.argsort(-card)[:200]
+        order_err = float(np.abs(cpu[top] - np.sort(cpu)[::-1][:200]).max())
+        csv_scores = np.array([float(r.split(",")[2]) for r in rows[1:]])
+        csv_err = float(np.abs(csv_scores - card[top]).max())
+        print(f"  novel forward on the card over {len(zr)} zero cells: "
+              f"{ms:.1f} ms (host clock, one eval forward, the first after "
+              f"the run), {launches[kind]['fwd']} {kind} decoder launch; "
+              f"card vs CPU rel_err={rel:.3e} tol=1e-02; top-200 order vs "
+              f"the CPU's, largest score gap {order_err:.3e} (tol "
+              f"{tol:.3e}); the CLI's CSV vs this forward {csv_err:.3e}")
+        if rel > 1e-2 or order_err > tol or csv_err > 1e-6 \
+                or not np.isfinite(card).all():
+            raise AssertionError(f"novel {mode} predictions disagree")
+        out[mode] = launches
+    return out
+
+
+def phase_profile_dir():
+    """--profile_dir traces the first fold: the trace names the tensor-core
+    forward and backward; ms/step with and without the trace."""
+    from dream_gnn_tpu_torch.train.cli import main
+
+    flags = ["--data_name", "Gdataset", "--seeds", "77", "--folds", "0",
+             *SHORT_20]
+    print(f"== --profile_dir: python -m dream_gnn_tpu_torch.train.cli "
+          f"{' '.join(flags)} --profile_dir DIR")
+    ms = {}
+    with tempfile.TemporaryDirectory() as work:
+        for label in ("off", "on", "off again"):
+            extra = ["--profile_dir", str(Path(work, "prof"))] \
+                if label == "on" else []
+            t0 = time.perf_counter()
+            summary = main([*flags, *extra, "--save_dir",
+                            str(Path(work, label))])
+            ms[label] = (summary["results"][0]["ms_per_step"],
+                         time.perf_counter() - t0)
+        traces = list(Path(work, "prof").glob("*.json"))
+        if len(traces) != 1:
+            raise AssertionError(f"trace files: {traces}")
+        text = traces[0].read_text()
+        for name in _step_names("grid")["expect"]:
+            if name not in text:
+                raise AssertionError(f"the trace does not name {name}")
+        print(f"  {traces[0].name}: {len(text) / 1e6:.1f} MB, names "
+              + " and ".join(_step_names("grid")["expect"]))
+    print("  ms/step (CUDA events, 20 steps) and run wall time: "
+          + "; ".join(f"trace {k} {v[0]:.3f} ms/step, {v[1]:.1f} s"
+                      for k, v in ms.items()))
+
+
+def phase_chained_ms():
+    """Row 3 (the batched grid forward, F = 10, bf16, dropout 0.3) timed by
+    ``utils.timing.chained_ms`` beside its bound; the floor guard raises on
+    a floor above the reading."""
+    from dream_gnn_tpu_torch.kernels import grid_decoder as gd
+    from dream_gnn_tpu_torch.utils.timing import (ImplausibleTiming,
+                                                  chained_ms)
+
+    print(f"== chained_ms: grid_decoder_fwd_batched F={NF}, bf16, dropout "
+          f"0.3")
+    x = _decoder_inputs(torch.device("cuda", 0), NF)
+    rest = [x[k] for k in KERNEL_ARGS[1:]]
+    saved = dict(gd.LAUNCHES)
+
+    def fwd(pd, *args):
+        return gd.launch_fwd_batched(pd, *args, 0.3, True, torch.bfloat16)
+
+    bound, by = decoder_bound_ms(True, torch.bfloat16, ND, NV, nf=NF)
+    ms = chained_ms(fwd, x["pd"], args=rest, n=8, reps=3, floor_ms=bound,
+                    name="row 3", verbose=True)
+    print(f"  row 3: {ms:.4f} ms a call (chained_ms, 8 links, best of 3), "
+          f"bound {bound:.4f} ms ({by})")
+    try:
+        chained_ms(fwd, x["pd"], args=rest, n=8, reps=3, floor_ms=10 * ms,
+                   name="row 3, floor 10x the reading")
+    except ImplausibleTiming as e:
+        print(f"  floor guard at {10 * ms:.4f} ms raised: {e}")
+    else:
+        raise AssertionError("the floor guard let a reading under its "
+                             "floor through")
+    gd.LAUNCHES.update(saved)
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
@@ -1810,6 +2115,16 @@ def main() -> int:
     launches_g = phase_bench_scale()
     launches_sp = phase_bench_spmm(graph)
     del graph
+    torch.cuda.empty_cache()
+    tooling = {".mat": phase_mat_path(), "resume": phase_resume(),
+               **{f"novel {k}": v for k, v in phase_novel().items()}}
+    phase_profile_dir()
+    phase_chained_ms()
+    print("  launches of rows 1, 3, 4 and 5 on the tooling paths: "
+          + "; ".join(f"{k}: row 1 {v['grid']['fwd']}, row 3 "
+                      f"{v['grid']['fwd_b']}, row 4 {v['grid']['bwd_b']}, "
+                      f"row 5 {v['edge']['fwd']}"
+                      for k, v in tooling.items()))
     # Rows 10 and 11 after row 9, as in the table of the TPU kernels.
     rows = rows[:9] + sparse_rows + rows[9:]
     # Each kernel's launches on the path that runs it.

@@ -34,8 +34,11 @@ direction over its padded edges (``edge_dropout_masks_coo``), which the
 GCMC layer multiplies into ``val``.  Identity ``CooGraph`` similarity
 graphs drop entries of ``val``.
 
-The other four methods (add_random_edges, graph_noise, feature_masking,
-mix_up) are still to be ported (ROADMAP.md queue A, item 4).
+``feature_masking`` and ``mixup_features`` are here for the loader-side
+feature augmentation of novel predictions (data/loader.py
+``augment_features``); their dispatch inside the training step, and the
+methods add_random_edges and graph_noise, are still to be ported
+(ROADMAP.md queue A, item 4).
 """
 
 from __future__ import annotations
@@ -161,6 +164,45 @@ def feature_noise(x: torch.Tensor, noise: torch.Tensor,
                   scale: float) -> torch.Tensor:
     """Additive Gaussian noise (augmentation.py:208-241)."""
     return x + scale * noise
+
+
+def mask_features(x: torch.Tensor, u: torch.Tensor,
+                  rate: float) -> torch.Tensor:
+    """Elementwise zero-masking without rescaling (augmentation.py:276-308):
+    keep where the uniform draw ``u`` exceeds ``rate``."""
+    return x * (u > rate)
+
+
+def feature_masking(gen, x: torch.Tensor, rate: float) -> torch.Tensor:
+    """``mask_features`` with one uniform draw per element from ``gen``
+    (JAX masks.py:193)."""
+    return mask_features(x, torch.rand(x.shape, generator=gen,
+                                       device=x.device), rate)
+
+
+def mix_rows(x: torch.Tensor, perm: torch.Tensor, lam) -> torch.Tensor:
+    """Row mixup ``lam * x + (1 - lam) * x[perm]`` (augmentation.py:
+    311-337)."""
+    return lam * x + (1.0 - lam) * x[perm]
+
+
+def beta_sample(gen, alpha: float, device) -> torch.Tensor:
+    """One Beta(alpha, alpha) draw as a float32 scalar tensor on
+    ``device``: the inverse CDF (scipy's ``betaincinv``) of one uniform
+    draw from ``gen``; torch's own Beta sampler takes no generator."""
+    from scipy.special import betaincinv
+
+    u = float(torch.rand((), generator=gen, device=device,
+                         dtype=torch.float64))
+    return torch.tensor(betaincinv(alpha, alpha, u), dtype=torch.float32,
+                        device=device)
+
+
+def mixup_features(gen, x: torch.Tensor, alpha: float) -> torch.Tensor:
+    """Row mixup with a Beta(alpha, alpha) coefficient (JAX masks.py:199):
+    a permutation of the rows, then the coefficient, both from ``gen``."""
+    perm = torch.randperm(x.shape[0], generator=gen, device=x.device)
+    return mix_rows(x, perm, beta_sample(gen, alpha, x.device))
 
 
 def draw_augment(gen, inputs, cfg: AugmentConfig, num_ratings: int = 2):

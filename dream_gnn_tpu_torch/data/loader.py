@@ -24,6 +24,10 @@ from typing import Dict
 import numpy as np
 import torch
 
+from dream_gnn_tpu_torch.augment.masks import (feature_masking, feature_noise,
+                                               mixup_features)
+from dream_gnn_tpu_torch.config import AugmentConfig
+from dream_gnn_tpu_torch.data.matio import load_mat
 from dream_gnn_tpu_torch.data.splits import FoldSplit, make_cv_splits
 from dream_gnn_tpu_torch.data.synthetic import RawData, synthetic_raw_data
 from dream_gnn_tpu_torch.graph.bipartite import BipartiteGraph, build_enc_graph
@@ -108,19 +112,42 @@ class DreamDataset:
         self._folds: Dict[int, FoldData] = {}
 
     @classmethod
-    def load(cls, name: str, *, k: int = 4, symm: bool = True,
+    def load(cls, name_or_path: str, *, k: int = 4, symm: bool = True,
              n_folds: int = 10, kfold_seed: int = 1024,
              embedding_mode: str = "pretrained",
              device="cuda") -> "DreamDataset":
-        """Generate a synthetic preset by name."""
-        if name.endswith(".mat"):
-            raise NotImplementedError(
-                ".mat datasets are not ported yet (ROADMAP.md queue A, "
-                "item 11: .mat and embedding loaders)")
-        raw = synthetic_raw_data(name)
+        """Load a .mat file, or generate a synthetic preset by name."""
+        if name_or_path.endswith(".mat"):
+            raw = load_mat(name_or_path)
+        else:
+            raw = synthetic_raw_data(name_or_path)
         return cls(raw, k=k, symm=symm, n_folds=n_folds,
                    embedding_mode=embedding_mode, kfold_seed=kfold_seed,
                    device=device)
+
+    def augment_features(self, generator: torch.Generator,
+                         augment_cfg=None):
+        """Loader-side feature augmentation (data_loader.py:511-542):
+        Gaussian noise -> masking -> optional mixup over the normalised
+        node features, drugs before diseases at each stage, every draw
+        from ``generator`` (on the dataset's device).  Used by the
+        novel-prediction path when ``--use_augmentation`` is on; the train
+        loop's per-step augmentation lives in augment/masks.py.  Returns
+        (drug_feat, dis_feat)."""
+        cfg = augment_cfg or AugmentConfig()
+
+        def noise(x):
+            return feature_noise(x, torch.randn(
+                x.shape, generator=generator, device=x.device,
+                dtype=x.dtype), cfg.feature_noise_scale)
+
+        drug, dis = noise(self.drug_feat), noise(self.dis_feat)
+        drug = feature_masking(generator, drug, cfg.feature_mask_rate)
+        dis = feature_masking(generator, dis, cfg.feature_mask_rate)
+        if "mix_up" in cfg.methods:
+            drug = mixup_features(generator, drug, cfg.mixup_alpha)
+            dis = mixup_features(generator, dis, cfg.mixup_alpha)
+        return drug, dis
 
     def _edge_budgets(self):
         """Dataset-wide (train, test) edge budgets: max over folds,

@@ -109,7 +109,7 @@ def main(argv=None) -> dict:
     ``edges_per_s``, ``layout_build_s``, ``peak_memory_bytes``)."""
     from dream_gnn_tpu_torch.config import AugmentConfig, TrainConfig
     from dream_gnn_tpu_torch.model.dream_gnn import init_params
-    from dream_gnn_tpu_torch.train.loop import IntervalTimer
+    from dream_gnn_tpu_torch.utils.profiling import StepTimer
     from dream_gnn_tpu_torch.train.step import (init_state, make_one_step,
                                                 run_steps)
     from dream_gnn_tpu_torch.utils.device import resolve_device, set_numerics
@@ -128,7 +128,7 @@ def main(argv=None) -> dict:
                                "small" if args.small else "full"]
     print(f"building {n}x{n} graph, {n_edges} edges (grouped={args.grouped})"
           f" on {device}...", flush=True)
-    timer = IntervalTimer(device)
+    timer = StepTimer(device)
     t0 = time.perf_counter()
     graph = build_graph(n, n_edges, args.grouped, device)
     if device.type == "cuda":

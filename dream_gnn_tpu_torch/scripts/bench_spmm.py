@@ -61,7 +61,7 @@ def main(argv=None) -> dict:
     from dream_gnn_tpu_torch.kernels.spmm import spmm_coo
     from dream_gnn_tpu_torch.kernels.spmm_blocked import spmm_blocked
     from dream_gnn_tpu_torch.kernels.spmm_gather import spmm_gather
-    from dream_gnn_tpu_torch.train.loop import IntervalTimer
+    from dream_gnn_tpu_torch.utils.profiling import StepTimer
     from dream_gnn_tpu_torch.utils.device import resolve_device, set_numerics
 
     args = build_parser().parse_args(argv)
@@ -85,7 +85,7 @@ def main(argv=None) -> dict:
         src, dst, val, n, n, device=device))
     g = coo_from_arrays(src, dst, val, n, n, device=device)
     x = torch.from_numpy(x_np).to(device)
-    timer = IntervalTimer(device)
+    timer = StepTimer(device)
 
     def rel_err(name, spmm, layout):
         with torch.no_grad():

@@ -2,16 +2,17 @@
 
 Usage:  python -m dream_gnn_tpu_torch.train.cli --data_name Gdataset ...
 
-The flags are those of ``python -m dream_gnn_tpu.train.cli``.  Named
-datasets resolve to the synthetic preset of the same name; where the JAX
-CLI would load ``raw_data/drug_data/{name}/{name}.mat`` instead, because
-that file exists under the working directory, the port raises until its
-loader is ported.  ``--device``
-has its reference meaning: a GPU index, with -1 for the CPU; a GPU that
-is not there is an error, never a quiet fall back to the CPU.
+The flags are those of ``python -m dream_gnn_tpu.train.cli``.  The dataset
+resolves as the JAX CLI's does (``resolve_dataset``): ``--data_path`` when
+given, else the reference ``raw_data/drug_data/{name}/{name}.mat`` under
+the working directory when that file exists, else the synthetic preset of
+the same name.  ``--device`` has its reference meaning: a GPU index, with
+-1 for the CPU; a GPU that is not there is an error, never a quiet fall
+back to the CPU.
 
-Parts of the JAX trainer the port does not have yet raise
-``NotImplementedError`` naming their item in ROADMAP.md.
+Parts of the JAX trainer the port does not have yet (the augment methods
+add_random_edges, graph_noise, feature_masking and mix_up in the training
+step) raise ``NotImplementedError`` naming their item in ROADMAP.md.
 """
 
 from __future__ import annotations
@@ -30,7 +31,7 @@ def build_parser() -> argparse.ArgumentParser:
     p = argparse.ArgumentParser(description="DREAM-GNN training, PyTorch")
     p.add_argument("--data_name", default="Gdataset", type=str)
     p.add_argument("--data_path", default=None, type=str,
-                   help="explicit .mat path (not ported yet)")
+                   help="explicit .mat path")
     p.add_argument("--save_dir", type=str, default="seed_experiments")
     p.add_argument("--model_activation", type=str, default="leaky")
     p.add_argument("--dropout", type=float, default=0.3)
@@ -78,7 +79,7 @@ def build_parser() -> argparse.ArgumentParser:
                    choices=["pretrained", "random"])
     p.add_argument("--use_augmentation", action="store_true", default=False,
                    help="loader-side feature augmentation for novel "
-                        "prediction only (not ported yet)")
+                        "prediction only")
     p.add_argument("--label_smoothing", type=float, default=0.0)
     p.add_argument("--generate_top_predictions", action="store_true",
                    default=False)
@@ -113,32 +114,6 @@ def reference_mat(data_name: str) -> str:
     name (dream_gnn_tpu/train/cli.py, ``resolve_dataset``)."""
     return os.path.join("raw_data", "drug_data", data_name,
                         f"{data_name}.mat")
-
-
-# (flag is set, ROADMAP.md queue A item that ports it)
-_NOT_PORTED = (
-    (lambda a: a.data_path is None
-     and os.path.exists(reference_mat(a.data_name)),
-     "loading the reference raw_data/drug_data/<name>/<name>.mat",
-     "11: .mat and embedding loaders"),
-    (lambda a: a.resume, "--resume", "5: checkpoint and resume"),
-    (lambda a: a.checkpoint_every > 0, "--checkpoint_every",
-     "5: checkpoint and resume"),
-    (lambda a: a.generate_top_predictions, "--generate_top_predictions",
-     "5: novel predictions"),
-    (lambda a: a.data_path is not None
-     or a.data_name.endswith(".mat"), "--data_path (.mat)",
-     "11: .mat and embedding loaders"),
-    (lambda a: a.profile_dir is not None, "--profile_dir",
-     "11: timing and profiling"),
-)
-
-
-def check_ported(args) -> None:
-    for is_set, flag, item in _NOT_PORTED:
-        if is_set(args):
-            raise NotImplementedError(
-                f"{flag} is not ported yet (ROADMAP.md queue A, item {item})")
 
 
 def config_from_args(args) -> TrainConfig:
@@ -179,6 +154,21 @@ def config_from_args(args) -> TrainConfig:
     return cfg
 
 
+def resolve_dataset(args, cfg: TrainConfig, device) -> DreamDataset:
+    """``--data_path``, else the reference .mat if it exists, else the
+    synthetic preset ``--data_name`` (JAX cli.py:174-184)."""
+    path = args.data_path
+    if path is None:
+        candidate = reference_mat(cfg.data_name)
+        path = candidate if os.path.exists(candidate) else cfg.data_name
+    return DreamDataset.load(path, k=cfg.num_neighbor,
+                             symm=cfg.gcn_agg_norm_symm,
+                             n_folds=cfg.n_folds,
+                             kfold_seed=cfg.kfold_seed,
+                             embedding_mode=args.embedding_mode,
+                             device=device)
+
+
 def device_from_args(args):
     return resolve_device("cpu" if args.device < 0
                           else f"cuda:{args.device}")
@@ -186,18 +176,13 @@ def device_from_args(args):
 
 def main(argv=None):
     args = build_parser().parse_args(argv)
-    check_ported(args)
     cfg = config_from_args(args)
     device = device_from_args(args)
     set_numerics()
     print(args)
-    dataset = DreamDataset.load(cfg.data_name, k=cfg.num_neighbor,
-                                symm=cfg.gcn_agg_norm_symm,
-                                n_folds=cfg.n_folds,
-                                kfold_seed=cfg.kfold_seed,
-                                embedding_mode=args.embedding_mode,
-                                device=device)
+    dataset = resolve_dataset(args, cfg, device)
     return run_experiments(dataset, cfg, seeds=args.seeds, folds=args.folds,
+                           profile_dir=args.profile_dir,
                            fold_parallel=args.fold_parallel,
                            seed_parallel=args.seed_parallel)
 

@@ -1,12 +1,15 @@
 """Per-fold training loop (reference ``train()``, train.py:154-395).
 
-Port of ``dream_gnn_tpu/train/loop.py`` without checkpoint and resume
-(ROADMAP.md queue A, item 5).  Protocol parity kept: iteration count
-``range(1, train_max_iter)``, eval cadence, train-eval on the train
+Port of ``dream_gnn_tpu/train/loop.py``.  Protocol parity kept: iteration
+count ``range(1, train_max_iter)``, eval cadence, train-eval on the train
 encoder graph vs test-eval on the test encoder graph (§7.3.1), plateau
 LR on test AUPR, best-by-test-AUPR selection, and the CSV logging
-contract.  Each interval's training steps (not its evals) are timed with
-CUDA events on the card, with the host clock on the CPU.
+contract.  With ``checkpoint_every`` the full train state is written
+every that many steps (after an eval) to ``ckpt_fold{save_id}.npz``, and
+``resume_from`` restores it (train/checkpoint.py): the reference can only
+save final params, never resume (train.py:342-351).  Each interval's
+training steps (not its evals) are timed with CUDA events on the card,
+with the host clock on the CPU.
 """
 
 from __future__ import annotations
@@ -16,19 +19,21 @@ import os
 import time
 from typing import Optional
 
-import numpy as np
 import torch
 
 from dream_gnn_tpu_torch.config import ModelConfig, TrainConfig
 from dream_gnn_tpu_torch.data.loader import DreamDataset
 from dream_gnn_tpu_torch.kernels.edge_decoder import edge_csr
 from dream_gnn_tpu_torch.model.dream_gnn import (ModelInputs, init_params,
-                                                 map_params, param_leaves,
-                                                 params_from_leaves)
+                                                 map_params)
+from dream_gnn_tpu_torch.train.checkpoint import (load_train_state,
+                                                  save_params,
+                                                  save_train_state)
 from dream_gnn_tpu_torch.train.optim import PlateauScheduler
 from dream_gnn_tpu_torch.train.step import (evaluate, init_state,
                                             make_one_step, run_steps)
 from dream_gnn_tpu_torch.utils.logging import MetricLogger
+from dream_gnn_tpu_torch.utils.profiling import StepTimer
 
 
 def derive_model_cfg(cfg: TrainConfig, dataset: DreamDataset) -> ModelConfig:
@@ -77,84 +82,18 @@ def fold_inputs(dataset: DreamDataset, cv: int):
     return train_inputs, test_inputs, fold.train_labels, fold.test_labels
 
 
-class IntervalTimer:
-    """Time of a run of steps: CUDA events on the card, else the host
-    clock.  ``ms_per_step`` is the mean over every timed step."""
-
-    def __init__(self, device: torch.device):
-        self.cuda = device.type == "cuda"
-        self.total_ms = 0.0
-        self.total_steps = 0
-
-    def start(self):
-        if self.cuda:
-            self._ev = (torch.cuda.Event(enable_timing=True),
-                        torch.cuda.Event(enable_timing=True))
-            self._ev[0].record()
-        else:
-            self._t0 = time.perf_counter()
-
-    def stop(self, n_steps: int) -> float:
-        if self.cuda:
-            self._ev[1].record()
-            self._ev[1].synchronize()
-            ms = self._ev[0].elapsed_time(self._ev[1])
-        else:
-            ms = (time.perf_counter() - self._t0) * 1e3
-        self.total_ms += ms
-        self.total_steps += n_steps
-        return ms / max(n_steps, 1)
-
-    @property
-    def ms_per_step(self) -> Optional[float]:
-        return self.total_ms / self.total_steps if self.total_steps else None
-
-
 def train_fold(dataset: DreamDataset, cv: int, cfg: TrainConfig,
                generator: torch.Generator, *, save_dir: Optional[str] = None,
-               save_id: int = 0, verbose: bool = True):
-    """Train one fold; returns a result dict with best metrics."""
+               save_id: int = 0, verbose: bool = True,
+               resume_from: Optional[str] = None):
+    """Train one fold; returns a result dict with best metrics.
+    ``resume_from``: a train-state checkpoint of this fold to go on from."""
     model_cfg = derive_model_cfg(cfg, dataset)
     fold = dataset.fold(cv)
     return train_on_inputs(model_cfg, cfg, *fold_inputs(dataset, cv),
                            fold.train_w, fold.test_w, generator,
                            save_dir=save_dir, save_id=save_id,
-                           verbose=verbose)
-
-
-def save_params(path: str, params) -> None:
-    """npz of the param tree in the leaf layout of the JAX package's
-    ``save_pytree`` (dream_gnn_tpu/train/checkpoint.py): ``leaf_{i}`` in
-    ``param_leaves`` order, which is ``jax.tree.flatten``'s.
-
-    One limit: the JAX ``save_pytree`` also stores its pickled ``treedef``,
-    which the port cannot write without JAX, so the JAX ``load_pytree``
-    cannot read this file; ``load_params`` reads both."""
-    np.savez(path, **{f"leaf_{i}": t.detach().cpu().numpy()
-                      for i, t in enumerate(param_leaves(params))})
-
-
-def load_params(path: str, template):
-    """The param tree of ``template`` (its structure, shapes, dtypes and
-    devices) with the values of a ``save_params`` file, or of a file that
-    the JAX ``save_pytree`` wrote from the JAX param tree (its ``treedef``
-    entry is skipped)."""
-    like = param_leaves(template)
-    with np.load(path) as f:
-        names = set(f.files) - {"treedef"}
-        want = {f"leaf_{i}" for i in range(len(like))}
-        if names != want:
-            raise ValueError(f"load_params: {path} holds {len(names)} leaves "
-                             f"({sorted(names)[:3]}...), the template "
-                             f"{len(like)}")
-        arrays = [f[f"leaf_{i}"] for i in range(len(like))]
-    for i, (a, t) in enumerate(zip(arrays, like)):
-        if tuple(a.shape) != tuple(t.shape):
-            raise ValueError(f"load_params: leaf_{i} has shape {a.shape}, "
-                             f"the template {tuple(t.shape)}")
-    return params_from_leaves(template, [
-        torch.from_numpy(a).to(device=t.device, dtype=t.dtype)
-        for a, t in zip(arrays, like)])
+                           verbose=verbose, resume_from=resume_from)
 
 
 def train_on_inputs(model_cfg: ModelConfig, cfg: TrainConfig,
@@ -162,15 +101,19 @@ def train_on_inputs(model_cfg: ModelConfig, cfg: TrainConfig,
                     train_labels, test_labels, train_w, test_w,
                     generator: torch.Generator, *,
                     save_dir: Optional[str] = None, save_id: int = 0,
-                    verbose: bool = True):
+                    verbose: bool = True, resume_from: Optional[str] = None):
     """The fold-training core on explicit inputs: interval loops, plateau
-    LR, best-by-test-AUPR and the CSV contract.  ``train_w``/``test_w``
-    (1/0 per edge) weight the edges mode's loss and masked metrics with
-    ``train_labels``/``test_labels``; grid mode scores the grid's cells.
+    LR, best-by-test-AUPR, the CSV contract, checkpoints and resume.
+    ``train_w``/``test_w`` (1/0 per edge) weight the edges mode's loss and
+    masked metrics with ``train_labels``/``test_labels``; grid mode scores
+    the grid's cells.
     The scale path (train/scale.py) passes its layouts' slot-order labels
     and weights (dream_gnn_tpu/train/loop.py:90-104).
     ``generator`` (on the inputs' device) draws the params and every
-    training random number."""
+    training random number.  ``resume_from`` restores the params, the Adam
+    state, the generator, the lr, the plateau scheduler and the best-by-AUPR
+    bookkeeping (best params included) of a ``checkpoint_every`` file, and
+    the CSV keeps its rows up to the checkpoint's step."""
     # Every encoder layout has the norms; only the dense one has a1.
     device = train_inputs.enc_graph.ci_drug.device
     params = init_params(generator, model_cfg)
@@ -178,6 +121,14 @@ def train_on_inputs(model_cfg: ModelConfig, cfg: TrainConfig,
     one_step = make_one_step(model_cfg, cfg)
     plateau = PlateauScheduler(cfg.train_lr, patience=cfg.plateau_patience,
                                factor=cfg.plateau_factor)
+    best = dict(aupr=-1.0, auroc=0.0, iter=0, train_aupr=0.0,
+                train_auroc=0.0)
+    best_params = None
+    start_iter = 0
+    if resume_from:
+        start_iter, (best,), kept = load_train_state(
+            resume_from, state, [plateau], with_best_params=cfg.save_model)
+        best_params = kept[0] if kept else None
 
     logger = None
     if save_dir:
@@ -186,15 +137,13 @@ def train_on_inputs(model_cfg: ModelConfig, cfg: TrainConfig,
             ["iter", "loss", "train_auroc", "train_aupr",
              "test_auroc", "test_aupr"],
             ["%d", "%.4f", "%.4f", "%.4f", "%.4f", "%.4f"],
-            os.path.join(save_dir, f"test_metric{save_id}.csv"))
+            os.path.join(save_dir, f"test_metric{save_id}.csv"),
+            resume_iter=start_iter if resume_from else None)
 
-    best = dict(aupr=-1.0, auroc=0.0, iter=0, train_aupr=0.0,
-                train_auroc=0.0)
-    best_params = None
     total_iters = cfg.train_max_iter - 1      # range(1, max_iter)
-    done = 0
+    done = start_iter
     t0 = time.perf_counter()
-    timer = IntervalTimer(device)
+    timer = StepTimer(device)
 
     while done < total_iters:
         chunk = min(cfg.train_valid_interval, total_iters - done)
@@ -232,6 +181,13 @@ def train_on_inputs(model_cfg: ModelConfig, cfg: TrainConfig,
             if cfg.save_model:
                 best_params = map_params(lambda t: t.detach().cpu().clone(),
                                          state.params)
+
+        if cfg.checkpoint_every and save_dir \
+                and done % cfg.checkpoint_every == 0:
+            save_train_state(
+                os.path.join(save_dir, f"ckpt_fold{save_id}.npz"), state,
+                done, [plateau], [best],
+                [best_params] if cfg.save_model else None)
 
     elapsed = time.perf_counter() - t0
     if logger:

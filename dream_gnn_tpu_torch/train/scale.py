@@ -1,7 +1,7 @@
 """End-to-end training at framework scale: the single-device scale path.
 
     python -m dream_gnn_tpu_torch.train.scale [--iters N] [--quick]
-        [--device -1] [--save_dir DIR]
+        [--device -1] [--save_dir DIR] [--checkpoint_every N] [--resume]
 
 Port of ``scripts/train_scale.py`` of the JAX package: a 100k x 100k
 synthetic problem through the slabbed SpMM encoder (kernels/spmm_slab.py),
@@ -26,12 +26,14 @@ AUPR 0.10): the run prints ``LEARNING_OK`` (test AUROC > 0.75 and AUPR >
 arguments (``--n_nodes``, ``--n_enc``, ``--n_cand``) whose defaults are the
 JAX script's; a short run at small sizes reports WEAK, as it should.
 
-Artifacts in ``--save_dir``: test_metric0.csv, best_metric0.csv and
-summary.json.  Periodic checkpoints (the JAX script's checkpoint_every=1000)
-are not ported (ROADMAP.md queue A, item 5): this entry point runs with
-checkpoint_every=0 and says so.  The problem is made on the host with
-numpy from the JAX script's constant seed (``SEED``); the graph and decoder
-layouts are built with torch on the run's device.
+Artifacts in ``--save_dir``: test_metric0.csv, best_metric0.csv,
+ckpt_fold0.npz and summary.json.  The train state is checkpointed every
+``--checkpoint_every`` steps (the JAX script's 1000; 0 turns it off), after
+an eval, so it takes effect at multiples of ``--valid_interval``;
+``--resume`` goes on from ``ckpt_fold0.npz`` when there is one
+(train/checkpoint.py).  The problem is made on the host with numpy from the
+JAX script's constant seed (``SEED``); the graph and decoder layouts are
+built with torch on the run's device.
 """
 
 from __future__ import annotations
@@ -55,6 +57,7 @@ SEED = 1234
 ITERS = 4001
 QUICK_ITERS = 501
 VALID_INTERVAL = 100
+CHECKPOINT_EVERY = 1000
 
 SAVE_DIR = os.path.join(os.path.dirname(os.path.dirname(os.path.dirname(
     os.path.abspath(__file__)))), "results", "scale_train_torch")
@@ -176,6 +179,10 @@ def build_parser():
     p.add_argument("--n_cand", type=int, default=N_CAND,
                    help="train candidates, and as many test candidates")
     p.add_argument("--valid_interval", type=int, default=VALID_INTERVAL)
+    p.add_argument("--checkpoint_every", type=int, default=CHECKPOINT_EVERY,
+                   help="steps between train-state checkpoints; 0: none")
+    p.add_argument("--resume", action="store_true",
+                   help="go on from --save_dir's ckpt_fold0.npz")
     return p
 
 
@@ -190,8 +197,6 @@ def main(argv=None) -> int:
                             else f"cuda:{args.device}")
     set_numerics()
     n = args.n_nodes
-    print("checkpoint_every is not ported yet (ROADMAP.md queue A, item 5): "
-          "this run writes no checkpoint", flush=True)
 
     rng = np.random.default_rng(SEED)
     t_setup = time.perf_counter()
@@ -207,7 +212,8 @@ def main(argv=None) -> int:
     model = model_config()
     cfg = TrainConfig(model=model, beta=0.0, train_max_iter=iters,
                       train_valid_interval=args.valid_interval,
-                      save_dir=args.save_dir, checkpoint_every=0,
+                      save_dir=args.save_dir,
+                      checkpoint_every=args.checkpoint_every,
                       save_model=False)
     print(f"setup {time.perf_counter() - t_setup:.1f}s; training "
           f"{iters - 1} iters (eval every {cfg.train_valid_interval})...",
@@ -217,10 +223,14 @@ def main(argv=None) -> int:
     if device.type == "cuda":
         torch.cuda.reset_peak_memory_stats(device)
     gen = torch.Generator(device=device).manual_seed(SEED)
+    ckpt = os.path.join(args.save_dir, "ckpt_fold0.npz")
+    resume_from = ckpt if args.resume and os.path.exists(ckpt) else None
+    if resume_from:
+        print(f"resuming from {ckpt}", flush=True)
     t0 = time.perf_counter()
     res = train_on_inputs(model, cfg, train_inputs, test_inputs, lab_tr,
                           lab_te, w_tr, w_te, gen, save_dir=args.save_dir,
-                          save_id=0, verbose=True)
+                          save_id=0, verbose=True, resume_from=resume_from)
     wall = time.perf_counter() - t0
 
     summary = dict(

@@ -1,14 +1,14 @@
 """Fold-parallel training on one card: all CV folds of a seed, or all
 (seed, fold) items of the protocol, advance together as one stack.
 
-Port of ``dream_gnn_tpu/train/stacked.py`` without checkpointing
-(ROADMAP.md queue A, item 5).  The reference runs folds strictly
-sequentially (train.py:500).  At reference dataset scale one fold's step
-is a few hundred small kernels that leave the card mostly idle, so a
-stack of F folds runs each op of the step once over a leading fold axis:
-batched matrix products, one launch of the fold-batched decoder kernel
-forward and one backward (or the plain decoder over the fold axis), the per-fold clip and Adam over stacked
-leaves.  No Python loop over folds runs inside the step.
+Port of ``dream_gnn_tpu/train/stacked.py``.  The reference runs folds
+strictly sequentially (train.py:500).  At reference dataset scale one
+fold's step is a few hundred small kernels that leave the card mostly idle,
+so a stack of F folds runs each op of the step once over a leading fold
+axis: batched matrix products, one launch of the fold-batched decoder
+kernel forward and one backward (or the plain decoder over the fold axis),
+the per-fold clip and Adam over stacked leaves.  No Python loop over folds
+runs inside the step.
 
 Randomness.  Each item's params are drawn as the sequential path draws
 them, from ``fold_generator(seed, cv)``.  Every training draw of the
@@ -25,6 +25,12 @@ encoder graph (SURVEY §7.3.1), the plateau LR is per fold on the host,
 best-by-test-AUPR selection is per fold, and the trailing partial chunk
 of steps is not evaluated.  Each interval's steps (not its evals) are
 timed with CUDA events on the card.
+
+Failure recovery: with ``checkpoint_every`` the whole stack's train state
+(params, Adam moments, lrs, the generator) with every item's plateau
+scheduler and best-by-AUPR bookkeeping goes to one ``ckpt_stacked.npz``
+under the first seed directory that is set; ``cfg.resume`` goes on from it,
+and refuses a checkpoint of a stack of another size.
 """
 
 from __future__ import annotations
@@ -44,15 +50,19 @@ from dream_gnn_tpu_torch.model.dream_gnn import (ModelInputs, forward_stacked,
                                                  param_leaves)
 from dream_gnn_tpu_torch.sharding.foldstack import (StackedFolds, stack_folds,
                                                     tile, tree_map)
-from dream_gnn_tpu_torch.train.loop import (IntervalTimer, derive_model_cfg,
-                                            fold_generator, fold_seed,
-                                            save_params)
+from dream_gnn_tpu_torch.train.checkpoint import (checkpoint_items,
+                                                  load_train_state,
+                                                  save_params,
+                                                  save_train_state)
+from dream_gnn_tpu_torch.train.loop import (derive_model_cfg, fold_generator,
+                                            fold_seed)
 from dream_gnn_tpu_torch.train.losses import total_loss
 from dream_gnn_tpu_torch.train.optim import (PlateauScheduler, StackedAdam,
                                              clip_by_global_norm_per_fold_)
 from dream_gnn_tpu_torch.train.step import decoder_targets, run_steps
 from dream_gnn_tpu_torch.utils.logging import MetricLogger
 from dream_gnn_tpu_torch.utils.metrics import aupr_masked, auroc_masked
+from dream_gnn_tpu_torch.utils.profiling import StepTimer
 
 
 def stack_seed(seeds: Sequence[int], folds: Sequence[int]) -> int:
@@ -178,6 +188,11 @@ def train_stacked_protocol(dataset: DreamDataset, cfg: TrainConfig,
     ``save_model``) under each seed's ``save_dirs[s]``.  Every item of the
     stack shares the stacked graph data; only the params and the random
     draws differ between the S copies of a fold.
+
+    ``cfg.resume``: go on from the ``ckpt_stacked.npz`` that
+    ``cfg.checkpoint_every`` writes, when there is one; the CSV rows past
+    it are dropped, so the resumed run's artifacts equal an uninterrupted
+    run's.
     """
     seeds, folds = list(seeds), list(folds)
     save_dirs = list(save_dirs) if save_dirs is not None \
@@ -202,6 +217,26 @@ def train_stacked_protocol(dataset: DreamDataset, cfg: TrainConfig,
     best = [dict(aupr=-1.0, auroc=0.0, iter=0, train_aupr=0.0,
                  train_auroc=0.0) for _ in items]
     best_params = [None] * n_items
+
+    # The checkpoint's anchor: the first seed directory that is set.
+    anchor = next((d for d in save_dirs if d), None)
+    ckpt_path = os.path.join(anchor, "ckpt_stacked.npz") if anchor else None
+    start_iter = 0
+    if cfg.resume and ckpt_path and os.path.exists(ckpt_path):
+        n_ckpt = checkpoint_items(ckpt_path)
+        if n_ckpt != n_items:
+            raise ValueError(
+                f"{ckpt_path} holds {n_ckpt} stacked items but this run "
+                f"stacks {n_items} ({len(seeds)} seeds x {len(folds)} "
+                f"folds): delete the stale checkpoint or match the stacking "
+                f"it was written with")
+        start_iter, best, kept = load_train_state(
+            ckpt_path, state, plateaus, with_best_params=cfg.save_model)
+        best_params = kept or best_params
+        if verbose:
+            print(f"Resumed stacked run from {ckpt_path} at iter "
+                  f"{start_iter}")
+
     for d in save_dirs:
         if d:
             os.makedirs(d, exist_ok=True)
@@ -209,13 +244,14 @@ def train_stacked_protocol(dataset: DreamDataset, cfg: TrainConfig,
         ["iter", "loss", "train_auroc", "train_aupr",
          "test_auroc", "test_aupr"],
         ["%d", "%.4f", "%.4f", "%.4f", "%.4f", "%.4f"],
-        os.path.join(save_dirs[si], f"test_metric{cv + 1}.csv"))
+        os.path.join(save_dirs[si], f"test_metric{cv + 1}.csv"),
+        resume_iter=start_iter if start_iter else None)
         if save_dirs[si] else None for si, cv in items]
 
     total_iters = cfg.train_max_iter - 1       # range(1, max_iter)
-    done = 0
+    done = start_iter
     t0 = time.perf_counter()
-    timer = IntervalTimer(device)
+    timer = StepTimer(device)
     while done < total_iters:
         chunk = min(cfg.train_valid_interval, total_iters - done)
         timer.start()
@@ -246,6 +282,10 @@ def train_stacked_protocol(dataset: DreamDataset, cfg: TrainConfig,
                     best_params[i] = map_params(
                         lambda t, i=i: t[i].detach().cpu().clone(),
                         state.params)
+        if cfg.checkpoint_every and ckpt_path \
+                and done % cfg.checkpoint_every == 0:
+            save_train_state(ckpt_path, state, done, plateaus, best,
+                             best_params if cfg.save_model else None)
         if verbose:
             m = metrics.mean(axis=0)
             print(f"Iter={done:5d}, Loss={m[0]:.4f}, "

@@ -2,21 +2,36 @@
 
 Reference ``MetricLogger`` (utils.py:30-44) is a flushing CSV writer
 logging ``iter,loss,train_auroc,train_aupr,test_auroc,test_aupr``
-every eval interval.  Same file format as the JAX package.
+every eval interval.  Same file format as the JAX package, and the same
+``resume_iter`` (dream_gnn_tpu/utils/logging.py).
 """
 
 from __future__ import annotations
 
 import csv
+import os
 from collections import OrderedDict
 
 
 class MetricLogger:
-    def __init__(self, attr_names, parse_formats, save_path):
+    def __init__(self, attr_names, parse_formats, save_path,
+                 resume_iter=None):
+        """``resume_iter``: keep the existing rows whose leading (iter)
+        column is <= resume_iter and append after them, so that the rows a
+        preempted run wrote after its last checkpoint are dropped and a
+        resumed run's CSV equals an uninterrupted run's.  ``None`` (the
+        default) truncates, as the reference writer does."""
         self._attr_format_dict = OrderedDict(zip(attr_names, parse_formats))
+        kept = []
+        if resume_iter is not None and os.path.exists(save_path):
+            with open(save_path, newline="") as f:
+                rows = list(csv.reader(f))
+            kept = [r for r in rows[1:]
+                    if r and r[0].isdigit() and int(r[0]) <= resume_iter]
         self._file = open(save_path, "w", newline="")
         self._csv = csv.writer(self._file)
         self._csv.writerow(attr_names)
+        self._csv.writerows(kept)
         self._file.flush()
 
     def log(self, **kwargs):

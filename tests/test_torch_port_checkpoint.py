@@ -24,7 +24,7 @@ from dream_gnn_tpu_torch.model.dream_gnn import forward as t_forward
 from dream_gnn_tpu_torch.model.dream_gnn import init_params as t_init
 from dream_gnn_tpu_torch.model.dream_gnn import param_leaves
 from dream_gnn_tpu_torch.train.loop import fold_inputs as t_fold_inputs
-from dream_gnn_tpu_torch.train.loop import load_params, save_params
+from dream_gnn_tpu_torch.train.checkpoint import load_params, save_params
 from tests._torch_port_setup import datasets, model_cfgs, numpy_tree
 
 OUT_NAMES = ("pred", "drug_out", "drug_sim_out", "dis_out", "dis_sim_out")

@@ -3,8 +3,9 @@ artifacts that tests/test_train_smoke.py pins for the JAX package, in
 sequence and with ``--fold_parallel`` / ``--seed_parallel``, in grid and
 edges decode mode and with either decoder backend, the flag surface
 matches the JAX CLI, ``--save_model`` writes the JAX checkpoint's leaf
-layout, parts not ported yet raise (also where the JAX CLI would load the
-reference ``.mat``), and a card that is not there is an error."""
+layout, and a card that is not there is an error.  The ``.mat`` path,
+checkpoint and resume, novel predictions and ``--profile_dir`` have files
+of their own (tests/test_torch_port_{matio,resume,novel,tooling}.py)."""
 
 import os
 
@@ -72,27 +73,6 @@ def test_cli_save_model_writes_params(tiny_preset, tmp_path):
                                          for i in range(len(leaves)))
         for i, want in enumerate(leaves):
             assert f[f"leaf_{i}"].shape == tuple(want.shape), i
-
-
-def test_cli_raises_where_jax_loads_the_reference_mat(tmp_path, monkeypatch):
-    """With raw_data/drug_data/Gdataset/Gdataset.mat under the working
-    directory the JAX CLI trains on that file; the port, which cannot load
-    it yet, raises naming ROADMAP.md item A11 instead of training on the
-    synthetic preset."""
-    from dream_gnn_tpu.data.matio import save_mat
-    from dream_gnn_tpu.data.synthetic import synthetic_raw_data
-
-    mat = tmp_path / "raw_data" / "drug_data" / "Gdataset" / "Gdataset.mat"
-    mat.parent.mkdir(parents=True)
-    save_mat(str(mat), synthetic_raw_data(n_drug=40, n_dis=30, n_pos=60,
-                                          seed=3))
-    monkeypatch.chdir(tmp_path)
-    with pytest.raises(NotImplementedError, match=r"item 11: \.mat"):
-        main(["--data_name", "Gdataset", "--device", "-1", "--seeds", "1",
-              "--folds", "0", "--train_max_iter", "3",
-              "--train_valid_interval", "2", "--save_dir",
-              str(tmp_path / "out"), *SMALL])
-    assert not (tmp_path / "out").exists()
 
 
 def test_flag_surface_matches_jax_cli():
@@ -168,15 +148,6 @@ def test_cli_decode_paths_write_artifacts(tiny_preset, tmp_path, capsys,
         assert len(f.read().strip().split("\n")) == 4
     assert os.path.exists(os.path.join(save_dir, "summary_results.csv"))
     assert 0.0 <= summary["mean_auroc"] <= 1.0
-
-
-@pytest.mark.parametrize("flags", [
-    ["--resume"], ["--resume", "--fold_parallel"],
-    ["--checkpoint_every", "250"], ["--generate_top_predictions"],
-    ["--data_path", "x.mat"], ["--profile_dir", "trace"]])
-def test_unported_flags_raise(flags):
-    with pytest.raises(NotImplementedError, match="ROADMAP.md queue A"):
-        main(["--device", "-1", *flags])
 
 
 def test_missing_card_raises():

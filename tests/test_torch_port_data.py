@@ -104,9 +104,19 @@ def test_random_embedding_mode_equal():
     _eq(j.drug_feature_graph.a, t.drug_feature_graph.a, "feature graph")
 
 
-def test_mat_path_not_ported():
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        TDataset.load("x.mat", device="cpu")
+def test_mat_path_not_ported(tmp_path):
+    """The port loads a ``.mat`` path, which it refused until its loader
+    was ported (the name is the test's history): the same dataset as the
+    JAX loader from the same file."""
+    from dream_gnn_tpu.data.matio import save_mat
+
+    path = str(tmp_path / "x.mat")
+    save_mat(path, j_raw(n_drug=20, n_dis=12, n_pos=30, seed=9))
+    j, t = JDataset.load(path, k=3), TDataset.load(path, k=3, device="cpu")
+    _eq(j.raw.association, torch.as_tensor(t.raw.association), "didr")
+    _eq(j.drug_feat, t.drug_feat, "drug features")
+    _eq(j.dis_graph.a, t.dis_graph.a, "disease graph")
+    _eq(j.drug_feature_graph.a, t.drug_feature_graph.a, "feature graph")
 
 
 def test_cuda_request_without_card_raises():

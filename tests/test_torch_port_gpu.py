@@ -1507,3 +1507,119 @@ def test_bench_scale_launch_counts(cuda, monkeypatch):
         assert np.isfinite(res["loss"]) and res["peak_memory_bytes"] > 0
         assert sg.LAUNCHES == {"fwd": fwd, "bwd": fwd, "raw": 0}
         assert not any(sb.LAUNCHES.values()) and not any(sp.LAUNCHES.values())
+
+
+# ---------------------------------------------------------------------------
+# Checkpoint and resume, and the novel-prediction forward, on the card.
+
+def _tiny_card_state(dev, stacked: bool, seed: int):
+    """A small Gdataset-like dataset on the card and a train state of its
+    fold 0 (or a stack of folds 0 and 1) with the bf16 grid kernels."""
+    from dream_gnn_tpu_torch.config import ModelConfig, TrainConfig
+    from dream_gnn_tpu_torch.data.loader import DreamDataset
+    from dream_gnn_tpu_torch.data.synthetic import synthetic_raw_data
+    from dream_gnn_tpu_torch.model.dream_gnn import init_params
+    from dream_gnn_tpu_torch.sharding.foldstack import stack_folds
+    from dream_gnn_tpu_torch.train.loop import derive_model_cfg, fold_inputs
+    from dream_gnn_tpu_torch.train.stacked import (init_params_stacked,
+                                                   init_state_stacked,
+                                                   make_one_step_stacked)
+    from dream_gnn_tpu_torch.train.step import init_state, make_one_step
+
+    ds = DreamDataset(synthetic_raw_data(n_drug=70, n_dis=50, n_pos=200,
+                                         seed=2), device=dev)
+    cfg = TrainConfig(model=ModelConfig(
+        layers=2, gcn_agg_units=96, gcn_out_units=32, nhid1=64, nhid2=32,
+        decode_mode="grid", decoder_backend="pallas",
+        compute_dtype="bfloat16"))
+    mcfg = derive_model_cfg(cfg, ds)
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    if stacked:
+        state = init_state_stacked(init_params_stacked(mcfg, [seed], [0, 1],
+                                                       dev), gen, cfg)
+        st = stack_folds(ds, [0, 1])
+        step = make_one_step_stacked(mcfg, cfg)
+        args = (st.inputs, st.labels, st.edge_weight)
+    else:
+        state = init_state(init_params(gen, mcfg), gen, cfg)
+        inputs, _, labels, _ = fold_inputs(ds, 0)
+        step = make_one_step(mcfg, cfg)
+        args = (inputs, labels, ds.fold(0).train_w)
+    return ds, mcfg, state, lambda: step(state, *args)
+
+
+def test_cuda_generator_state_round_trips_a_checkpoint(cuda, tmp_path):
+    """The card's generator state is saved as ``get_state()`` bytes and
+    restored into a generator on the card: the next draws are the same."""
+    from dream_gnn_tpu_torch.train.checkpoint import (load_train_state,
+                                                      save_train_state)
+    from dream_gnn_tpu_torch.train.optim import PlateauScheduler
+
+    _, _, a, step = _tiny_card_state(cuda, False, 1)
+    _, _, b, _ = _tiny_card_state(cuda, False, 2)
+    step()
+    path = str(tmp_path / "ckpt.npz")
+    best = [dict(aupr=0.1, auroc=0.5, iter=1, train_aupr=0.1,
+                 train_auroc=0.5)]
+    save_train_state(path, a, 1, [PlateauScheduler(0.002)], best)
+    load_train_state(path, b, [PlateauScheduler(0.002)])
+    assert b.generator.device == cuda
+    assert torch.equal(torch.rand(1000, generator=a.generator, device=cuda),
+                       torch.rand(1000, generator=b.generator, device=cuda))
+
+
+@pytest.mark.parametrize("stacked", [False, True])
+def test_save_load_resume_equals_uninterrupted_steps(cuda, tmp_path,
+                                                     stacked):
+    """N steps, a save, a load into a fresh state and M more steps give the
+    params of N + M uninterrupted steps, bit for bit: the hand kernels'
+    bits do not depend on the launch."""
+    from dream_gnn_tpu_torch.model.dream_gnn import param_leaves
+    from dream_gnn_tpu_torch.train.checkpoint import (load_train_state,
+                                                      save_train_state)
+    from dream_gnn_tpu_torch.train.optim import PlateauScheduler
+
+    n_items = 2 if stacked else 1
+    best = [dict(aupr=0.0, auroc=0.0, iter=0, train_aupr=0.0,
+                 train_auroc=0.0)] * n_items
+    scheds = [PlateauScheduler(0.002) for _ in range(n_items)]
+    _, _, full, full_step = _tiny_card_state(cuda, stacked, 3)
+    for _ in range(5):
+        full_step()
+    _, _, cut, cut_step = _tiny_card_state(cuda, stacked, 3)
+    for _ in range(3):
+        cut_step()
+    path = str(tmp_path / "ckpt.npz")
+    save_train_state(path, cut, 3, scheds, best)
+    _, _, resumed, resumed_step = _tiny_card_state(cuda, stacked, 4)
+    load_train_state(path, resumed, scheds)
+    for _ in range(2):
+        resumed_step()
+    torch.cuda.synchronize()
+    for a, b in zip(param_leaves(full.params), param_leaves(resumed.params)):
+        assert torch.equal(a, b)
+
+
+@pytest.mark.parametrize("mode", ["grid", "edges"])
+def test_novel_forward_on_the_card_equals_plain(cuda, mode):
+    """The novel-prediction forward on the card (one decoder kernel launch
+    over every zero cell) against the plain versions on the CPU:
+    max|card - cpu| / max|cpu| <= 1e-2, as the eval forward is held."""
+    import dataclasses
+
+    from dream_gnn_tpu_torch.data.loader import DreamDataset
+    from dream_gnn_tpu_torch.eval.novel import novel_scores
+    from dream_gnn_tpu_torch.model.dream_gnn import map_params
+
+    ds, mcfg, state, _ = _tiny_card_state(cuda, False, 5)
+    mcfg = dataclasses.replace(mcfg, decode_mode=mode)
+    params = map_params(lambda t: t.detach().cpu(), state.params)
+    _zero_launches()
+    zr, zc, card = novel_scores(params, mcfg, ds, 0)
+    kind = "grid" if mode == "grid" else "edge"
+    assert _decoder_launches()[kind]["fwd"] == 1
+    assert len(zr) == 70 * 50 - int(ds.raw.association.sum())
+    cpu_ds = DreamDataset(ds.raw, device="cpu")
+    zr2, zc2, cpu = novel_scores(params, mcfg, cpu_ds, 0)
+    assert np.array_equal(zr, zr2) and np.array_equal(zc, zc2)
+    assert np.abs(card - cpu).max() <= 1e-2 * np.abs(cpu).max()
