@@ -117,7 +117,22 @@ Phases, each of which fails the run if it fails:
     ``grid_fwd_mma_kernel`` and ``grid_bwd_mma_kernel``, and ms/step with
     the trace on and off;
 28. ``utils.timing.chained_ms`` times row 3 beside its bound, and its floor
-    guard raises on a floor above the reading.
+    guard raises on a floor above the reading;
+29. the six augment methods (``--aug_methods edge_dropout add_random_edges
+    graph_noise feature_noise feature_masking mix_up``) through the CLI at
+    full width, 41 steps with an eval every 20, sequential grid (rows 1
+    and 2) and ``--decode_mode edges --fold_parallel`` (rows 7 and 8),
+    each in turns with the default two methods (two, six, six, two), with
+    their launch counts and ms/step beside those of phases 7 and 10, and
+    phase 12's profile of a six-method step; the draws of the CUDA
+    generator on the 10-fold stack (the add count per rating and fold
+    within 5 sigma of its rate, graph noise on nonzero entries only, the
+    feature keep rate 0.9 unscaled, mix-up's permutations and
+    coefficients); and one augmented step with injected draws through the
+    kernels and through their plain versions on the card, sequential and
+    stacked, grid and edges: each launch against its plain version on its
+    own inputs, and the step's logits and loss, within the bf16 tolerance;
+    the gradients' largest errors printed.
 
 Each trainer phase sets every launch count to 0 just before it drives its
 entry point and reads the counts just after.
@@ -815,11 +830,12 @@ TRAIN_41 = ["--train_max_iter", "41", "--train_valid_interval", "20"]
 
 
 def phase_trainer():
-    """Trainer steps through the CLI; returns the kernels' launch counts."""
-    _, launches = _run_trainer("trainer (Gdataset defaults)",
-                               ["--folds", "0", *TRAIN_41], 1)
+    """Trainer steps through the CLI; returns the kernels' launch counts
+    and ms/step."""
+    summary, launches = _run_trainer("trainer (Gdataset defaults)",
+                                     ["--folds", "0", *TRAIN_41], 1)
     _expect_launches(launches, "grid", ("fwd", "bwd"), "trainer")
-    return launches
+    return launches, summary["results"][0]["ms_per_step"]
 
 
 def phase_trainer_stacked():
@@ -844,14 +860,14 @@ def phase_trainer_edges():
 
 def phase_trainer_edges_stacked():
     """The edges decode mode with ``--fold_parallel``: the 10 folds of one
-    seed as one stack."""
+    seed as one stack; returns the launch counts and ms/step."""
     summary, launches = _run_trainer(
         f"edges fold-parallel trainer ({NF} folds)",
         ["--decode_mode", "edges", "--fold_parallel", *TRAIN_41], NF)
     _print_stacked_ms(summary)
     _expect_launches(launches, "edge", ("fwd_b", "bwd_b"),
                      "edges fold-parallel")
-    return launches
+    return launches, summary["results"][0]["ms_per_step"]
 
 
 def phase_plain_backend():
@@ -936,18 +952,21 @@ def _step_names(mode: str) -> dict:
                 forbid=(f"{kind}_fwd_kernel", f"{kind}_bwd_kernel"))
 
 
-def phase_profile(path, n_steps: int = 10) -> float:
-    """Where a default training step's time goes; returns kernels/step."""
-    from dream_gnn_tpu_torch.config import TrainConfig
+def phase_profile(path, n_steps: int = 10, methods=None) -> float:
+    """Where a default training step's time goes (with ``methods``, a step
+    with those augment methods); returns kernels/step."""
+    from dream_gnn_tpu_torch.config import AugmentConfig, TrainConfig
     from dream_gnn_tpu_torch.data.loader import DreamDataset
     from dream_gnn_tpu_torch.model.dream_gnn import init_params
     from dream_gnn_tpu_torch.train.loop import derive_model_cfg, fold_inputs
     from dream_gnn_tpu_torch.train.step import init_state, make_one_step
 
     mode = path["decode_mode"]
+    aug = "" if methods is None else f", augment methods {' '.join(methods)}"
     print(f"== profile: {n_steps} training steps, Gdataset defaults, "
-          f"{mode} mode")
-    cfg = TrainConfig()
+          f"{mode} mode{aug}")
+    cfg = TrainConfig() if methods is None \
+        else TrainConfig(augment=AugmentConfig(methods=methods))
     ds = DreamDataset.load("Gdataset", k=cfg.num_neighbor, device="cuda:0")
     mcfg = dataclasses.replace(derive_model_cfg(cfg, ds), **path)
     gen = torch.Generator(device="cuda:0").manual_seed(0)
@@ -955,7 +974,7 @@ def phase_profile(path, n_steps: int = 10) -> float:
     step = make_one_step(mcfg, cfg)
     inputs, _, labels, _ = fold_inputs(ds, 0)
     w = ds.fold(0).train_w
-    return _profile(f"sequential {mode}",
+    return _profile(f"sequential {mode}{aug}",
                     lambda: step(state, inputs, labels, w), n_steps,
                     **_step_names(mode))
 
@@ -1177,19 +1196,28 @@ def _seq_row(layout, dev):
                       gathered=(g.n_slots, 128 * 2))
 
 
-def _unit_order(fn, *args):
-    """``fn(*args)`` with each torch.matmul of depth 128 (K2's a2 =
-    rnd(h1d) @ rnd(w2)) summed one unit at a time in unit order, in f32:
-    the order that the tensor-core K2 takes where h2d sits near a bf16
-    midpoint (a product of two bf16 values is exact in f32)."""
+def _unit_order(fn, *args, depths=(128,), long_f64=False):
+    """``fn(*args)`` with each torch.matmul of a depth in ``depths`` (K2's
+    a2 = rnd(h1d) @ rnd(w2) at 128; the grid and per-edge decoders' a2 and
+    dh1 = rnd(da2) @ rnd(w2)^T at 128 and 64) summed one unit at a time in
+    unit order, in f32: the order that the tensor-core kernels take where a
+    value sits near a bf16 midpoint (a product of two bf16 values is exact
+    in f32).  With ``long_f64`` every other product (the decoders' dW2 and
+    dw3, sums over all cells or edges) is summed in float64 and rounded to
+    f32 once: at F = 10 cuBLAS's f32 batched product over 185,609 cells is
+    1.2e-4 of its largest value off that sum, the kernels 4e-6 to 2.6e-5
+    (PERF.md)."""
     matmul = torch.matmul
 
     def unit(x, y):
-        if x.shape[-1] != 128 or y.dim() != 2 or y.shape[0] != 128:
+        k = x.shape[-1]
+        if k not in depths or y.dim() < 2 or y.shape[-2] != k:
+            if long_f64:
+                return matmul(x.double(), y.double()).float()
             return matmul(x, y)
-        acc = torch.zeros(*x.shape[:-1], y.shape[1], device=x.device)
-        for u in range(128):
-            acc += x[..., u:u + 1] * y[u:u + 1, :]
+        acc = torch.zeros(*x.shape[:-1], y.shape[-1], device=x.device)
+        for u in range(k):
+            acc += x[..., u:u + 1] * y[..., u:u + 1, :]
         return acc
 
     torch.matmul = unit
@@ -2075,6 +2103,295 @@ def phase_chained_ms():
     gd.LAUNCHES.update(saved)
 
 
+# ---------------------------------------------------------------------------
+# The six augment methods of the training step (phase 29).
+
+SIX = ("edge_dropout", "add_random_edges", "graph_noise", "feature_noise",
+       "feature_masking", "mix_up")
+
+
+def _within_5_sigma(count: float, n: int, p: float) -> bool:
+    return abs(count - n * p) <= 5 * np.sqrt(n * p * (1 - p))
+
+
+def _hold_draws(inputs, draws, cfg) -> None:
+    """The CUDA generator's draws on the fold stack: add counts per rating,
+    direction and fold within 5 sigma of the fold's own rate, graph noise
+    on nonzero entries only, the feature keep rate 1 - 0.1 unscaled,
+    mix-up's permutations and coefficients."""
+    from dream_gnn_tpu_torch.augment.masks import apply_augment
+
+    enc = inputs.enc_graph
+    cells = enc.n_drug * enc.n_dis
+    by = {(m, f): d for m, f, d in draws}
+    add = by["add_random_edges", "edge_masks"]
+    worst, expect = 0.0, []
+    for r, a in enumerate((enc.a0(), enc.a1)):
+        edges = a.sum((-2, -1)).tolist()
+        expect = [cells * min(cfg.add_edge_rate * e / cells, 1.0)
+                  for e in edges]
+        for k in ("fwd_add", "rev_add"):
+            counts = add[k][:, r].sum((-2, -1)).tolist()
+            for f, (n_p, c) in enumerate(zip(expect, counts)):
+                p = n_p / cells
+                worst = max(worst, abs(c - n_p) / np.sqrt(n_p * (1 - p)))
+                if not _within_5_sigma(c, cells, p):
+                    raise AssertionError(f"fold {f} rating {r} {k}: {c:.0f} "
+                                         f"added, expected {n_p:.1f}")
+    print(f"  add counts: the largest of {4 * len(expect)} deviations is "
+          f"{worst:.2f} sigma (rating 1 expects {min(expect):.1f}-"
+          f"{max(expect):.1f} added edges a fold and direction)")
+    noised, _ = apply_augment(inputs, [d for d in draws
+                                       if d[0] == "graph_noise"], cfg)
+    for field in ("drug_graph", "dis_graph", "drug_feature_graph",
+                  "dis_feature_graph"):
+        a, b = getattr(inputs, field).a, getattr(noised, field).a
+        if not (bool((b[a == 0] == 0).all()) and bool((b >= 0).all())
+                and not torch.equal(a[a != 0], b[a != 0])):
+            raise AssertionError(f"graph noise on {field} touched a zero, "
+                                 f"went negative or did nothing")
+    for field in ("drug_feat", "dis_feat"):
+        u = by["feature_masking", field]
+        x = getattr(inputs, field)
+        masked, _ = apply_augment(inputs, [("feature_masking", field, u)],
+                                  cfg)
+        y, kept = getattr(masked, field), u > cfg.feature_mask_rate
+        if not (torch.equal(y[kept], x[kept]) and bool((y[~kept] == 0).all())):
+            raise AssertionError(f"feature masking of {field} rescaled or "
+                                 f"kept a masked entry")
+        rates = kept.flatten(1).float().mean(1).tolist()
+        n = x[0].numel()
+        if not all(_within_5_sigma(r * n, n, 0.9) for r in rates):
+            raise AssertionError(f"feature keep rates {rates}")
+        perm, lam = by["mix_up", field]
+        if not torch.equal(perm.sort(-1).values, torch.arange(
+                perm.shape[-1], device=perm.device).expand_as(perm)):
+            raise AssertionError(f"a mix-up row order of {field} is not a "
+                                 f"permutation")
+        if lam.shape != (len(rates),) or not bool(((lam >= 0)
+                                                   & (lam <= 1)).all()):
+            raise AssertionError(f"mix-up coefficients {lam.tolist()}")
+        print(f"  {field}: keep rate {min(rates):.4f}-{max(rates):.4f} over "
+              f"the folds; mix-up coefficients {np.round(lam.tolist(), 3)}")
+    print("  graph noise: zeros stay zeros, values stay >= 0")
+
+
+def _plain_versions():
+    """(module, launch, plain version) of each decoder kernel of rows 1-8;
+    a plain version takes its launch's arguments (but the edge backward's
+    CSR, which only the kernel uses)."""
+    from dream_gnn_tpu_torch.kernels import edge_decoder as ed
+    from dream_gnn_tpu_torch.kernels import grid_decoder as gd
+
+    return [(gd, "launch_fwd", gd.grid_decoder_plain),
+            (gd, "launch_bwd", gd.grid_decoder_plain_bwd),
+            (gd, "launch_fwd_batched", gd.grid_decoder_batched_plain),
+            (gd, "launch_bwd_batched", gd.grid_decoder_batched_plain_bwd),
+            (ed, "launch_fwd", ed.edge_decoder_plain),
+            (ed, "launch_bwd", lambda *a: ed.edge_decoder_plain_bwd(*a[:-1])),
+            (ed, "launch_fwd_batched", ed.edge_decoder_batched_plain),
+            (ed, "launch_bwd_batched",
+             lambda *a: ed.edge_decoder_batched_plain_bwd(*a[:-1]))]
+
+
+def _plain_kernels():
+    """Every decoder wrapper of rows 1-8 calls its kernel's plain version
+    in place of the kernel, on the card's tensors."""
+    from contextlib import ExitStack
+    from unittest import mock
+
+    stack = ExitStack()
+    for mod, name, plain in _plain_versions():
+        stack.enter_context(mock.patch.object(mod, name, plain))
+    return stack
+
+
+def _recorded_kernels(calls: list):
+    """Every decoder wrapper of rows 1-8 launches its kernel and appends
+    (launch, plain version, arguments, outputs) to ``calls``."""
+    from contextlib import ExitStack
+    from unittest import mock
+
+    stack = ExitStack()
+    for mod, name, plain in _plain_versions():
+        def record(*args, _launch=getattr(mod, name), _name=name,
+                   _plain=plain):
+            out = _launch(*args)
+            calls.append((_name, _plain, args, out))
+            return out
+        stack.enter_context(mock.patch.object(mod, name, record))
+    return stack
+
+
+def _named_leaves(tree, path=""):
+    """(name, tensor) of a param tree in ``param_leaves`` order."""
+    if isinstance(tree, dict):
+        return [x for k in sorted(tree)
+                for x in _named_leaves(tree[k], f"{path}.{k}".lstrip("."))]
+    if isinstance(tree, list):
+        return [x for i, v in enumerate(tree)
+                for x in _named_leaves(v, f"{path}[{i}]")]
+    return [(path, tree)]
+
+
+def _augmented_step(ds, mode: str, stacked: bool):
+    """One training step at the CLI's default width with the six methods,
+    its draws made once and injected, through the kernels and through their
+    plain versions; both passes start from one generator state, so their
+    dropout masks are the same.  Held within the bf16 tolerance: each
+    kernel launch of the step against its plain version on the launch's
+    own inputs (its depth-64 and -128 products in unit order, as the card
+    tests hold them, and its sums over all cells or edges in float64), and
+    the step's logits and loss; printed: the gradients' largest errors,
+    which the plain pass's f32 sums in cuBLAS's order move.  Returns the
+    largest held error."""
+    from dream_gnn_tpu_torch.augment.masks import apply_augment, draw_augment
+    from dream_gnn_tpu_torch.config import AugmentConfig, TrainConfig
+    from dream_gnn_tpu_torch.model.dream_gnn import (forward, forward_stacked,
+                                                     init_params, map_params)
+    from dream_gnn_tpu_torch.sharding.foldstack import stack_folds
+    from dream_gnn_tpu_torch.train.loop import derive_model_cfg, fold_inputs
+    from dream_gnn_tpu_torch.train.losses import total_loss
+    from dream_gnn_tpu_torch.train.stacked import init_params_stacked
+    from dream_gnn_tpu_torch.train.step import decoder_targets
+
+    dev = torch.device("cuda", 0)
+    cfg = TrainConfig(augment=AugmentConfig(methods=SIX))
+    mcfg = dataclasses.replace(derive_model_cfg(cfg, ds), compute_dtype=
+                               "bfloat16", decoder_backend="pallas",
+                               decode_mode=mode)
+    if stacked:
+        st = stack_folds(ds, list(range(NF)))
+        inputs, labels, weight = st.inputs, st.labels, st.edge_weight
+        params0 = init_params_stacked(mcfg, [0], list(range(NF)), dev)
+    else:
+        inputs, _, labels, _ = fold_inputs(ds, 0)
+        weight = ds.fold(0).train_w
+        params0 = init_params(torch.Generator(device=dev).manual_seed(0),
+                              mcfg)
+    draws = draw_augment(torch.Generator(device=dev).manual_seed(1), inputs,
+                         cfg.augment)
+    calls, outs = [], {}
+    for name, route in (("kernels", lambda: _recorded_kernels(calls)),
+                        ("plain", _plain_kernels)):
+        params = map_params(lambda t: t.detach().clone().requires_grad_(True),
+                            params0)
+        gen = torch.Generator(device=dev).manual_seed(2)
+        with route():
+            aug, masks = apply_augment(inputs, draws, cfg.augment)
+            pred, *routes = (forward_stacked if stacked else forward)(
+                params, aug, mcfg, train=True, generator=gen,
+                edge_masks=masks)
+            pred, lab, w = decoder_targets(pred, aug, mcfg, labels, weight)
+            loss, _ = total_loss(pred, lab, *routes, beta=cfg.beta,
+                                 smoothing=cfg.label_smoothing, weight=w)
+            loss.sum().backward()
+        torch.cuda.synchronize()
+        outs[name] = [("logits", pred.detach()), ("loss", loss.detach())] + [
+            (k, p.grad) for k, p in _named_leaves(params)]
+
+    def err(a, b):
+        a, b = a.detach(), b.detach()
+        return float((a - b).abs().max()) / max(float(b.abs().max()), 1e-30)
+
+    launch_errs, cublas_errs = {}, {}
+    for launch, plain, args, out in calls:
+        with torch.no_grad():
+            ref = _unit_order(plain, *args, depths=(64, 128),
+                              long_f64=True)
+            cublas = plain(*args)
+        if isinstance(out, torch.Tensor):
+            out, ref, cublas = (out,), (ref,), (cublas,)
+        launch_errs[launch] = max(err(a, b) for a, b in zip(out, ref))
+        cublas_errs[launch] = max(err(a, b) for a, b in zip(cublas, ref))
+    errs = {k: err(a, b) for (k, a), (_, b) in zip(outs["kernels"],
+                                                    outs["plain"])}
+    held = dict(launch_errs, logits=errs.pop("logits"),
+                loss=errs.pop("loss"))
+    grads = sorted(((e, k) for k, e in errs.items()), reverse=True)
+    dec = [(e, k) for e, k in grads if k.startswith("decoder")]
+    enc = [(e, k) for e, k in grads if not k.startswith("decoder")]
+    worst = max(held.values())
+    print(f"  injected-draw step, {mode}{' stacked' if stacked else ''}: "
+          f"each launch against its plain version on its inputs "
+          + ", ".join(f"{k} {v:.3e} (the plain version's own f32 sums in "
+                      f"cuBLAS's order {cublas_errs[k]:.3e})"
+                      for k, v in launch_errs.items())
+          + f"; the step's logits {held['logits']:.3e}, loss "
+          f"{held['loss']:.3e} (kernels vs plain on the card, tol "
+          f"{TOL[torch.bfloat16]:.0e}); gradients, not held: the decoder's "
+          f"{len(dec)} up to {dec[0][0]:.3e} ({dec[0][1]}), the encoder's "
+          f"{len(enc)} up to {enc[0][0]:.3e} ({enc[0][1]})")
+    if worst > TOL[torch.bfloat16] or len(launch_errs) != 2 \
+            or not all(np.isfinite(list(errs.values()))):
+        raise AssertionError(f"the augmented step through the kernels is "
+                             f"{worst:.3e} off its plain versions "
+                             f"({held})")
+    return worst
+
+
+def _six_vs_two(label: str, flags, n_folds: int, module: str, kinds):
+    """The CLI with the default two methods and with the six, in turns
+    (two, six, six, two); each run's launches hold to ``kinds`` of
+    ``module``.  Returns (ms/step of each run, the six-method launches)."""
+    ms = {"two": [], "six": []}
+    for which in ("two", "six", "six", "two"):
+        aug = ["--aug_methods", *SIX] if which == "six" else []
+        summary, launches = _run_trainer(
+            f"{label}, {which} augment methods", [*flags, *TRAIN_41, *aug],
+            n_folds)
+        _expect_launches(launches, module, kinds, f"{label} {which}-method")
+        ms[which].append(summary["results"][0]["ms_per_step"])
+        if which == "six":
+            six_launches = launches
+    return ms, six_launches
+
+
+def phase_six_augment_methods(gpu: str, default_ms: dict):
+    """The six augment methods through the CLI, their draws on the card and
+    one injected-draw step through the kernels against the plain versions;
+    ``default_ms`` holds phase 7's and phase 10's ms/step."""
+    from dream_gnn_tpu_torch.augment.masks import draw_augment
+    from dream_gnn_tpu_torch.config import AugmentConfig
+    from dream_gnn_tpu_torch.data.loader import DreamDataset
+    from dream_gnn_tpu_torch.sharding.foldstack import stack_folds
+
+    grid_ms, launches = _six_vs_two("sequential grid", ["--folds", "0"], 1,
+                                    "grid", ("fwd", "bwd"))
+    edges_ms, launches_e = _six_vs_two(
+        f"edges fold-parallel ({NF} folds)",
+        ["--decode_mode", "edges", "--fold_parallel"], NF, "edge",
+        ("fwd_b", "bwd_b"))
+
+    def runs(ms):
+        return " and ".join(f"{x:.3f}" for x in ms)
+
+    print(f"  ms/step ({gpu}; CUDA events, mean of each run's 40 steps; runs "
+          f"in turns two, six, six, two): sequential grid six methods "
+          f"{runs(grid_ms['six'])}, two {runs(grid_ms['two'])} (phase 7: "
+          f"{default_ms['grid']:.3f}); stacked edges F={NF} six "
+          f"{runs(edges_ms['six'])}, two {runs(edges_ms['two'])} (phase 10: "
+          f"{default_ms['edges']:.3f})")
+    print(f"  launches of a six-method run: row 1 {launches['grid']['fwd']}, "
+          f"row 2 {launches['grid']['bwd']}, row 7 "
+          f"{launches_e['edge']['fwd_b']}, row 8 {launches_e['edge']['bwd_b']}")
+    phase_profile(MAIN_PATH, methods=SIX)
+
+    print(f"== six augment methods: the CUDA generator's draws on the "
+          f"{NF}-fold stack")
+    ds = DreamDataset.load("Gdataset", device="cuda:0")
+    inputs = stack_folds(ds, list(range(NF))).inputs
+    cfg = AugmentConfig(methods=SIX)
+    _hold_draws(inputs, draw_augment(
+        torch.Generator(device="cuda:0").manual_seed(3), inputs, cfg), cfg)
+    del inputs
+    print("== six augment methods: one injected-draw step, kernels vs their "
+          "plain versions")
+    for mode, stacked in (("grid", False), ("edges", True), ("grid", True),
+                          ("edges", False)):
+        _augmented_step(ds, mode, stacked)
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
@@ -2095,10 +2412,10 @@ def main() -> int:
     del ds
     torch.cuda.empty_cache()
     phase_model()
-    launches = phase_trainer()
+    launches, ms_grid = phase_trainer()
     launches_b = phase_trainer_stacked()
     launches_e = phase_trainer_edges()
-    launches_eb = phase_trainer_edges_stacked()
+    launches_eb, ms_edges = phase_trainer_edges_stacked()
     phase_plain_backend()
     for path in (MAIN_PATH, EDGES_PATH):
         phase_profile_stacked(path, phase_profile(path))
@@ -2120,6 +2437,7 @@ def main() -> int:
                **{f"novel {k}": v for k, v in phase_novel().items()}}
     phase_profile_dir()
     phase_chained_ms()
+    phase_six_augment_methods(gpu, {"grid": ms_grid, "edges": ms_edges})
     print("  launches of rows 1, 3, 4 and 5 on the tooling paths: "
           + "; ".join(f"{k}: row 1 {v['grid']['fwd']}, row 3 "
                       f"{v['grid']['fwd_b']}, row 4 {v['grid']['bwd_b']}, "

@@ -1,12 +1,23 @@
 """Per-step stochastic augmentation as masks and noise.
 
-Port of ``edge_dropout`` and ``feature_noise`` of
-``dream_gnn_tpu/augment/masks.py``, for the dense, padded-COO, slabbed and
-grouped encoder graphs: every
-augmentation is a random mask or noise drawn per step; shapes stay
-fixed and no graph is rebuilt.  The randomness is drawn first
-(``draw_augment``) and applied second (``apply_augment``), so that the
-application can be held against the JAX package with the same draws.
+Port of ``dream_gnn_tpu/augment/masks.py``: the six methods of the
+training step, ``edge_dropout``, ``add_random_edges``, ``feature_noise``,
+``graph_noise``, ``feature_masking`` and ``mix_up``.  Every augmentation
+is a random mask or noise drawn per step; shapes stay fixed and no graph
+is rebuilt.  The randomness is drawn first (``draw_augment``) and applied
+second (``apply_augment``), so that the application can be held against
+the JAX package with the same draws.
+
+Order.  The methods compose in ``cfg.methods`` order, as the JAX
+``augment_inputs`` composes them (masks.py:207-297 there): each method
+acts on what the methods before it made.  So ``graph_noise`` after
+``edge_dropout`` noises only the kept entries, and ``edge_dropout`` after
+``graph_noise`` drops noised ones.  The draws are therefore a list of
+(method, field, draw) in method order, and the apply step walks it.  The
+encoder's masks follow JAX exactly: ``edge_dropout`` *sets* them, and
+``add_random_edges`` *adds* its masks to them (to all-ones keep masks when
+there are none).  So an ``edge_dropout`` after ``add_random_edges`` throws
+the add masks away, and the step trains without added edges.
 
 Parity notes (SURVEY.md §7.3.2-3):
 - augmentation runs unconditionally every iteration with default
@@ -17,28 +28,32 @@ Parity notes (SURVEY.md §7.3.2-3):
 - the reference keeps exactly ``int(E*(1-p))`` edges via randperm; here,
   as in the JAX package, iid Bernoulli(1-p) per edge;
 - feature noise adds ``feature_noise_scale`` Gaussian noise to the
-  embeddings and ``sim_noise_scale`` noise to the similarity rows.
+  embeddings and ``sim_noise_scale`` noise to the similarity rows;
+- edge addition is a Bernoulli grid per rating whose rate adds about
+  ``add_edge_rate`` times the rating's edges; graph noise, feature masking
+  and mix-up act as the reference's (augmentation.py:127-337).
+
+Layouts.  ``add_random_edges`` takes the dense encoder graph only, and
+``graph_noise`` dense similarity graphs only, as in JAX.  Edge dropout
+also takes the padded-COO, slabbed and grouped encoder graphs.  The
+slabbed and grouped ones (graph/slabbed.py, graph/grouped.py) drop edges
+by a stateless PRF of (salt, physical edge id), ``prf_keep_mask``, so
+that a relation's forward and transposed layouts drop the same edges: the
+draw is two salts per rating (``edge_dropout_masks_grouped``), and the
+masks are applied to the layouts' weights (``prf_mask_pair``).  The
+padded-COO encoder graph (graph/bipartite_coo.py) draws one Bernoulli
+keep mask per relation and direction over its padded edges
+(``edge_dropout_masks_coo``), which the GCMC layer multiplies into
+``val``.  Identity ``CooGraph`` similarity graphs drop entries of ``val``.
 
 Inputs stacked over folds (sharding/foldstack.py) get stacked draws:
 each draw is one call that makes the whole (F, ...) tensor, so no two
-folds share a mask or a noise tensor.
+folds share a mask, a noise tensor, a permutation or a mix-up
+coefficient, and the edge-add rate is each fold's own.
 
-The slabbed and grouped encoder graphs (graph/slabbed.py, graph/grouped.py)
-drop edges by a stateless PRF of (salt, physical edge id),
-``prf_keep_mask``, so that a relation's forward and transposed layouts drop
-the same edges: the draw is two salts per rating
-(``edge_dropout_masks_grouped``), and the masks are applied to the layouts'
-weights (``prf_mask_pair``).  The padded-COO encoder graph
-(graph/bipartite_coo.py) draws one Bernoulli keep mask per relation and
-direction over its padded edges (``edge_dropout_masks_coo``), which the
-GCMC layer multiplies into ``val``.  Identity ``CooGraph`` similarity
-graphs drop entries of ``val``.
-
-``feature_masking`` and ``mixup_features`` are here for the loader-side
+``feature_masking`` and ``mixup_features`` also serve the loader-side
 feature augmentation of novel predictions (data/loader.py
-``augment_features``); their dispatch inside the training step, and the
-methods add_random_edges and graph_noise, are still to be ported
-(ROADMAP.md queue A, item 4).
+``augment_features``).
 """
 
 from __future__ import annotations
@@ -62,9 +77,15 @@ PRF_LAYOUTS = (BipartiteSlabbed, BipartiteGrouped)
 GRAPH_FIELDS = ("drug_graph", "dis_graph", "drug_feature_graph",
                 "dis_feature_graph")
 FEATURE_FIELDS = ("drug_feat", "dis_feat", "drug_sim_feat", "dis_sim_feat")
+# The fields of feature_masking and mix_up (JAX masks.py:274-283).
+EMBED_FIELDS = ("drug_feat", "dis_feat")
+# The draw that carries the encoder's masks.
+EDGE_MASKS = "edge_masks"
 
 
-def _bernoulli(gen, p: float, shape, device) -> torch.Tensor:
+def _bernoulli(gen, p, shape, device) -> torch.Tensor:
+    """A float32 Bernoulli(p) mask of ``shape``; ``p`` is a float or a
+    tensor that broadcasts against ``shape``."""
     return (torch.rand(shape, generator=gen, device=device) < p).to(
         torch.float32)
 
@@ -78,6 +99,25 @@ def edge_dropout_masks(gen, n_drug: int, n_dis: int, num_ratings: int,
     shape = (*folds, num_ratings, n_drug, n_dis)
     return {"fwd": _bernoulli(gen, 1.0 - rate, shape, device),
             "rev": _bernoulli(gen, 1.0 - rate, shape, device)}
+
+
+def edge_addition_masks(gen, graph: BipartiteGraph, num_ratings: int,
+                        add_rate: float) -> Dict[str, torch.Tensor]:
+    """Per-etype edge-add masks ``fwd_add`` and ``rev_add``, each
+    (*folds, R, n_drug, n_dis) (JAX masks.py:49-71): per rating r and
+    direction a Bernoulli(p_r) grid, p_r = clip(add_rate * sum(A_r) /
+    (n_drug * n_dis), 0, 1), which adds about add_rate * E_r edges.  On a
+    fold stack p_r is each fold's own, an (F, R) tensor on the device
+    (never a host float, which would sync every step).  The GCMC layer
+    takes max(A_r * keep, add), so a hit on an existing edge adds
+    nothing."""
+    cells = float(graph.n_drug * graph.n_dis)
+    edges = torch.stack([graph.a0().sum((-2, -1)), graph.a1.sum((-2, -1))],
+                        dim=-1)[..., :num_ratings]
+    p = torch.clamp(add_rate * edges / cells, 0.0, 1.0)[..., None, None]
+    shape = (*graph.a1.shape[:-2], num_ratings, graph.n_drug, graph.n_dis)
+    return {"fwd_add": _bernoulli(gen, p, shape, p.device),
+            "rev_add": _bernoulli(gen, p, shape, p.device)}
 
 
 def edge_dropout_masks_coo(gen, graph: BipartiteCoo, rate: float):
@@ -166,6 +206,14 @@ def feature_noise(x: torch.Tensor, noise: torch.Tensor,
     return x + scale * noise
 
 
+def graph_noise(adj: NormAdj, noise: torch.Tensor, scale: float) -> NormAdj:
+    """Gaussian noise on the nonzero entries of a dense similarity graph,
+    clamped at 0; zeros stay zeros (augmentation.py:244-273)."""
+    a = adj.a
+    return NormAdj(a=torch.where(a != 0, torch.clamp_min(a + scale * noise,
+                                                         0.0), 0.0))
+
+
 def mask_features(x: torch.Tensor, u: torch.Tensor,
                   rate: float) -> torch.Tensor:
     """Elementwise zero-masking without rescaling (augmentation.py:276-308):
@@ -182,93 +230,155 @@ def feature_masking(gen, x: torch.Tensor, rate: float) -> torch.Tensor:
 
 def mix_rows(x: torch.Tensor, perm: torch.Tensor, lam) -> torch.Tensor:
     """Row mixup ``lam * x + (1 - lam) * x[perm]`` (augmentation.py:
-    311-337)."""
-    return lam * x + (1.0 - lam) * x[perm]
+    311-337).  x is (..., N, D), perm (..., N) and lam (...): on a fold
+    stack each fold mixes its own rows with its own coefficient."""
+    lam = torch.as_tensor(lam, device=x.device)[..., None, None]
+    return lam * x + (1.0 - lam) * torch.take_along_dim(
+        x, perm.long()[..., None], dim=-2)
 
 
-def beta_sample(gen, alpha: float, device) -> torch.Tensor:
-    """One Beta(alpha, alpha) draw as a float32 scalar tensor on
-    ``device``: the inverse CDF (scipy's ``betaincinv``) of one uniform
-    draw from ``gen``; torch's own Beta sampler takes no generator."""
+def row_permutations(gen, shape, device) -> torch.Tensor:
+    """Uniform random permutations of range(shape[-1]), one per leading
+    index: the argsort of float64 uniform draws, since ``torch.randperm``
+    makes one permutation a call."""
+    return torch.argsort(torch.rand(shape, generator=gen, device=device,
+                                    dtype=torch.float64), dim=-1)
+
+
+def beta_sample(gen, alpha: float, device, shape=()) -> torch.Tensor:
+    """Beta(alpha, alpha) draws of ``shape`` as float32 on ``device``: the
+    inverse CDF (scipy's ``betaincinv``) of uniform draws from ``gen``;
+    torch's own Beta sampler takes no generator.  All the draws of a call
+    make one round trip to the host."""
     from scipy.special import betaincinv
 
-    u = float(torch.rand((), generator=gen, device=device,
-                         dtype=torch.float64))
-    return torch.tensor(betaincinv(alpha, alpha, u), dtype=torch.float32,
-                        device=device)
+    u = torch.rand(shape, generator=gen, device=device, dtype=torch.float64)
+    return torch.as_tensor(betaincinv(alpha, alpha, u.cpu().numpy()),
+                           dtype=torch.float32, device=device)
 
 
 def mixup_features(gen, x: torch.Tensor, alpha: float) -> torch.Tensor:
     """Row mixup with a Beta(alpha, alpha) coefficient (JAX masks.py:199):
     a permutation of the rows, then the coefficient, both from ``gen``."""
-    perm = torch.randperm(x.shape[0], generator=gen, device=x.device)
+    perm = row_permutations(gen, x.shape[:-1], x.device)
     return mix_rows(x, perm, beta_sample(gen, alpha, x.device))
+
+
+def _similarity_graphs(inputs):
+    """(field, graph) of each similarity graph the inputs hold."""
+    return [(f, getattr(inputs, f)) for f in GRAPH_FIELDS
+            if getattr(inputs, f) is not None]
+
+
+def _encoder_dropout_masks(gen, enc, cfg: AugmentConfig, num_ratings: int):
+    if isinstance(enc, BipartiteGraph):
+        return edge_dropout_masks(gen, enc.n_drug, enc.n_dis, num_ratings,
+                                  cfg.edge_dropout_rate, enc.a1.device,
+                                  folds=tuple(enc.a1.shape[:-2]))
+    if isinstance(enc, PRF_LAYOUTS):
+        return edge_dropout_masks_grouped(gen, enc, cfg.edge_dropout_rate)
+    if isinstance(enc, BipartiteCoo):
+        return edge_dropout_masks_coo(gen, enc, cfg.edge_dropout_rate)
+    raise NotImplementedError(
+        f"edge dropout on {type(enc).__name__} is not ported yet "
+        f"(ROADMAP.md queue A, item 10)")
 
 
 def draw_augment(gen, inputs, cfg: AugmentConfig, num_ratings: int = 2):
     """Draw one step's augmentation randomness from ``gen``.
 
-    Returns a dict: 'edge_masks' (the encoder's fwd/rev keep masks),
-    one keep mask per similarity graph under its field name, and one
-    standard-normal noise tensor per feature field under its name.
+    Returns a list of (method, field, draw) in ``cfg.methods`` order, the
+    draws of one method in the JAX method's field order:
+    - edge_dropout: the encoder's fwd/rev keep masks under 'edge_masks',
+      then a keep mask per similarity graph under its field;
+    - add_random_edges: the encoder's ``fwd_add``/``rev_add`` masks under
+      'edge_masks';
+    - feature_noise: a standard-normal tensor per feature field;
+    - graph_noise: a standard-normal tensor per similarity graph;
+    - feature_masking: a uniform tensor per embedding field;
+    - mix_up: a (row permutation, coefficient) pair per embedding field.
     """
-    draws = {}
+    draws = []
     for method in cfg.methods:
         if method == "edge_dropout":
+            draws.append((method, EDGE_MASKS, _encoder_dropout_masks(
+                gen, inputs.enc_graph, cfg, num_ratings)))
+            for field, g in _similarity_graphs(inputs):
+                w = g.val if isinstance(g, CooGraph) else g.a
+                draws.append((method, field, _bernoulli(
+                    gen, 1.0 - cfg.edge_dropout_rate, w.shape, w.device)))
+        elif method == "add_random_edges":
             enc = inputs.enc_graph
-            if isinstance(enc, BipartiteGraph):
-                draws["edge_masks"] = edge_dropout_masks(
-                    gen, enc.n_drug, enc.n_dis, num_ratings,
-                    cfg.edge_dropout_rate, enc.a1.device,
-                    folds=tuple(enc.a1.shape[:-2]))
-            elif isinstance(enc, PRF_LAYOUTS):
-                draws["edge_masks"] = edge_dropout_masks_grouped(
-                    gen, enc, cfg.edge_dropout_rate)
-            elif isinstance(enc, BipartiteCoo):
-                draws["edge_masks"] = edge_dropout_masks_coo(
-                    gen, enc, cfg.edge_dropout_rate)
-            else:
+            if not isinstance(enc, BipartiteGraph):
                 raise NotImplementedError(
-                    f"edge dropout on {type(enc).__name__} is not ported yet "
-                    f"(ROADMAP.md queue A, item 10)")
-            for field in GRAPH_FIELDS:
-                g = getattr(inputs, field)
-                if g is not None:
-                    w = g.val if isinstance(g, CooGraph) else g.a
-                    draws[field] = _bernoulli(gen, 1.0 - cfg.edge_dropout_rate,
-                                              w.shape, w.device)
+                    "add_random_edges: dense-mask encoder graphs only")
+            draws.append((method, EDGE_MASKS, edge_addition_masks(
+                gen, enc, num_ratings, cfg.add_edge_rate)))
         elif method == "feature_noise":
             for field in FEATURE_FIELDS:
                 x = getattr(inputs, field)
-                draws[field] = torch.randn(x.shape, generator=gen,
-                                           device=x.device, dtype=x.dtype)
-        elif method in ("add_random_edges", "graph_noise", "feature_masking",
-                        "mix_up"):
-            raise NotImplementedError(
-                f"augmentation {method!r} is not ported yet (ROADMAP.md "
-                f"queue A, item 4: the other augment methods)")
+                draws.append((method, field, torch.randn(
+                    x.shape, generator=gen, device=x.device, dtype=x.dtype)))
+        elif method == "graph_noise":
+            # ``.a``: dense graphs only; a CooGraph fails here as in JAX.
+            for field, g in _similarity_graphs(inputs):
+                draws.append((method, field, torch.randn(
+                    g.a.shape, generator=gen, device=g.a.device)))
+        elif method == "feature_masking":
+            for field in EMBED_FIELDS:
+                x = getattr(inputs, field)
+                draws.append((method, field, torch.rand(
+                    x.shape, generator=gen, device=x.device)))
+        elif method == "mix_up":
+            # Both fields' coefficients in one call: one host round trip.
+            x = inputs.drug_feat
+            lams = beta_sample(gen, cfg.mixup_alpha, x.device,
+                               (len(EMBED_FIELDS), *x.shape[:-2]))
+            for field, lam in zip(EMBED_FIELDS, lams):
+                x = getattr(inputs, field)
+                draws.append((method, field, (row_permutations(
+                    gen, x.shape[:-1], x.device), lam)))
         else:
             raise ValueError(f"unknown augmentation method {method!r}")
     return draws
 
 
+def _apply_one(method: str, field: str, value, draw, cfg: AugmentConfig):
+    if method == "edge_dropout":
+        return sparse_edge_dropout(value, draw)
+    if method == "feature_noise":
+        return feature_noise(value, draw, cfg.feature_noise_scale
+                             if field in EMBED_FIELDS
+                             else cfg.sim_noise_scale)
+    if method == "graph_noise":
+        return graph_noise(value, draw, cfg.graph_noise_scale)
+    if method == "feature_masking":
+        return mask_features(value, draw, cfg.feature_mask_rate)
+    if method == "mix_up":
+        return mix_rows(value, *draw)
+    raise ValueError(f"unknown augmentation method {method!r}")
+
+
 def apply_augment(inputs, draws, cfg: AugmentConfig):
-    """Apply drawn augmentation; returns (ModelInputs, edge_masks or None)
-    as the JAX ``augment_inputs`` does (masks.py:207-297)."""
+    """Apply drawn augmentation in the order of ``draws``, each method to
+    what the methods before it made; returns (ModelInputs, edge_masks or
+    None) as the JAX ``augment_inputs`` does (masks.py:207-297)."""
     upd = {}
-    for field in GRAPH_FIELDS:
-        if field in draws:
-            upd[field] = sparse_edge_dropout(getattr(inputs, field),
-                                             draws[field])
-    for field in FEATURE_FIELDS:
-        if field in draws:
-            scale = (cfg.feature_noise_scale if field in ("drug_feat",
-                                                          "dis_feat")
-                     else cfg.sim_noise_scale)
-            upd[field] = feature_noise(getattr(inputs, field), draws[field],
-                                       scale)
+    edge_masks = None
+    for method, field, draw in draws:
+        if field != EDGE_MASKS:
+            value = upd.get(field, getattr(inputs, field))
+            upd[field] = _apply_one(method, field, value, draw, cfg)
+        elif method == "edge_dropout":
+            edge_masks = draw
+        else:
+            # add_random_edges merges into the keep masks (all ones when
+            # there are none), as JAX does (masks.py:284-293).
+            edge_masks = dict(edge_masks or {
+                "fwd": torch.ones_like(draw["fwd_add"]),
+                "rev": torch.ones_like(draw["rev_add"])}, **draw)
     out = dataclasses.replace(inputs, **upd) if upd else inputs
-    return out, draws.get("edge_masks")
+    return out, edge_masks
 
 
 def augment_inputs(gen, inputs, cfg: AugmentConfig, num_ratings: int = 2):

@@ -10,7 +10,8 @@ activated, dropped out and projected by a shared Linear
 
 Aggregation by layout:
 - dense (``BipartiteGraph``): one matrix product over the adjacency mask,
-  times the per-etype edge keep masks of augmentation;
+  times the per-etype edge keep masks of augmentation, in union with its
+  edge-add masks;
 - padded COO (``BipartiteCoo``): ``spmm_coo``, a weighted ``index_add``,
   over each relation, with the per-edge keep masks multiplied into ``val``
   (gcmc.py:226-237 of the JAX package, which leaves it to XLA's
@@ -94,10 +95,6 @@ def _aggregator(graph, edge_masks):
     """``aggregate(r, hd, hv)`` -> (messages into diseases, into drugs) of
     rating r over ``graph``'s layout, with the augmentation's edge masks."""
     if isinstance(graph, BipartiteGraph):
-        if edge_masks is not None and "fwd_add" in edge_masks:
-            raise NotImplementedError(
-                "add_random_edges masks are not ported yet (ROADMAP.md "
-                "queue A, item 4: the other augment methods)")
         adjs = [graph.a0(), graph.a1]  # rating order = rating_vals [0, 1]
 
         def aggregate(r, hd, hv):
@@ -105,6 +102,13 @@ def _aggregator(graph, edge_masks):
             if edge_masks is not None:
                 a_f = a_f * edge_masks["fwd"][..., r, :, :]
                 a_r = a_r * edge_masks["rev"][..., r, :, :]
+                if "fwd_add" in edge_masks:
+                    # add_random_edges: the union with the add mask; a hit
+                    # on an existing edge adds nothing (gcmc.py:123-127).
+                    a_f = torch.maximum(
+                        a_f, edge_masks["fwd_add"][..., r, :, :])
+                    a_r = torch.maximum(
+                        a_r, edge_masks["rev_add"][..., r, :, :])
             return torch.matmul(a_f.mT, hd), torch.matmul(a_r, hv)
         return aggregate
     if isinstance(graph, BipartiteCoo):
@@ -149,10 +153,11 @@ def gcmc_layer_apply(params, graph,
         or ``BipartiteGrouped``.
       edge_masks: optional augmentation masks, a dict with 'fwd'/'rev'
         per-etype edge keep-masks: tensors of shape (..., R, n_drug, n_dis)
-        for the dense layout, tuples of (E_pad,) tensors per relation for
-        the COO layout; None for a slabbed or grouped graph, which arrives
-        already masked.  The graph's ci/cj stay *stale* by construction (parity
-        trap, SURVEY.md §7.3.3).
+        for the dense layout, with optional 'fwd_add'/'rev_add' edge-add
+        masks of the same shape (add_random_edges); tuples of (E_pad,)
+        tensors per relation for the COO layout; None for a slabbed or
+        grouped graph, which arrives already masked.  The graph's ci/cj
+        stay *stale* by construction (parity trap, SURVEY.md §7.3.3).
     Returns (drug_out, dis_out), each (..., N, out_units).
     """
     aggregate = _aggregator(graph, edge_masks)

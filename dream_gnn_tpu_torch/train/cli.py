@@ -10,9 +10,8 @@ the same name.  ``--device`` has its reference meaning: a GPU index, with
 -1 for the CPU; a GPU that is not there is an error, never a quiet fall
 back to the CPU.
 
-Parts of the JAX trainer the port does not have yet (the augment methods
-add_random_edges, graph_noise, feature_masking and mix_up in the training
-step) raise ``NotImplementedError`` naming their item in ROADMAP.md.
+``--aug_methods`` takes any of the six methods in any order; they compose
+in the order given, as in the JAX trainer (augment/masks.py).
 """
 
 from __future__ import annotations

@@ -1,13 +1,16 @@
-"""AUROC / AUPR on the device, sklearn-equivalent.
+"""AUROC / AUPR on the device, sklearn-equivalent, and on the host.
 
-Port of the device metrics of ``dream_gnn_tpu/utils/metrics.py``.
-Parity trap (SURVEY.md §7.3.9): AUPR is ``auc(recall, precision)`` —
-trapezoidal area over the PR curve — not average precision.  Ties are
-grouped as sklearn groups them; sorts are stable (``jnp.argsort`` is).
+Port of ``dream_gnn_tpu/utils/metrics.py``.  Parity trap (SURVEY.md
+§7.3.9): AUPR is ``auc(recall, precision)`` — trapezoidal area over the
+PR curve — not average precision.  Ties are grouped as sklearn groups
+them; sorts are stable (``jnp.argsort`` is).  ``roc_aupr_host`` is the
+reference's own host computation (evaluation.py:60-65) in numpy float64,
+without sklearn.
 """
 
 from __future__ import annotations
 
+import numpy as np
 import torch
 
 
@@ -97,3 +100,61 @@ def aupr_masked(y_true, y_score, valid):
     valid = valid > 0
     return aupr(torch.where(valid, y_true, 0.0),
                 torch.where(valid, y_score, -torch.inf))
+
+
+def _trapezoid(y: np.ndarray, x: np.ndarray) -> float:
+    """sklearn's ``auc``: the trapezoidal area under (x, y), x monotone
+    (its sign taken from the direction); nan where x or y holds nan."""
+    dx = np.diff(x)
+    direction = 1.0
+    if np.any(dx < 0):
+        if not np.all(dx <= 0):
+            raise ValueError(f"x is neither increasing nor decreasing : {x}.")
+        direction = -1.0
+    return float(direction * (dx * (y[1:] + y[:-1]) / 2.0).sum())
+
+
+def _binary_curve(y_true, y_score):
+    """(fps, tps) at each distinct score, in decreasing score order, as
+    float64: sklearn's ``confusion_matrix_at_thresholds`` with pos_label
+    1 and no sample weights."""
+    y_true = np.asarray(y_true).reshape(-1)
+    y_score = np.asarray(y_score).reshape(-1)
+    if y_true.shape != y_score.shape:
+        raise ValueError(f"{y_true.size} labels for {y_score.size} scores")
+    if not np.isfinite(y_score).all():
+        raise ValueError("y_score holds a nan or an infinity")
+    classes = set(np.unique(y_true).tolist())
+    if not (classes <= {0, 1} or classes <= {-1, 1}):
+        raise ValueError(f"labels {sorted(classes)}: binary 0/1 or -1/1 "
+                         f"labels only")
+    order = np.argsort(-y_score, kind="stable")
+    s = y_score[order]
+    last = np.r_[np.nonzero(np.diff(s))[0], s.size - 1]
+    tps = np.cumsum((y_true[order] == 1).astype(np.float64))[last]
+    fps = 1.0 + last.astype(np.float64) - tps
+    return fps, tps
+
+
+def roc_aupr_host(y_true, y_score):
+    """(AUROC, AUPR) as the reference computes them on the host
+    (evaluation.py:60-65): sklearn's ``auc`` over ``roc_curve`` (collinear
+    points dropped) and over ``precision_recall_curve``, as in sklearn
+    1.9, ties grouped.  Only one class: the AUROC is nan, as sklearn's
+    (which warns); with no positive the recall is 1 at every threshold,
+    as there."""
+    fps, tps = _binary_curve(y_true, y_score)
+    keep = slice(None)
+    if fps.size > 2:
+        keep = np.r_[True, np.logical_or(np.diff(fps, 2), np.diff(tps, 2)),
+                     True]
+    rfps, rtps = np.r_[0.0, fps[keep]], np.r_[0.0, tps[keep]]
+    fpr = rfps / rfps[-1] if rfps[-1] > 0 else np.full(rfps.shape, np.nan)
+    tpr = rtps / rtps[-1] if rtps[-1] > 0 else np.full(rtps.shape, np.nan)
+    roc = _trapezoid(tpr, fpr)
+
+    ps = tps + fps
+    precision = np.divide(tps, ps, out=np.zeros_like(tps), where=ps != 0)
+    recall = tps / tps[-1] if tps[-1] != 0 else np.ones_like(tps)
+    pr = _trapezoid(np.r_[precision[::-1], 1.0], np.r_[recall[::-1], 0.0])
+    return roc, pr

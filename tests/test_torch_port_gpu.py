@@ -1623,3 +1623,188 @@ def test_novel_forward_on_the_card_equals_plain(cuda, mode):
     zr2, zc2, cpu = novel_scores(params, mcfg, cpu_ds, 0)
     assert np.array_equal(zr, zr2) and np.array_equal(zc, zc2)
     assert np.abs(card - cpu).max() <= 1e-2 * np.abs(cpu).max()
+
+
+# ---------------------------------------------------------------------------
+# The six augment methods of the training step on the card.
+
+SIX = ("edge_dropout", "add_random_edges", "graph_noise", "feature_noise",
+       "feature_masking", "mix_up")
+
+
+def _six_method_case(dev, mode: str, stacked: bool):
+    """A small dataset on the card, the six methods at a 0.5 add rate, the
+    bf16 decoder kernels of ``mode``; fold 0, or a stack of folds 0-2.
+    Returns (cfg, model cfg, inputs, labels, weights, params)."""
+    from dream_gnn_tpu_torch.config import (AugmentConfig, ModelConfig,
+                                            TrainConfig)
+    from dream_gnn_tpu_torch.data.loader import DreamDataset
+    from dream_gnn_tpu_torch.data.synthetic import synthetic_raw_data
+    from dream_gnn_tpu_torch.model.dream_gnn import init_params
+    from dream_gnn_tpu_torch.sharding.foldstack import stack_folds
+    from dream_gnn_tpu_torch.train.loop import derive_model_cfg, fold_inputs
+    from dream_gnn_tpu_torch.train.stacked import init_params_stacked
+
+    ds = DreamDataset(synthetic_raw_data(n_drug=70, n_dis=50, n_pos=200,
+                                         seed=2), device=dev)
+    cfg = TrainConfig(
+        augment=AugmentConfig(methods=SIX, add_edge_rate=0.5),
+        model=ModelConfig(layers=2, gcn_agg_units=96, gcn_out_units=32,
+                          nhid1=64, nhid2=32, decode_mode=mode,
+                          decoder_backend="pallas", compute_dtype="bfloat16"))
+    mcfg = derive_model_cfg(cfg, ds)
+    if stacked:
+        st = stack_folds(ds, [0, 1, 2])
+        return (cfg, mcfg, st.inputs, st.labels, st.edge_weight,
+                init_params_stacked(mcfg, [0], [0, 1, 2], dev))
+    inputs, _, labels, _ = fold_inputs(ds, 0)
+    return (cfg, mcfg, inputs, labels, ds.fold(0).train_w,
+            init_params(torch.Generator(device=dev).manual_seed(0), mcfg))
+
+
+def _reference_matmul(x, y):
+    """``_unit_order_matmul`` for the decoders' depth-64 and -128 products;
+    every other product (dW2 and dw3, sums over all cells or edges) summed
+    in float64 and rounded to f32 once."""
+    k = x.shape[-1]
+    if k in (64, 128) and y.dim() >= 2 and y.shape[-2] == k:
+        return _unit_order_matmul(x, y)
+    return _MATMUL(x.double(), y.double()).float()
+
+
+def _plain_launches(mod):
+    """Each launch function of a decoder kernel module and its plain
+    version, which takes the launch's arguments (but the edge backward's
+    CSR, which only the kernel uses)."""
+    if mod is gd:
+        return {"launch_fwd": gd.grid_decoder_plain,
+                "launch_bwd": gd.grid_decoder_plain_bwd,
+                "launch_fwd_batched": gd.grid_decoder_batched_plain,
+                "launch_bwd_batched": gd.grid_decoder_batched_plain_bwd}
+    return {"launch_fwd": ed.edge_decoder_plain,
+            "launch_bwd": lambda *a: ed.edge_decoder_plain_bwd(*a[:-1]),
+            "launch_fwd_batched": ed.edge_decoder_batched_plain,
+            "launch_bwd_batched":
+                lambda *a: ed.edge_decoder_batched_plain_bwd(*a[:-1])}
+
+
+@pytest.mark.parametrize("mode,stacked", [("grid", False), ("edges", True),
+                                          ("grid", True), ("edges", False)])
+def test_six_method_step_kernels_match_plain(cuda, monkeypatch, mode,
+                                             stacked):
+    """One training step with the six methods and injected draws, through
+    the decoder kernels and through their plain versions (each launch
+    replaced by its plain version), from one generator state.  Within the
+    bf16 tolerance: each kernel launch of the step against its plain
+    version on the launch's own inputs (``_reference_matmul``), and the
+    step's logits and loss.  Every gradient is finite; only the kernel pass
+    launches.  (The gradients are not held to the tolerance: the plain
+    pass sums dW2 and dw3 over all cells or edges in f32 in cuBLAS's
+    order, which at F = 10 on the full grid is 1.2e-4 of the largest value
+    off a float64 sum, PERF.md.)"""
+    from dream_gnn_tpu_torch.augment.masks import apply_augment, draw_augment
+    from dream_gnn_tpu_torch.model.dream_gnn import (forward, forward_stacked,
+                                                     map_params, param_leaves)
+    from dream_gnn_tpu_torch.train.losses import total_loss
+    from dream_gnn_tpu_torch.train.step import decoder_targets
+
+    cfg, mcfg, inputs, labels, weight, params0 = _six_method_case(
+        cuda, mode, stacked)
+    draws = draw_augment(torch.Generator(device=cuda).manual_seed(1), inputs,
+                         cfg.augment)
+    mod = gd if mode == "grid" else ed
+    kinds = ("fwd_b", "bwd_b") if stacked else ("fwd", "bwd")
+
+    def run():
+        params = map_params(lambda t: t.detach().clone().requires_grad_(True),
+                            params0)
+        gen = torch.Generator(device=cuda).manual_seed(2)
+        aug, masks = apply_augment(inputs, draws, cfg.augment)
+        pred, *routes = (forward_stacked if stacked else forward)(
+            params, aug, mcfg, train=True, generator=gen, edge_masks=masks)
+        pred, lab, w = decoder_targets(pred, aug, mcfg, labels, weight)
+        loss, _ = total_loss(pred, lab, *routes, beta=cfg.beta,
+                             smoothing=cfg.label_smoothing, weight=w)
+        loss.sum().backward()
+        torch.cuda.synchronize()
+        assert all(bool(torch.isfinite(p.grad).all())
+                   for p in param_leaves(params))
+        return pred.detach(), loss.detach()
+
+    calls = []
+    with monkeypatch.context() as m:
+        for name, plain in _plain_launches(mod).items():
+            def record(*args, _launch=getattr(mod, name), _plain=plain):
+                out = _launch(*args)
+                calls.append((_plain, args, out))
+                return out
+            m.setattr(mod, name, record)
+        _zero_launches()
+        kernel = run()
+    assert all(mod.LAUNCHES[k] == 1 for k in kinds), mod.LAUNCHES
+    assert len(calls) == 2
+    for plain, args, out in calls:
+        with monkeypatch.context() as m:
+            m.setattr(torch, "matmul", _reference_matmul)
+            ref = plain(*args)
+        if isinstance(out, torch.Tensor):
+            out, ref = (out,), (ref,)
+        for a, b in zip(out, ref):
+            assert a.shape == b.shape and bool(torch.isfinite(a).all())
+            assert _rel(a.detach(), b.detach()) <= TOL[torch.bfloat16]
+    for name, plain in _plain_launches(mod).items():
+        monkeypatch.setattr(mod, name, plain)
+    _zero_launches()
+    ref = run()
+    assert _decoder_launches() == {"grid": ZERO, "edge": ZERO}
+    for a, b in zip(kernel, ref):
+        assert a.shape == b.shape and _rel(a, b) <= TOL[torch.bfloat16]
+
+
+def test_cuda_generator_augment_draws(cuda):
+    """The six methods' draws from a CUDA generator on a 3-fold stack:
+    on the card; the add count per rating, direction and fold within 5
+    sigma of the fold's own rate; graph noise on nonzero entries only; the
+    feature keep rate 1 - 0.1 unscaled; mix-up's permutations and
+    coefficients, one pair per fold and field."""
+    from dream_gnn_tpu_torch.augment.masks import apply_augment, draw_augment
+
+    cfg, _, inputs, *_ = _six_method_case(cuda, "grid", True)
+    aug = cfg.augment
+    draws = draw_augment(torch.Generator(device=cuda).manual_seed(3), inputs,
+                         aug)
+    by = {(m, f): d for m, f, d in draws}
+    enc = inputs.enc_graph
+    cells = enc.n_drug * enc.n_dis
+    add = by["add_random_edges", "edge_masks"]
+    assert add["fwd_add"].device == cuda
+    for r, a in enumerate((enc.a0(), enc.a1)):
+        for f, e in enumerate(a.sum((-2, -1)).tolist()):
+            p = min(aug.add_edge_rate * e / cells, 1.0)
+            for k in ("fwd_add", "rev_add"):
+                count = float(add[k][f, r].sum())
+                assert abs(count - cells * p) \
+                    <= 5 * np.sqrt(cells * p * (1 - p)), (r, f, k)
+    noised, _ = apply_augment(inputs, [d for d in draws
+                                       if d[0] == "graph_noise"], aug)
+    for field in ("drug_graph", "dis_graph", "drug_feature_graph",
+                  "dis_feature_graph"):
+        a, b = getattr(inputs, field).a, getattr(noised, field).a
+        assert bool((b[a == 0] == 0).all()) and bool((b >= 0).all())
+        assert not torch.equal(a[a != 0], b[a != 0])
+    for field in ("drug_feat", "dis_feat"):
+        x, u = getattr(inputs, field), by["feature_masking", field]
+        kept = u > aug.feature_mask_rate
+        for f in range(3):
+            n = kept[f].numel()
+            assert abs(float(kept[f].sum()) - 0.9 * n) \
+                <= 5 * np.sqrt(0.09 * n)
+        masked, _ = apply_augment(inputs, [("feature_masking", field, u)],
+                                  aug)
+        y = getattr(masked, field)
+        assert torch.equal(y[kept], x[kept]) and bool((y[~kept] == 0).all())
+        perm, lam = by["mix_up", field]
+        n = x.shape[-2]
+        assert torch.equal(perm.sort(-1).values,
+                           torch.arange(n, device=cuda).expand(3, n))
+        assert lam.shape == (3,) and bool(((lam >= 0) & (lam <= 1)).all())

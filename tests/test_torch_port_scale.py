@@ -155,16 +155,18 @@ def test_augmentation_drops_the_jax_encoder_edges(prob):
     key = jax.random.key(9)
     jout, jm = j_augment(key, jin, JAug())
     keys = jax.random.split(key, 24)
-    draws = {"edge_masks": dict(jm, **{k: torch.tensor(np.asarray(
-        jm[k]).astype(np.int64)) for k in ("fwd_salts", "rev_salts")})}
+    draws = [("edge_dropout", "edge_masks", dict(jm, **{
+        k: torch.tensor(np.asarray(jm[k]).astype(np.int64))
+        for k in ("fwd_salts", "rev_salts")}))]
     for i, field in enumerate(("drug_graph", "dis_graph")):
-        draws[field] = torch.tensor(np.asarray(jax.random.bernoulli(
-            keys[1 + i], 0.9, (getattr(jin, field).val.shape[0],))),
-            dtype=torch.float32)
+        draws.append(("edge_dropout", field, torch.tensor(np.asarray(
+            jax.random.bernoulli(keys[1 + i], 0.9,
+                                 (getattr(jin, field).val.shape[0],))),
+            dtype=torch.float32)))
     for i, field in enumerate(("drug_feat", "dis_feat", "drug_sim_feat",
                                "dis_sim_feat")):
-        draws[field] = torch.tensor(np.asarray(jax.random.normal(
-            keys[3 + i], getattr(jin, field).shape)))
+        draws.append(("feature_noise", field, torch.tensor(np.asarray(
+            jax.random.normal(keys[3 + i], getattr(jin, field).shape)))))
     tout, tm = apply_augment(tin, draws, TAug())
     masked = prf_mask_graph(tout.enc_graph, tm)
     for side in ("fwd", "rev"):

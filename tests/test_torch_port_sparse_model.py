@@ -267,7 +267,8 @@ def test_train_step_with_default_augmentation(setup, layout):
     jds, tds, _, tcfg, jparams = setup
     _, _, tin, tlab = _inputs(setup, layout)
     cfg = TTrain(model=tcfg)
-    draws = draw_augment(torch.Generator().manual_seed(3), tin, cfg.augment)
+    draws = {field: d for _, field, d in draw_augment(
+        torch.Generator().manual_seed(3), tin, cfg.augment)}
     masks = draws["edge_masks"]
     if isinstance(tin.enc_graph, BipartiteCoo):
         assert [m.shape for m in masks["fwd"]] \

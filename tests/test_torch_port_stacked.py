@@ -396,7 +396,7 @@ def test_stacked_draws_per_fold(data):
     _, tds = data
     tin = stack_folds(tds, FOLDS).inputs
     gen = torch.Generator().manual_seed(3)
-    draws = draw_augment(gen, tin, TAug())
+    draws = {field: d for _, field, d in draw_augment(gen, tin, TAug())}
     fwd = draws["edge_masks"]["fwd"]
     assert fwd.shape == (F, 2, tds.n_drug, tds.n_dis)
     masks = {"fwd": fwd, "rev": draws["edge_masks"]["rev"],

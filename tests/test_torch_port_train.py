@@ -127,19 +127,19 @@ def test_augment_with_injected_draws_matches_jax(data):
     enc = jin.enc_graph
     jem = j_edge_masks(keys[0], enc.n_drug, enc.n_dis, 2,
                        cfg_j.edge_dropout_rate)
-    draws = {"edge_masks": {k: torch.tensor(np.asarray(v))
-                            for k, v in jem.items()}}
+    draws = [("edge_dropout", "edge_masks",
+              {k: torch.tensor(np.asarray(v)) for k, v in jem.items()})]
     for i, field in enumerate(("drug_graph", "dis_graph",
                                "drug_feature_graph", "dis_feature_graph")):
         a = getattr(jin, field).a
-        draws[field] = torch.tensor(np.asarray(jax.random.bernoulli(
-            keys[1 + i], 1.0 - cfg_j.edge_dropout_rate, a.shape)),
-            dtype=torch.float32)
+        draws.append(("edge_dropout", field, torch.tensor(np.asarray(
+            jax.random.bernoulli(keys[1 + i], 1.0 - cfg_j.edge_dropout_rate,
+                                 a.shape)), dtype=torch.float32)))
     for i, field in enumerate(("drug_feat", "dis_feat", "drug_sim_feat",
                                "dis_sim_feat")):
         x = getattr(jin, field)
-        draws[field] = torch.tensor(np.asarray(
-            jax.random.normal(keys[5 + i], x.shape, x.dtype)))
+        draws.append(("feature_noise", field, torch.tensor(np.asarray(
+            jax.random.normal(keys[5 + i], x.shape, x.dtype)))))
     tout, tmasks = apply_augment(tin, draws, cfg_t)
 
     for k in ("fwd", "rev"):
@@ -160,7 +160,8 @@ def test_augment_draws_keep_rates(data):
     fwd and rev masks are independent draws."""
     _, tds = data
     tin = t_fold_inputs(tds, 0)[0]
-    draws = draw_augment(torch.Generator().manual_seed(3), tin, TAug())
+    draws = {field: d for _, field, d in draw_augment(
+        torch.Generator().manual_seed(3), tin, TAug())}
     fwd, rev = draws["edge_masks"]["fwd"], draws["edge_masks"]["rev"]
     n = fwd.numel()
     assert fwd.shape == (2, tds.n_drug, tds.n_dis)
@@ -170,15 +171,6 @@ def test_augment_draws_keep_rates(data):
     assert noise.shape == tin.drug_feat.shape
     assert abs(float(noise.mean())) < 0.02 and abs(float(noise.std()) - 1) \
         < 0.02
-
-
-@pytest.mark.parametrize("method", ["add_random_edges", "graph_noise",
-                                    "feature_masking", "mix_up"])
-def test_other_augment_methods_not_ported(data, method):
-    _, tds = data
-    tin = t_fold_inputs(tds, 0)[0]
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        draw_augment(torch.Generator(), tin, TAug(methods=(method,)))
 
 
 @pytest.mark.parametrize("seed", [0, 1, 2])
