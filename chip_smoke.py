@@ -134,6 +134,23 @@ Phases, each of which fails the run if it fails:
     own inputs, and the step's logits and loss, within the bf16 tolerance;
     the gradients' largest errors printed.
 
+30. the sharded scale path over ``torch.distributed``: the composed step
+    (the sharded-grouped encoder and the candidate-sharded scale decoder
+    through ``make_one_step``, the JAX scale script's full size, bf16, PRF
+    edge dropout and decoder dropout 0.3) for 3 steps over one rank (NCCL,
+    world size 1) and over 2 ranks (NCCL with one rank a card where there
+    are two cards, else gloo ranks sharing cuda:0): the first step's PRF
+    masks the same bits in both runs, the losses and every parameter after
+    the steps, the first step's gradients and the eval logits before the
+    steps (unscrambled by ``global_slot``, against the unsharded layout's)
+    within stated tolerances, each rank's launches of rows 10 and 13-15 in
+    the first step held against their plain versions on its own inputs and
+    each rank's launch counts; then ``bench_scale --sharded-grouped`` at
+    full size over the 2 ranks (3 + 3 steps: ms/step, edges/s, layout build,
+    each rank's peak memory and launches), and ``--sharded`` and ``--ring``
+    at ``--small`` over 2 ranks against the one-device layouts they shard
+    (the loss, the launch counts).
+
 Each trainer phase sets every launch count to 0 just before it drives its
 entry point and reads the counts just after.
 
@@ -2392,6 +2409,372 @@ def phase_six_augment_methods(gpu: str, default_ms: dict):
         _augmented_step(ds, mode, stacked)
 
 
+# ---------------------------------------------------------------------------
+# The sharded scale path (phase 30).
+
+SHARDED_RANKS = 2
+SHARDED_STEPS = 3
+# Tolerances of the S-rank run against the one-rank run on the same card.
+# The forward is the same arithmetic (its eval logits came out bit for bit
+# equal); the backward sums the sharded regions' weight gradients as S
+# partial sums, in another order.  So: the losses of the steps within 1e-4
+# (relative); the first step's gradients within 1e-4 of each leaf's
+# largest; the eval logits before the steps, against the unsharded
+# layout's, within 1e-5.  Adam's step is lr * m / (sqrt(v) + 1e-8): a
+# gradient element within 1e-8 of zero, whose last bits the order of the
+# sums moves, takes a step of up to lr whose size those bits set, so the
+# parameters after the steps are held to lr / 2 (absolute), not relative.
+# Measured on the H100 (PR 15): 8.9e-8, 5.1e-6, 0 and 2.05e-4 (lr 2e-3).
+SHARDED_TOL = {"loss": 1e-4, "grads1": 1e-4, "logits0": 1e-5,
+               "params_abs": 1e-3}
+
+
+def _held_launches(errs: dict):
+    """Every launch of rows 10 and 13-15 (the grouped SpMM's segment sum,
+    K2, B1 and the mirror) is held, right after it runs, against its plain
+    version on the same inputs: the SpMM's f32 sums to SCALE_TOL, the scale
+    kernels to the bf16 tolerance with their depth-64/128 products in unit
+    order and their sums over all slots in float64, as phase 29 holds rows
+    1-8.  ``errs[kind]`` keeps each kind's largest relative error; the
+    plain versions launch nothing, so the counts see only the path's own
+    launches."""
+    from contextlib import ExitStack
+    from unittest import mock
+
+    from dream_gnn_tpu_torch.kernels import scale_decoder as sd
+    from dream_gnn_tpu_torch.kernels import spmm_gather as sg
+    from dream_gnn_tpu_torch.kernels.spmm_slab import segment_sum_plain
+
+    def rel(out, ref):
+        out = out if isinstance(out, tuple) else (out,)
+        ref = ref if isinstance(ref, tuple) else (ref,)
+        return max(float((a.float() - b.float()).abs().max())
+                   / max(float(b.float().abs().max()), 1e-30)
+                   for a, b in zip(out, ref) if a is not None)
+
+    def held(kind, launch, plain, unit):
+        def run(*args, **kw):
+            out = launch(*args, **kw)
+            with torch.no_grad():
+                ref = _unit_order(plain, *args, depths=(64, 128),
+                                  long_f64=True) if unit \
+                    else plain(*args, **kw)
+            errs[kind] = max(errs.get(kind, 0.0), rel(out, ref))
+            return out
+        return run
+
+    def bwd_plain(*args):
+        return sd.scale_bwd_plain(*args[:-1], not args[-1])
+
+    def bwd_kind(launch):
+        def run(*args):
+            return held("mirror" if args[-1] else "b1", launch, bwd_plain,
+                        True)(*args)
+        return run
+
+    stack = ExitStack()
+    stack.enter_context(mock.patch.object(
+        sg, "launch_segment_sum",
+        held("spmm_gather", sg.launch_segment_sum, segment_sum_plain,
+             False)))
+    stack.enter_context(mock.patch.object(
+        sd, "launch_k2", held("k2", sd.launch_k2, sd.scale_fwd_plain, True)))
+    stack.enter_context(mock.patch.object(sd, "_launch_bwd",
+                                          bwd_kind(sd._launch_bwd)))
+    return stack
+
+
+def _mask_hashes(graph, edge_masks, group) -> list:
+    """Each relation's PRF keep mask over all its edges, ordered by edge id
+    and gathered from every rank: (sha256 prefix, kept count) per relation
+    and direction."""
+    import hashlib
+
+    from dream_gnn_tpu_torch.augment.masks import prf_keep_mask
+    from dream_gnn_tpu_torch.sharding.collectives import all_gather_raw
+
+    out = []
+    for side in ("fwd", "rev"):
+        for r, pair in enumerate(getattr(graph, side)):
+            ids = pair.fwd.edge_id.long()
+            keep = prf_keep_mask(edge_masks[f"{side}_salts"][r],
+                                 pair.fwd.edge_id, edge_masks["rate"])
+            counts = all_gather_raw(torch.tensor([ids.numel()],
+                                                 device=ids.device), group)
+            pad = int(counts.max()) - ids.numel()
+            ids = all_gather_raw(torch.cat([ids, ids.new_full((pad,), -1)]),
+                                 group)
+            keep = all_gather_raw(torch.cat([keep, keep.new_zeros(pad)])
+                                  .to(torch.uint8), group)
+            full = torch.zeros(int(counts.sum()), dtype=torch.uint8,
+                               device=ids.device)
+            full[ids[ids >= 0]] = keep[ids >= 0]
+            out.append((hashlib.sha256(full.cpu().numpy().tobytes())
+                        .hexdigest()[:16], int(full.sum())))
+    return out
+
+
+def _sharded_step_rank(device, out_dir: str, tag: str) -> dict:
+    """One rank of phase 30's composed training step at the JAX scale
+    script's full size: the sharded-grouped encoder and the
+    candidate-sharded scale decoder through ``make_one_step``, bf16, PRF
+    edge dropout and decoder dropout 0.3, SHARDED_STEPS steps (the first
+    with every launch held against its plain version), with an eval
+    forward before and after.  Rank 0 writes the parameters after the
+    steps, the first step's gradients and both evals' logits (in candidate
+    order; on one rank also the unsharded layout's) to
+    ``out_dir/{tag}.pt``; returns the numbers, every rank's where a rank
+    has its own."""
+    import torch.distributed as dist
+
+    from dream_gnn_tpu_torch.augment.masks import EDGE_MASKS, draw_augment
+    from dream_gnn_tpu_torch.config import AugmentConfig, TrainConfig
+    from dream_gnn_tpu_torch.kernels.scale_decoder import \
+        build_scale_decoder_layout
+    from dream_gnn_tpu_torch.model.dream_gnn import (forward, init_params,
+                                                     param_leaves)
+    from dream_gnn_tpu_torch.scripts import bench_scale
+    from dream_gnn_tpu_torch.sharding.mesh import make_mesh
+    from dream_gnn_tpu_torch.sharding.multihost import describe
+    from dream_gnn_tpu_torch.sharding.scale_decoder_spmd import \
+        build_scale_decoder_layout_sharded
+    from dream_gnn_tpu_torch.sharding.scale_graph import \
+        build_enc_graph_sharded_grouped
+    from dream_gnn_tpu_torch.train.step import init_state, make_one_step
+    from dream_gnn_tpu_torch.utils.device import set_numerics
+
+    set_numerics()
+    mesh = make_mesh(dp=dist.get_world_size())
+    group, n_ranks = mesh.group("dp"), mesh.shape["dp"]
+    n, n_edges, n_cand = bench_scale.SIZES["full"]
+    t0 = time.perf_counter()
+    graph = build_enc_graph_sharded_grouped(*bench_scale._edges(n, n_edges),
+                                            n, n, mesh, "dp", device=device)
+    inputs, labels = bench_scale.build_inputs(graph, n, n_cand, device)
+    slay = build_scale_decoder_layout_sharded(
+        inputs.dec_src, inputs.dec_dst, n, n, n_ranks, mesh=mesh, axis="dp",
+        device=device)
+    torch.cuda.synchronize(device)
+    build_s = time.perf_counter() - t0
+    inputs = dataclasses.replace(inputs, dec_layout=slay)
+    lab, w = slay.slot_labels(labels)
+    model = dataclasses.replace(bench_scale.model_config(),
+                                decoder_backend="pallas")
+    cfg = TrainConfig(model=model, beta=0.0,
+                      augment=AugmentConfig(methods=("edge_dropout",)))
+    gen = torch.Generator(device=device).manual_seed(0)
+    state = init_state(init_params(gen, model), gen, cfg)
+    one_step = make_one_step(model, cfg)
+    # The first step's PRF masks: its draw, from a copy of the generator.
+    peek = torch.Generator(device=device)
+    peek.set_state(gen.get_state())
+    masks = [d for _, f, d in draw_augment(peek, inputs, cfg.augment)
+             if f == EDGE_MASKS][0]
+    hashes = _mask_hashes(graph, masks, group)
+
+    def eval_logits():
+        """The eval forward's logits in candidate order; on one rank also
+        the unsharded layout's."""
+        with torch.no_grad():
+            pred = forward(state.params, inputs, model, train=False)[0]
+            out = {"sharded": slay.gather(pred).cpu()}
+            if n_ranks == 1:
+                lay = build_scale_decoder_layout(
+                    inputs.dec_src, inputs.dec_dst, n, n, build_seq=False)
+                one = forward(state.params, dataclasses.replace(
+                    inputs, dec_layout=lay), model, train=False)[0]
+                out["unsharded"] = one[lay.inv_slot.long()].cpu()
+        return out
+
+    logits0 = eval_logits()
+    errs = {}
+    _zero_launches()
+    with _held_launches(errs):
+        losses = [float(one_step(state, inputs, lab, w))]
+    grads1 = [torch.zeros(0) if p.grad is None else p.grad.detach().cpu()
+              for p in param_leaves(state.params)]
+    # The path's own peak, over the steps the plain versions do not run in.
+    torch.cuda.reset_peak_memory_stats(device)
+    start = torch.cuda.Event(enable_timing=True)
+    stop = torch.cuda.Event(enable_timing=True)
+    start.record()
+    losses += [float(one_step(state, inputs, lab, w))
+               for _ in range(SHARDED_STEPS - 1)]
+    stop.record()
+    torch.cuda.synchronize(device)
+    launches = _launches()
+    ms = start.elapsed_time(stop) / (SHARDED_STEPS - 1)
+    peak = torch.cuda.max_memory_allocated(device)
+
+    logits3 = eval_logits()
+    per_rank = [None] * n_ranks
+    dist.all_gather_object(per_rank, dict(
+        errs=errs, launches={k: launches[k] for k in ("gather", "scale")},
+        peak=peak, build_s=build_s))
+    if dist.get_rank() == 0:
+        torch.save({"params": [p.detach().cpu()
+                               for p in param_leaves(state.params)],
+                    "names": [k for k, _ in _named_leaves(state.params)],
+                    "grads1": grads1, "logits0": logits0,
+                    "logits3": logits3},
+                   os.path.join(out_dir, f"{tag}.pt"))
+    return dict(losses=losses, ms=ms, hashes=hashes, ranks=per_rank,
+                describe=describe())
+
+
+def _rel(a, b) -> float:
+    if a.numel() == 0:
+        return 0.0
+    a, b = a.double(), b.double()
+    return float((a - b).abs().max()) / max(float(b.abs().max()), 1e-30)
+
+
+def _hold_sharded_run(res, n_ranks, label):
+    """Each rank's held launches and launch counts of phase 30's run."""
+    want = {"gather": {"fwd": 12 * SHARDED_STEPS, "bwd": 12 * SHARDED_STEPS,
+                       "raw": 2 * SHARDED_STEPS},
+            "scale": {"k2": SHARDED_STEPS, "b1": SHARDED_STEPS,
+                      "mirror": SHARDED_STEPS}}
+    tol = {"spmm_gather": SCALE_TOL, "k2": TOL[torch.bfloat16],
+           "b1": TOL[torch.bfloat16], "mirror": TOL[torch.bfloat16]}
+    if len(res["ranks"]) != n_ranks:
+        raise AssertionError(f"{label}: {len(res['ranks'])} ranks reported")
+    for r, rank in enumerate(res["ranks"]):
+        print(f"  {label} rank {r}: launches {rank['launches']}; each launch "
+              f"of the first step against its plain version: "
+              + ", ".join(f"{k} {v:.3e}" for k, v in sorted(
+                  rank["errs"].items()))
+              + f"; peak {rank['peak'] / 2 ** 30:.2f} GiB; layout build "
+              f"{rank['build_s']:.2f} s")
+        if rank["launches"] != want:
+            raise AssertionError(f"{label} rank {r}: launches "
+                                 f"{rank['launches']}, the path implies "
+                                 f"{want}")
+        if set(rank["errs"]) != set(tol) or any(
+                not rank["errs"][k] <= tol[k] for k in tol):
+            raise AssertionError(f"{label} rank {r}: a launch disagrees with "
+                                 f"its plain version: {rank['errs']}")
+
+
+def _bench_sharded(flags, label):
+    """``bench_scale`` in a multi-device mode; returns its numbers."""
+    from dream_gnn_tpu_torch.scripts import bench_scale
+
+    print(f"== {label}: python -m dream_gnn_tpu_torch.scripts.bench_scale "
+          f"{' '.join(flags)}")
+    t0 = time.perf_counter()
+    res = bench_scale.main(flags)
+    print(f"  {time.perf_counter() - t0:.1f} s of wall time")
+    if not np.isfinite(res["loss"]):
+        raise AssertionError(f"{label}: loss {res['loss']}")
+    return res
+
+
+def phase_sharded(gpu: str):
+    """Phase 30, the sharded scale path (see the module doc)."""
+    from dream_gnn_tpu_torch.sharding.multihost import spawn
+
+    backend = "nccl" if torch.cuda.device_count() >= SHARDED_RANKS \
+        else "gloo"
+    host = "" if backend == "nccl" else (
+        " (gloo ranks sharing one card: the times measure host staging, "
+        "not a multi-GPU fabric)")
+    print(f"== sharded scale path: {SHARDED_RANKS} ranks over {backend}, "
+          f"one rank over nccl; {torch.cuda.device_count()} card(s); {gpu}")
+    torch.cuda.empty_cache()    # the ranks are other processes on the card
+    out_dir = tempfile.mkdtemp(prefix="chip_smoke_sharded_")
+    runs, t_run = {}, {}
+    for tag, n_ranks, be in (("one", 1, "nccl"),
+                             ("sharded", SHARDED_RANKS, backend)):
+        t0 = time.perf_counter()
+        runs[tag] = spawn(_sharded_step_rank, n_ranks, be, (out_dir, tag))
+        t_run[tag] = time.perf_counter() - t0
+        res = runs[tag]
+        print(f"  {tag}: {res['describe']}; losses "
+              + ", ".join(f"{x:.6f}" for x in res["losses"])
+              + f"; {res['ms']:.1f} ms/step (steps 2-{SHARDED_STEPS}, CUDA "
+              f"events{'' if n_ranks == 1 else host}); "
+              f"{t_run[tag]:.1f} s of wall time")
+        _hold_sharded_run(res, n_ranks, tag)
+    one, two = (torch.load(os.path.join(out_dir, f"{t}.pt"))
+                for t in ("one", "sharded"))
+    if runs["one"]["hashes"] != runs["sharded"]["hashes"]:
+        raise AssertionError(f"the PRF masks differ: {runs['one']['hashes']}"
+                             f" vs {runs['sharded']['hashes']}")
+    print(f"  the first step's PRF masks, every relation's by edge id, the "
+          f"same bits in both runs: {runs['one']['hashes']}")
+    leaf = {k: sorted(((_rel(a, b), name) for name, a, b in zip(
+                two["names"], two[k], one[k])), reverse=True)
+            for k in ("grads1", "params")}
+    unsharded = [_rel(one[t]["sharded"], one[t]["unsharded"])
+                 for t in ("logits0", "logits3")]
+    errs = {
+        "loss": max(abs(a - b) / abs(b) for a, b in zip(
+            runs["sharded"]["losses"], runs["one"]["losses"])),
+        "grads1": leaf["grads1"][0][0],
+        "logits0": _rel(two["logits0"]["sharded"],
+                        one["logits0"]["unsharded"]),
+        "params_abs": max(float((a - b).abs().max()) for a, b in
+                          zip(two["params"], one["params"]))}
+    print(f"  {SHARDED_RANKS} ranks vs one: "
+          + ", ".join(f"{k} {v:.3e} (tol {SHARDED_TOL[k]:.0e})"
+                      for k, v in errs.items())
+          + f"; worst leaves (rel to the leaf's largest): gradients "
+          + ", ".join(f"{k} {e:.2e}" for e, k in leaf["grads1"][:3])
+          + ", parameters " + ", ".join(f"{k} {e:.2e}"
+                                        for e, k in leaf["params"][:3])
+          + f"; eval logits after the steps (not held: Adam's steps above) "
+          f"{_rel(two['logits3']['sharded'], one['logits3']['unsharded']):.3e}"
+          f"; one rank's sharded eval logits vs its unsharded layout's "
+          + ", ".join(f"{v:.3e}" for v in unsharded))
+    if any(not errs[k] <= SHARDED_TOL[k] for k in errs) or \
+            max(unsharded) > SHARDED_TOL["logits0"]:
+        raise AssertionError(f"the sharded run disagrees with one rank: "
+                             f"{errs}")
+
+    steps = ["--steps", str(SHARDED_STEPS), "--repeats", "1"]
+    ranks = ["--nproc", str(SHARDED_RANKS), "--backend", backend]
+    res = _bench_sharded(["--sharded-grouped", *ranks, *steps],
+                         "bench_scale --sharded-grouped (full size)")
+    n_steps = 2 * SHARDED_STEPS
+    print(f"  {res['ms_per_step']:.1f} ms/step{host}, "
+          f"{res['edges_per_s']:.4e} edges/s, layout build "
+          f"{res['layout_build_s']:.2f} s, peak memory per rank "
+          + ", ".join(f"{p / 2 ** 30:.2f} GiB"
+                      for p in res["peak_memory_bytes"])
+          + f"; launches per rank {res['launches']}")
+    want = {"fwd": 12 * n_steps, "bwd": 12 * n_steps, "raw": 0}
+    if any(ln != want for ln in res["launches"]):
+        raise AssertionError(f"bench_scale --sharded-grouped launches "
+                             f"{res['launches']}, the path implies {want}")
+    # --sharded and --ring at --small against the one-device layouts they
+    # shard (the padded COO and the grouped one), run in this process.
+    for flag, one_flags, per_step in (("--sharded", [], 0),
+                                      ("--ring", ["--grouped"],
+                                       12 * SHARDED_RANKS)):
+        small = ["--small", *steps]
+        one_rank = _bench_sharded([*small, *one_flags],
+                                  f"bench_scale --small {' '.join(one_flags)}"
+                                  f", one device")
+        multi = _bench_sharded([flag, *small, *ranks],
+                               f"bench_scale {flag} --small, "
+                               f"{SHARDED_RANKS} ranks")
+        rel = abs(multi["loss"] - one_rank["loss"]) / abs(one_rank["loss"])
+        want = {"fwd": per_step * n_steps, "bwd": per_step * n_steps,
+                "raw": 0}
+        print(f"  {flag}: loss after {SHARDED_STEPS} steps "
+              f"{multi['loss']:.6f} vs one device {one_rank['loss']:.6f} "
+              f"(rel {rel:.3e}, tol {SHARDED_TOL['loss']:.0e}); "
+              f"{multi['ms_per_step']:.1f} ms/step{host} vs "
+              f"{one_rank['ms_per_step']:.1f}; launches per rank "
+              f"{multi['launches']}")
+        if rel > SHARDED_TOL["loss"] or any(ln != want
+                                            for ln in multi["launches"]):
+            raise AssertionError(f"bench_scale {flag}: loss {rel:.3e} off "
+                                 f"one device's, or launches "
+                                 f"{multi['launches']} not {want}")
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
@@ -2438,6 +2821,7 @@ def main() -> int:
     phase_profile_dir()
     phase_chained_ms()
     phase_six_augment_methods(gpu, {"grid": ms_grid, "edges": ms_edges})
+    phase_sharded(gpu)
     print("  launches of rows 1, 3, 4 and 5 on the tooling paths: "
           + "; ".join(f"{k}: row 1 {v['grid']['fwd']}, row 3 "
                       f"{v['grid']['fwd_b']}, row 4 {v['grid']['bwd_b']}, "

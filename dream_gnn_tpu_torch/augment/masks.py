@@ -35,16 +35,23 @@ Parity notes (SURVEY.md §7.3.2-3):
 
 Layouts.  ``add_random_edges`` takes the dense encoder graph only, and
 ``graph_noise`` dense similarity graphs only, as in JAX.  Edge dropout
-also takes the padded-COO, slabbed and grouped encoder graphs.  The
-slabbed and grouped ones (graph/slabbed.py, graph/grouped.py) drop edges
-by a stateless PRF of (salt, physical edge id), ``prf_keep_mask``, so
-that a relation's forward and transposed layouts drop the same edges: the
-draw is two salts per rating (``edge_dropout_masks_grouped``), and the
-masks are applied to the layouts' weights (``prf_mask_pair``).  The
-padded-COO encoder graph (graph/bipartite_coo.py) draws one Bernoulli
-keep mask per relation and direction over its padded edges
-(``edge_dropout_masks_coo``), which the GCMC layer multiplies into
-``val``.  Identity ``CooGraph`` similarity graphs drop entries of ``val``.
+also takes the padded-COO, slabbed, grouped and both rank-sharded encoder
+graphs.  The slabbed, grouped and sharded-grouped ones (graph/slabbed.py,
+graph/grouped.py, sharding/scale_graph.py) drop edges by a stateless PRF
+of (salt, physical edge id), ``prf_keep_mask``, so that a relation's
+forward and transposed layouts drop the same edges: the draw is two salts
+per rating (``edge_dropout_masks_grouped``), and the masks are applied to
+the layouts' weights (``prf_mask_pair``).  The padded-COO encoder graph
+(graph/bipartite_coo.py) draws one Bernoulli keep mask per relation and
+direction over its padded edges (``edge_dropout_masks_coo``), which the
+GCMC layer multiplies into ``val``; the sharded COO graph
+(``BipartiteSharded``) likewise, one mask over each relation's live edges
+gathered into this rank's block (``edge_dropout_masks_sharded``).
+Identity ``CooGraph`` similarity graphs drop entries of ``val``.
+
+Ranks.  Every rank of a sharded run seeds its generator alike and draws
+every mask and salt for the whole graph, so all ranks hold the same draws,
+and a run over any number of ranks draws what one rank would.
 
 Inputs stacked over folds (sharding/foldstack.py) get stacked draws:
 each draw is one call that makes the whole (F, ...) tensor, so no two
@@ -71,9 +78,11 @@ from dream_gnn_tpu_torch.graph.grouped import BipartiteGrouped
 from dream_gnn_tpu_torch.graph.knn import NormAdj
 from dream_gnn_tpu_torch.graph.slabbed import BipartiteSlabbed
 from dream_gnn_tpu_torch.kernels.grid_decoder import fmix32
+from dream_gnn_tpu_torch.sharding.scale_graph import (BipartiteSharded,
+                                                      BipartiteShardedGrouped)
 
 # The encoder layouts whose edge dropout is the PRF of physical edge ids.
-PRF_LAYOUTS = (BipartiteSlabbed, BipartiteGrouped)
+PRF_LAYOUTS = (BipartiteSlabbed, BipartiteGrouped, BipartiteShardedGrouped)
 GRAPH_FIELDS = ("drug_graph", "dis_graph", "drug_feature_graph",
                 "dis_feature_graph")
 FEATURE_FIELDS = ("drug_feat", "dis_feat", "drug_sim_feat", "dis_sim_feat")
@@ -131,6 +140,20 @@ def edge_dropout_masks_coo(gen, graph: BipartiteCoo, rate: float):
     return {"fwd": tuple(fwd), "rev": tuple(rev)}
 
 
+def edge_dropout_masks_sharded(gen, graph: BipartiteSharded, rate: float):
+    """Per-edge keep masks of this rank's blocks of a ``BipartiteSharded``
+    graph (masks.py:142-158): a tuple per direction of (E_shard,) masks,
+    one per relation.  Each is one Bernoulli(1 - rate) draw over the
+    relation's live edges, rating by rating, forward before reverse,
+    gathered by the block's edge ids; padding edges weigh 0 anyway."""
+    fwd, rev = [], []
+    for r in range(graph.num_ratings):
+        for out, g in ((fwd, graph.fwd[r]), (rev, graph.rev[r])):
+            keep = _bernoulli(gen, 1.0 - rate, (g.n_live,), g.val.device)
+            out.append(keep[g.edge_id])
+    return {"fwd": tuple(fwd), "rev": tuple(rev)}
+
+
 def prf_keep_mask(salt, edge_id: torch.Tensor, rate: float) -> torch.Tensor:
     """Stateless per-edge keep mask, a function of (salt, edge_id) only,
     bit for bit the JAX ``prf_keep_mask`` (masks.py:92-110): x = edge_id ^
@@ -149,16 +172,12 @@ def prf_mask_pair(pair, salt, rate: float):
     layouts carry ``val`` and ``edge_id``) with both layouts' weights
     masked by the PRF keep mask of their physical edge ids
     (masks.py:113-127): the forward and the transposed layout drop the same
-    edges, so the gradient stays exact.  The mask is drawn once per edge id
-    and gathered per layout."""
-    keep = prf_keep_mask(salt, torch.arange(pair.fwd.n_live,
-                                            device=pair.fwd.val.device), rate)
-    return dataclasses.replace(
-        pair,
-        fwd=dataclasses.replace(pair.fwd, val=pair.fwd.val
-                                * keep[pair.fwd.edge_id.long()]),
-        bwd=dataclasses.replace(pair.bwd, val=pair.bwd.val
-                                * keep[pair.bwd.edge_id.long()]))
+    edges, so the gradient stays exact."""
+    def masked(g):
+        return dataclasses.replace(g, val=g.val * prf_keep_mask(
+            salt, g.edge_id, rate))
+    return dataclasses.replace(pair, fwd=masked(pair.fwd),
+                               bwd=masked(pair.bwd))
 
 
 def edge_dropout_masks_grouped(gen, graph, rate: float):
@@ -184,12 +203,19 @@ def prf_mask_graph(graph, edge_masks):
         raise ValueError(f"the {type(graph).__name__} layout needs PRF edge "
                          f"masks")
     rate = edge_masks["rate"]
+
+    def mask(p, salt):
+        # A ring's relation is a tuple of sub-block pairs, all masked alike.
+        if isinstance(p, tuple):
+            return tuple(prf_mask_pair(q, salt, rate) for q in p)
+        return prf_mask_pair(p, salt, rate)
+
     return dataclasses.replace(
         graph,
-        fwd=tuple(prf_mask_pair(p, s, rate) for p, s in
-                  zip(graph.fwd, edge_masks["fwd_salts"])),
-        rev=tuple(prf_mask_pair(p, s, rate) for p, s in
-                  zip(graph.rev, edge_masks["rev_salts"])))
+        fwd=tuple(mask(p, s) for p, s in zip(graph.fwd,
+                                             edge_masks["fwd_salts"])),
+        rev=tuple(mask(p, s) for p, s in zip(graph.rev,
+                                             edge_masks["rev_salts"])))
 
 
 def sparse_edge_dropout(adj, keep: torch.Tensor):
@@ -279,9 +305,10 @@ def _encoder_dropout_masks(gen, enc, cfg: AugmentConfig, num_ratings: int):
         return edge_dropout_masks_grouped(gen, enc, cfg.edge_dropout_rate)
     if isinstance(enc, BipartiteCoo):
         return edge_dropout_masks_coo(gen, enc, cfg.edge_dropout_rate)
-    raise NotImplementedError(
-        f"edge dropout on {type(enc).__name__} is not ported yet "
-        f"(ROADMAP.md queue A, item 10)")
+    if isinstance(enc, BipartiteSharded):
+        return edge_dropout_masks_sharded(gen, enc, cfg.edge_dropout_rate)
+    raise ValueError(f"edge dropout takes no {type(enc).__name__} encoder "
+                     f"graph")
 
 
 def draw_augment(gen, inputs, cfg: AugmentConfig, num_ratings: int = 2):

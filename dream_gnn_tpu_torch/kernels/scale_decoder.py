@@ -14,7 +14,13 @@ scores them against labels and weights permuted into that order once per
 candidate list (``ScaleDecoderLayout.slot_labels``); BCE and AUROC/AUPR do
 not depend on the order.  ``inv_slot`` takes a candidate to its forward
 slot.  The JAX layout pads its streams to whole chunks; here a slot is a
-candidate, so ``n_pos == n_mpos == n_edges`` and every slot weighs 1.
+candidate, so ``n_pos == n_mpos == n_edges`` and every slot weighs 1,
+unless the list is built with ``rank_pad``: then it is padded to that many
+slots with weight-0 slots (drug 0, disease 0, candidate id ``n_edges``, one
+past the list), so that every rank of the candidate-sharded decoder
+(sharding/scale_decoder_spmd.py) holds the same number of slots.  JAX's
+``rank_pad`` fixes its stream layouts' common rank space, for stacking
+shards on one controller; this padding is the part of it a rank needs.
 
 The pipeline (pallas_scale_decoder.py:808-877):
 - forward: K2 scores every forward slot from the bf16-rounded table rows
@@ -118,9 +124,12 @@ class ScaleDecoderLayout:
 
     def slot_labels(self, labels):
         """(labels, weights) in forward-slot order: the candidates' labels
-        permuted once per list, and weight 1 for every slot."""
+        permuted once per list, and weight 1 for every slot but the padding
+        slots of ``rank_pad``, which weigh 0."""
         lab = as_tensor(labels, torch.float32, self.fwd_eid.device)
-        return lab[self.fwd_eid.long()], torch.ones_like(lab)
+        eid = self.fwd_eid.long()
+        lab = torch.cat([lab, lab.new_zeros(1)])
+        return lab[eid], (eid < lab.shape[0] - 1).to(torch.float32)
 
 
 def build_scale_decoder_layout(dec_src, dec_dst, n_drug: int, n_dis: int,
@@ -128,11 +137,8 @@ def build_scale_decoder_layout(dec_src, dec_dst, n_drug: int, n_dis: int,
                                device=None) -> ScaleDecoderLayout:
     """The slot orders of candidates (dec_src[e], dec_dst[e]), with torch
     ops on the list's device (pallas_scale_decoder.py:191-258): the grouped
-    scatter layouts always, the sequential ones with ``build_seq``."""
-    if rank_pad is not None:
-        raise NotImplementedError(
-            "rank_pad lays out per-shard candidate lists, which is not ported "
-            "yet (ROADMAP.md queue A, item 10: multi-device)")
+    scatter layouts always, the sequential ones with ``build_seq``; with
+    ``rank_pad``, padded to that many slots (see the module doc)."""
     src = as_tensor(dec_src, torch.int64, device)
     dst = as_tensor(dec_dst, torch.int64, src.device)
     e = src.shape[0]
@@ -142,19 +148,28 @@ def build_scale_decoder_layout(dec_src, dec_dst, n_drug: int, n_dis: int,
     for ids, n, name in ((src, n_drug, "drug"), (dst, n_dis, "disease")):
         if int(ids.min()) < 0 or int(ids.max()) >= n:
             raise ValueError(f"{name} ids must lie in [0, {n})")
+    n_pos = e if rank_pad is None else rank_pad
+    if n_pos < e:
+        raise ValueError(f"rank_pad {rank_pad} < {e} candidates")
+    pad = src.new_zeros(n_pos - e)
+    src, dst = torch.cat([src, pad]), torch.cat([dst, pad])
     fwd = torch.argsort(src, stable=True)
     mirror = torch.argsort(dst, stable=True)
-    slots = torch.arange(e, device=src.device)
+    slots = torch.arange(n_pos, device=src.device)
     inv_slot = torch.empty_like(fwd)
     inv_slot[fwd] = slots
-    ones = torch.ones(e, dtype=torch.float32, device=src.device)
+    # Candidate ids; every padding slot carries e and weighs 0.
+    eid = torch.clamp_max(slots, e)
+    live = (slots < e).to(torch.float32)
     return ScaleDecoderLayout(
-        fwd_eid=fwd.int(), drug_of_slot=src[fwd].int(),
-        dis_of_slot=dst[fwd].int(), mirror_eid=mirror.int(),
+        fwd_eid=eid[fwd].int(), drug_of_slot=src[fwd].int(),
+        dis_of_slot=dst[fwd].int(), mirror_eid=eid[mirror].int(),
         drug_of_mslot=src[mirror].int(), dis_of_mslot=dst[mirror].int(),
-        gout_perm=inv_slot[mirror].int(), inv_slot=inv_slot.int(),
-        scat_drug=grouped_from_arrays(slots, src[fwd], ones, e, n_drug),
-        scat_dis=grouped_from_arrays(slots, dst[mirror], ones, e, n_dis),
+        gout_perm=inv_slot[mirror].int(), inv_slot=inv_slot[:e].int(),
+        scat_drug=grouped_from_arrays(slots, src[fwd], live[fwd], n_pos,
+                                      n_drug),
+        scat_dis=grouped_from_arrays(slots, dst[mirror], live[mirror], n_pos,
+                                     n_dis),
         seq_drug=(build_seq_scatter(src[fwd], None, None, n_drug)
                   if build_seq else None),
         seq_dis=(build_seq_scatter(dst[mirror], None, None, n_dis)

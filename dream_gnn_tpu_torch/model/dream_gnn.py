@@ -24,7 +24,14 @@ The encoder graph is dense (``BipartiteGraph``) or, at scale, padded COO
 (``BipartiteCoo``), slabbed (``BipartiteSlabbed``) or grouped
 (``BipartiteGrouped``); a slabbed or grouped graph's PRF edge dropout is
 applied once per forward, since every layer draws the same masks from the
-same salts.
+same salts.  Over the ranks of a process group the encoder graph may be
+rank-sharded (``BipartiteSharded``, ``BipartiteShardedGrouped``,
+sharding/scale_graph.py) and the scale decoder's layout candidate-sharded
+(``ShardedScaleDecoderLayout``, sharding/scale_decoder_spmd.py).  Then the
+GCMC route runs on this rank's row blocks of the features, and its outputs
+are gathered; the FGCN route, the attention and the node projections run
+replicated, the same on every rank; and the decoder scores this rank's
+candidates only (train/step.py says where each gradient is summed).
 
 Parameters are plain dicts of tensors with the JAX package's keys
 (``tgcn[i]``, ``fgcn``, ``attention``, ``decoder``) and its (in, out)
@@ -56,7 +63,10 @@ from dream_gnn_tpu_torch.nn.attention import attention_apply, attention_init
 from dream_gnn_tpu_torch.nn.decoder import (decoder_apply, decoder_apply_grid,
                                             decoder_init)
 from dream_gnn_tpu_torch.nn.fgcn import fgcn_apply, fgcn_init
-from dream_gnn_tpu_torch.nn.gcmc import gcmc_layer_apply, gcmc_layer_init
+from dream_gnn_tpu_torch.nn.gcmc import (SHARDED_LAYOUTS, gcmc_layer_apply,
+                                         gcmc_layer_init)
+from dream_gnn_tpu_torch.sharding.scale_decoder_spmd import (
+    ShardedScaleDecoderLayout, decoder_apply_scale_spmd)
 
 _DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16}
 
@@ -174,6 +184,11 @@ def _encode(params, inputs: ModelInputs, cfg: ModelConfig, *, train: bool,
     if isinstance(enc_graph, PRF_LAYOUTS) and edge_masks is not None:
         enc_graph, edge_masks = prf_mask_graph(enc_graph, edge_masks), None
     drug_feat, dis_feat = inputs.drug_feat, inputs.dis_feat
+    sharded = isinstance(enc_graph, SHARDED_LAYOUTS)
+    if sharded:
+        # The GCMC route runs on this rank's row blocks (nn/gcmc.py).
+        drug_feat = enc_graph.drug_rows.shard_rows(drug_feat)
+        dis_feat = enc_graph.dis_rows.shard_rows(dis_feat)
     drug_out = dis_out = 0.0
     for i in range(cfg.layers):
         drug_o, dis_o = gcmc_layer_apply(
@@ -185,6 +200,9 @@ def _encode(params, inputs: ModelInputs, cfg: ModelConfig, *, train: bool,
         drug_out = drug_o if i == 0 else drug_out + drug_o / float(i + 1)
         dis_out = dis_o if i == 0 else dis_out + dis_o / float(i + 1)
         drug_feat, dis_feat = drug_o, dis_o
+    if sharded:
+        drug_out = enc_graph.drug_rows.gather(drug_out)
+        dis_out = enc_graph.dis_rows.gather(dis_out)
 
     drug_sim_out, dis_sim_out, *_ = fgcn_apply(
         params["fgcn"], inputs.drug_graph, inputs.drug_sim_feat,
@@ -251,13 +269,29 @@ def _forward(params, inputs, cfg, *, stacked, train, generator, edge_masks):
         # out-of-fold cells with enc_graph.mask (labels = enc_graph.a1).
         pred = decode(params["decoder"], drug_feats, dis_feats, **kw)
     elif cfg.decoder_backend == "pallas" and inputs.dec_layout is not None:
-        if stacked or not isinstance(inputs.dec_layout, ScaleDecoderLayout):
-            raise NotImplementedError(
-                f"the scale decoder on a {type(inputs.dec_layout).__name__}"
-                f"{' of a fold stack' if stacked else ''} is not ported yet "
-                f"(ROADMAP.md queue A, item 10: multi-device)")
-        pred = decoder_apply_scale(params["decoder"], inputs.dec_layout,
-                                   drug_feats, dis_feats, **kw)
+        layout = inputs.dec_layout
+        if stacked:
+            raise ValueError("the scale decoder takes one candidate list, "
+                             "not a fold stack")
+        if isinstance(layout, ShardedScaleDecoderLayout):
+            # Candidate-sharded (dream_gnn.py:182-200 of the JAX package):
+            # pred is this rank's slots, in its slot order.
+            if layout.mesh is None or layout.axis is None:
+                raise ValueError(
+                    "ShardedScaleDecoderLayout routed through the model "
+                    "needs mesh+axis captured at build time — pass "
+                    "mesh=/axis= to build_scale_decoder_layout_sharded "
+                    "(a mesh-less layout only works with the explicit "
+                    "decoder_apply_scale_spmd(..., mesh, axis) call)")
+            pred = decoder_apply_scale_spmd(
+                params["decoder"], layout, drug_feats, dis_feats,
+                layout.mesh, layout.axis, **kw)
+        elif isinstance(layout, ScaleDecoderLayout):
+            pred = decoder_apply_scale(params["decoder"], layout, drug_feats,
+                                       dis_feats, **kw)
+        else:
+            raise ValueError(f"no scale decoder over a "
+                             f"{type(layout).__name__}")
     else:
         if cfg.decoder_backend == "pallas":
             kw["csr"] = inputs.dec_csr

@@ -10,11 +10,17 @@ from __future__ import annotations
 
 import torch
 
+from dream_gnn_tpu_torch.sharding.collectives import sum_ranks
+
 
 def bce_with_logits(logits: torch.Tensor, targets: torch.Tensor,
-                    smoothing: float = 0.0, weight=None) -> torch.Tensor:
+                    smoothing: float = 0.0, weight=None,
+                    group=None) -> torch.Tensor:
     """Mean BCE-with-logits; optional label smoothing (``t*(1-s) + s/2``,
-    train.py:20-23).  With ``weight`` the mean runs over weight mass."""
+    train.py:20-23).  With ``weight`` the mean runs over weight mass; with
+    a process ``group`` as well, over every rank's logits: the weighted sum
+    and the weight mass are each this rank's sum, summed over the ranks
+    (sharding/collectives.py ``sum_ranks``)."""
     if smoothing > 0.0:
         targets = targets * (1.0 - smoothing) + smoothing * 0.5
     # Numerically stable: max(x,0) - x*t + log1p(exp(-|x|))
@@ -22,7 +28,10 @@ def bce_with_logits(logits: torch.Tensor, targets: torch.Tensor,
             + torch.log1p(torch.exp(-torch.abs(logits))))
     if weight is None:
         return torch.mean(loss, dim=-1)
-    return torch.sum(loss * weight, dim=-1) / torch.sum(weight, dim=-1)
+    num, den = torch.sum(loss * weight, dim=-1), torch.sum(weight, dim=-1)
+    if group is not None:
+        num, den = sum_ranks(num, group), sum_ranks(den, group)
+    return num / den
 
 
 def common_loss(emb1: torch.Tensor, emb2: torch.Tensor) -> torch.Tensor:
@@ -39,10 +48,11 @@ def common_loss(emb1: torch.Tensor, emb2: torch.Tensor) -> torch.Tensor:
 
 
 def total_loss(pred, labels, drug_out, drug_sim_out, dis_out, dis_sim_out, *,
-               beta: float, smoothing: float = 0.0, weight=None):
+               beta: float, smoothing: float = 0.0, weight=None, group=None):
     """BCE + beta * (common_drug + common_dis) (train.py:289-294).
-    Returns (loss, bce)."""
-    rel = bce_with_logits(pred, labels, smoothing, weight)
+    Returns (loss, bce).  ``group``: ``pred`` is this rank's share of the
+    candidates of a process group (the candidate-sharded decoder)."""
+    rel = bce_with_logits(pred, labels, smoothing, weight, group)
     if beta == 0.0:
         return rel, rel
     com = (common_loss(drug_out, drug_sim_out)

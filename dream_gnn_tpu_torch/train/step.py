@@ -15,6 +15,25 @@ association grid (``enc_graph.a1``) weighted by the in-fold cell mask
 edge list.  On the scale path (a ``dec_layout``) pred is in the layout's
 slot order, and the labels and weights passed in are the slot-order ones of
 ``ScaleDecoderLayout.slot_labels``.
+
+Ranks.  Over a process group (a rank-sharded encoder graph or a
+candidate-sharded decoder layout, model/dream_gnn.py) every rank runs this
+same step, and every parameter gradient it ends with is the one-rank
+gradient, the same on every rank, so the clip norm and Adam see identical
+gradients.  Replicated compute (the FGCN route, the attention, the node
+projections, the plain decoder, the common loss) runs on every rank on the
+full arrays, the same ops on the same inputs, and gives the same gradients
+everywhere with no collective.  Sharded compute (the GCMC route on row
+blocks, the scale decoder on candidate chunks) gives each rank part of the
+gradient of the weights it uses; they enter through ``replicated_in``,
+whose backward all-reduces that part.  With a candidate-sharded decoder,
+the loss is the global weighted mean: this rank's weighted sum and weight
+mass, each summed over the ranks (train/losses.py), whose backward hands
+each rank the gradient of its own logits.  The generator is seeded alike on
+every rank and every draw is made for the whole problem, so all ranks hold
+the same draws.  Replicated compute must run deterministically for the
+ranks to stay identical: the plain edge decoder's gather backward on a card
+adds with atomics, so ranks sharing it may differ in the last bits.
 """
 
 from __future__ import annotations
@@ -28,6 +47,8 @@ from dream_gnn_tpu_torch.augment.masks import augment_inputs
 from dream_gnn_tpu_torch.config import ModelConfig, TrainConfig
 from dream_gnn_tpu_torch.model.dream_gnn import (ModelInputs, forward,
                                                  param_leaves)
+from dream_gnn_tpu_torch.sharding.scale_decoder_spmd import \
+    ShardedScaleDecoderLayout
 from dream_gnn_tpu_torch.train.losses import total_loss
 from dream_gnn_tpu_torch.train.optim import clip_by_global_norm_
 from dream_gnn_tpu_torch.utils.metrics import aupr_masked, auroc_masked
@@ -71,6 +92,13 @@ def decoder_targets(pred, inputs: ModelInputs, model_cfg: ModelConfig,
     return pred, labels, weight
 
 
+def _candidate_group(inputs: ModelInputs):
+    """The process group over which the candidates are sharded, or None."""
+    layout = inputs.dec_layout
+    return layout.group if isinstance(layout, ShardedScaleDecoderLayout) \
+        else None
+
+
 def make_one_step(model_cfg: ModelConfig, train_cfg: TrainConfig):
     """Single iteration: augment -> forward -> loss -> grads -> Adam.
     ``one_step(state, inputs, labels, weight)`` returns the loss (a device
@@ -91,7 +119,8 @@ def make_one_step(model_cfg: ModelConfig, train_cfg: TrainConfig):
         loss, _ = total_loss(
             pred, labels, drug_out, drug_sim_out, dis_out,
             dis_sim_out, beta=train_cfg.beta,
-            smoothing=train_cfg.label_smoothing, weight=weight)
+            smoothing=train_cfg.label_smoothing, weight=weight,
+            group=_candidate_group(aug_inputs))
         state.opt.zero_grad()
         loss.backward()
         leaves = param_leaves(state.params)
@@ -111,10 +140,16 @@ def evaluate(params, inputs: ModelInputs, model_cfg: ModelConfig,
     """Eval forward (dropout off) and on-device (AUROC, AUPR) over the
     weighted edges (edges mode) or the in-fold cells of ``inputs.enc_graph``
     (grid mode).  Parity trap §7.3.1: the caller passes the *test* encoder
-    graph for test-set evaluation."""
+    graph for test-set evaluation.  With a candidate-sharded decoder the
+    labels and weights are this rank's slot-order ones, and the metrics run
+    over every rank's candidates."""
     pred, *_ = forward(params, inputs, model_cfg, train=False)
     pred, labels, weight = decoder_targets(pred, inputs, model_cfg, labels,
                                            weight)
+    if _candidate_group(inputs) is not None:
+        # Every rank's slots, in candidate order, on every rank.
+        pred, labels, weight = (inputs.dec_layout.gather(x)
+                                for x in (pred, labels, weight))
     return auroc_masked(labels, pred, weight), aupr_masked(labels, pred,
                                                            weight)
 

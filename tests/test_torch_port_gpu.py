@@ -1808,3 +1808,53 @@ def test_cuda_generator_augment_draws(cuda):
         assert torch.equal(perm.sort(-1).values,
                            torch.arange(n, device=cuda).expand(3, n))
         assert lam.shape == (3,) and bool(((lam >= 0) & (lam <= 1)).all())
+
+
+# ---------------------------------------------------------------------------
+# The sharded scale path's collectives and kernels on the card.
+
+def _card_ranks(tmp_path, n_ranks, backend, cases):
+    import _torch_port_sharded_worker as worker
+
+    from dream_gnn_tpu_torch.nn.decoder import decoder_init
+    from dream_gnn_tpu_torch.sharding.multihost import spawn
+
+    dec = decoder_init(torch.Generator().manual_seed(0),
+                       in_units=worker.DECODER["d"])
+    torch.save({"decoder": {k: v.numpy() for k, v in dec.items()}},
+               tmp_path / "inputs.pt")
+    spawn(worker.run, n_ranks, backend, (str(tmp_path), cases),
+          workdir=str(tmp_path))
+    return [torch.load(tmp_path / f"rank{r}.pt", weights_only=False)
+            for r in range(n_ranks)]
+
+
+@pytest.mark.parametrize("backend,n_ranks", [("nccl", 1), ("gloo", 2)])
+def test_collectives_on_the_card(cuda, tmp_path, backend, n_ranks):
+    """Every collective of sharding/collectives.py on CUDA tensors, forward
+    and backward: NCCL at world size 1, and 2 gloo ranks sharing cuda:0
+    (the ring's point-to-point ops staged through the host); results stay
+    on the card."""
+    for res in _card_ranks(tmp_path, n_ranks, backend, ["collectives"]):
+        assert res["coll/on_device"]
+        for k, v in res.items():
+            if k != "coll/on_device":
+                assert v == 0.0, k
+
+
+def test_sharded_step_on_the_card_matches_one_rank(cuda, tmp_path):
+    """Over 2 gloo ranks on cuda:0: one sharded-grouped SpMM (the grouped
+    SpMM kernel on each rank's block; the forward bit for bit the
+    unsharded kernel's) and one sharded scale decoder step with dropout
+    (K2, B1, the mirror and the grouped SpMM's two scatters on each rank's
+    chunk) against rank 0 alone; every rank the same bits."""
+    res = _card_ranks(tmp_path, 2, "gloo", ["spmm_grouped", "decoder_grads"])
+    r0 = res[0]
+    for k, v in res[1].items():
+        np.testing.assert_array_equal(v, r0[k], err_msg=k)
+    np.testing.assert_array_equal(r0["spmm_grouped/S/out"],
+                                  r0["spmm_grouped/unsharded/out"])
+    for k in [k for k in r0 if "/S/" in k]:
+        a, b = r0[k], r0[k.replace("/S/", "/1/")]
+        err = float(np.abs(a - b).max()) / max(float(np.abs(b).max()), 1e-30)
+        assert err <= 1e-4, k

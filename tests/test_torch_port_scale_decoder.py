@@ -211,6 +211,29 @@ def test_h1_and_unported_layouts_raise():
         sd.scale_decoder(t[0][:, :64], t[1][:, :64], t[2][:64], t[3][:64],
                          *t[4:], lay, torch.zeros(1, dtype=torch.int32), 0.0,
                          False)
-    with pytest.raises(NotImplementedError, match="item 10"):
-        sd.build_scale_decoder_layout(x["src"], x["dst"], ND, NV,
-                                      rank_pad=4096, device="cpu")
+
+
+def test_rank_pad_slots_weigh_nothing():
+    """``rank_pad``: the list padded with weight-0 slots (drug 0, disease 0,
+    candidate id E); every candidate's logit and every gradient of a
+    weighted loss are the unpadded layout's: a padding slot adds a zero,
+    and only the plain version's matrix products, blocked for a longer
+    list, may sum in another order (rtol 1e-6)."""
+    x = _case()
+    t = [torch.tensor(x[k], requires_grad=k in NAMES[:6]) for k in NAMES]
+    labels = np.arange(E, dtype=np.float32) % 3
+    outs = []
+    for pad in (None, E + 37):
+        lay = sd.build_scale_decoder_layout(x["src"], x["dst"], ND, NV,
+                                            rank_pad=pad, build_seq=False,
+                                            device="cpu")
+        assert lay.n_pos == (pad or E) and lay.n_edges == E
+        lab, w = lay.slot_labels(labels)
+        assert float(w.sum()) == E and float((lab * w).sum()) == labels.sum()
+        seed = torch.tensor([5], dtype=torch.int32)
+        logits = sd.scale_decoder(*t, lay, seed, 0.3, True, torch.float32)
+        grads = torch.autograd.grad((w * logits * (lab + 1)).sum(), t[:6])
+        outs.append((logits[lay.inv_slot.long()], grads))
+    torch.testing.assert_close(outs[1][0], outs[0][0], rtol=1e-6, atol=1e-7)
+    for a, b in zip(outs[1][1], outs[0][1]):
+        torch.testing.assert_close(a, b, rtol=1e-6, atol=1e-7)
