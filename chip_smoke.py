@@ -149,14 +149,37 @@ Phases, each of which fails the run if it fails:
     full size over the 2 ranks (3 + 3 steps: ms/step, edges/s, layout build,
     each rank's peak memory and launches), and ``--sharded`` and ``--ring``
     at ``--small`` over 2 ranks against the one-device layouts they shard
-    (the loss, the launch counts).
+    (the loss, the launch counts); after each of these runs every
+    parameter's copies on the ranks must be the same bits (fault C3: the
+    step broadcasts the first rank's gradients, train/step.py), the
+    largest difference printed per leaf.
+
+31. the fold-parallel step on a dp x mp mesh (sharding/partition.py):
+    the Gdataset stack at the CLI's width (F = 10 folds of seed 42, bf16,
+    dropout 0.3, edge dropout and feature noise), 3 steps, in grid and
+    edges mode, over 2 x 2 gloo ranks sharing cuda:0 (rank 0 also runs the
+    one-rank reference over its 1 x 1 mesh) and over one NCCL rank: every
+    draw of the first step on each rank bit for bit the one-rank draw's
+    block of folds, the losses and the first step's gradients against one
+    rank within stated tolerances, every parameter the same bits on the
+    ranks of an mp group after the steps (the step broadcasts nothing over
+    mp: the group's first-step gradients, as computed, and one broadcast's
+    time are printed), each rank's launches of rows 3-4 or 7-8 in the
+    first step held against their plain versions on the rank's block (with
+    its column base), then the launch counts, ms/step and peak memory of
+    each run; and one launch of rows 1 and 2 through
+    ``fused_grid_decoder_spmd2d`` on each rank's block (row and column
+    bases) held against its plain version, its gathered logits bit for bit
+    one unsharded launch's.
 
 Each trainer phase sets every launch count to 0 just before it drives its
 entry point and reads the counts just after.
 
-The line before the last is the JSON kernel table; the last line is
-``{"ok": true, "device": {...}}``.  Without a CUDA device the script exits
-non-zero before printing any result.
+The line before the last is the JSON kernel table (each row's
+``launches`` on its main path, and ``mesh_launches``, a rank's on phase
+31's 2 x 2 mesh); the last line is ``{"ok": true, "device": {...}}``.
+Without a CUDA device the script exits non-zero before printing any
+result.
 """
 
 from __future__ import annotations
@@ -178,6 +201,7 @@ from dream_gnn_tpu_torch.utils.timing import (OPS_B1, OPS_K2, OPS_MIRROR,
                                               PEAK_BYTES_S, PEAK_FLOPS_S,
                                               bound_ms, decoder_bound_ms,
                                               decoder_flops, tensor_bytes)
+from dream_gnn_tpu_torch.model.dream_gnn import named_leaves
 
 ND, NV = 593, 313            # Gdataset preset (data/synthetic.py)
 NF_CHECK, NF = 3, 10         # folds: batched checks, batched timing and trainer
@@ -2240,17 +2264,6 @@ def _recorded_kernels(calls: list):
     return stack
 
 
-def _named_leaves(tree, path=""):
-    """(name, tensor) of a param tree in ``param_leaves`` order."""
-    if isinstance(tree, dict):
-        return [x for k in sorted(tree)
-                for x in _named_leaves(tree[k], f"{path}.{k}".lstrip("."))]
-    if isinstance(tree, list):
-        return [x for i, v in enumerate(tree)
-                for x in _named_leaves(v, f"{path}[{i}]")]
-    return [(path, tree)]
-
-
 def _augmented_step(ds, mode: str, stacked: bool):
     """One training step at the CLI's default width with the six methods,
     its draws made once and injected, through the kernels and through their
@@ -2305,7 +2318,7 @@ def _augmented_step(ds, mode: str, stacked: bool):
             loss.sum().backward()
         torch.cuda.synchronize()
         outs[name] = [("logits", pred.detach()), ("loss", loss.detach())] + [
-            (k, p.grad) for k, p in _named_leaves(params)]
+            (k, p.grad) for k, p in named_leaves(params)]
 
     def err(a, b):
         a, b = a.detach(), b.detach()
@@ -2534,6 +2547,7 @@ def _sharded_step_rank(device, out_dir: str, tag: str) -> dict:
     from dream_gnn_tpu_torch.model.dream_gnn import (forward, init_params,
                                                      param_leaves)
     from dream_gnn_tpu_torch.scripts import bench_scale
+    from dream_gnn_tpu_torch.sharding.collectives import replica_spread
     from dream_gnn_tpu_torch.sharding.mesh import make_mesh
     from dream_gnn_tpu_torch.sharding.multihost import describe
     from dream_gnn_tpu_torch.sharding.scale_decoder_spmd import \
@@ -2607,6 +2621,8 @@ def _sharded_step_rank(device, out_dir: str, tag: str) -> dict:
     peak = torch.cuda.max_memory_allocated(device)
 
     logits3 = eval_logits()
+    names, leaves = zip(*named_leaves(state.params))
+    replicas = dict(zip(names, replica_spread(leaves, group)))
     per_rank = [None] * n_ranks
     dist.all_gather_object(per_rank, dict(
         errs=errs, launches={k: launches[k] for k in ("gather", "scale")},
@@ -2614,12 +2630,12 @@ def _sharded_step_rank(device, out_dir: str, tag: str) -> dict:
     if dist.get_rank() == 0:
         torch.save({"params": [p.detach().cpu()
                                for p in param_leaves(state.params)],
-                    "names": [k for k, _ in _named_leaves(state.params)],
+                    "names": [k for k, _ in named_leaves(state.params)],
                     "grads1": grads1, "logits0": logits0,
                     "logits3": logits3},
                    os.path.join(out_dir, f"{tag}.pt"))
     return dict(losses=losses, ms=ms, hashes=hashes, ranks=per_rank,
-                describe=describe())
+                replicas=replicas, describe=describe())
 
 
 def _rel(a, b) -> float:
@@ -2654,6 +2670,20 @@ def _hold_sharded_run(res, n_ranks, label):
                 not rank["errs"][k] <= tol[k] for k in tol):
             raise AssertionError(f"{label} rank {r}: a launch disagrees with "
                                  f"its plain version: {rank['errs']}")
+
+
+def _hold_replicas(label: str, replicas: dict) -> None:
+    """Each parameter's largest difference between its copies on the
+    ranks after the steps, which must be 0 (fault C3: replicated weights
+    drifting apart; the step broadcasts the first rank's gradients)."""
+    differ = {k: v for k, v in replicas.items() if v != 0.0}
+    print(f"  {label}: the ranks' copies of the {len(replicas)} parameters "
+          f"after the steps, the largest difference per leaf: "
+          + ", ".join(f"{k} {v:.3e}" for k, v in replicas.items())
+          + f"; {len(differ)} of {len(replicas)} leaves differ")
+    if differ:
+        raise AssertionError(f"{label}: the ranks' replicated parameters "
+                             f"drifted apart: {differ}")
 
 
 def _bench_sharded(flags, label):
@@ -2696,6 +2726,7 @@ def phase_sharded(gpu: str):
               f"events{'' if n_ranks == 1 else host}); "
               f"{t_run[tag]:.1f} s of wall time")
         _hold_sharded_run(res, n_ranks, tag)
+        _hold_replicas(tag, res["replicas"])
     one, two = (torch.load(os.path.join(out_dir, f"{t}.pt"))
                 for t in ("one", "sharded"))
     if runs["one"]["hashes"] != runs["sharded"]["hashes"]:
@@ -2743,6 +2774,7 @@ def phase_sharded(gpu: str):
           + ", ".join(f"{p / 2 ** 30:.2f} GiB"
                       for p in res["peak_memory_bytes"])
           + f"; launches per rank {res['launches']}")
+    _hold_replicas("bench_scale --sharded-grouped", res["replica_spread"])
     want = {"fwd": 12 * n_steps, "bwd": 12 * n_steps, "raw": 0}
     if any(ln != want for ln in res["launches"]):
         raise AssertionError(f"bench_scale --sharded-grouped launches "
@@ -2768,11 +2800,352 @@ def phase_sharded(gpu: str):
               f"{multi['ms_per_step']:.1f} ms/step{host} vs "
               f"{one_rank['ms_per_step']:.1f}; launches per rank "
               f"{multi['launches']}")
+        _hold_replicas(f"bench_scale {flag} --small",
+                        multi["replica_spread"])
         if rel > SHARDED_TOL["loss"] or any(ln != want
                                             for ln in multi["launches"]):
             raise AssertionError(f"bench_scale {flag}: loss {rel:.3e} off "
                                  f"one device's, or launches "
                                  f"{multi['launches']} not {want}")
+
+
+# ---------------------------------------------------------------------------
+# The fold-parallel step on a dp x mp mesh (phase 31).
+
+MESH_DP, MESH_MP = 2, 2
+MESH_STEPS = 3
+MESH_SEED = 42
+# Tolerances of the 2 x 2 run against the one-rank run on the same card.
+# Both draw the same masks (checked bit for bit) and run the same
+# arithmetic, but for the decoder's weight and table gradients, summed as
+# mp partial sums in another order, and cuBLAS's batched products over 5
+# folds where one rank has 10: the losses of the steps within 1e-4
+# (relative), the first step's gradients within 1e-4 of each leaf's
+# largest, as phase 30 holds the sharded scale path.  Measured on the
+# H100: losses 1.5e-6, gradients 8.5e-5 (decoder.w1, grid) and 2.2e-5
+# (decoder.w2, edges).
+MESH_TOL = {"loss": 1e-4, "grads1": 1e-4}
+
+
+def _digest(x: torch.Tensor) -> str:
+    import hashlib
+
+    raw = x.detach().contiguous().cpu().view(torch.uint8).numpy()
+    return hashlib.sha256(raw.tobytes()).hexdigest()[:16]
+
+
+def _mesh_held_launches(errs: dict):
+    """Every launch of rows 1-4, 7 and 8 is held, right after it runs,
+    against its plain version on the same inputs (the rank's block and its
+    row and column bases), as phase 29 holds them: the depth-64/128
+    products in unit order, the sums over all cells or edges in float64.
+    ``errs[kind]`` keeps each kind's largest relative error; the plain
+    versions launch nothing."""
+    from contextlib import ExitStack
+    from unittest import mock
+
+    def rel(out, ref):
+        out = out if isinstance(out, tuple) else (out,)
+        ref = ref if isinstance(ref, tuple) else (ref,)
+        return max(float((a - b).abs().max()) / max(float(b.abs().max()),
+                                                     1e-30)
+                   for a, b in zip(out, ref))
+
+    stack = ExitStack()
+    for mod, name, plain in _plain_versions():
+        if name in ("launch_fwd", "launch_bwd") and mod.__name__.endswith(
+                "edge_decoder"):
+            continue                     # rows 5 and 6: not on this path
+        kind = f"{mod.__name__.rsplit('.', 1)[1].split('_')[0]} {name[7:]}"
+
+        def held(*args, _launch=getattr(mod, name), _plain=plain,
+                 _kind=kind):
+            out = _launch(*args)
+            with torch.no_grad():
+                ref = _unit_order(_plain, *args, depths=(64, 128),
+                                  long_f64=True)
+            errs[_kind] = max(errs.get(_kind, 0.0), rel(out, ref))
+            return out
+        stack.enter_context(mock.patch.object(mod, name, held))
+    return stack
+
+
+def _recorded_draws(log: list):
+    """Every training draw (utils/draws.py) appended to ``log`` as (fold
+    axis, the rank's block of it)."""
+    from unittest import mock
+
+    from dream_gnn_tpu_torch.utils import draws
+
+    plain = draws._draw
+
+    def record(fn, shape, fold_dim):
+        x = plain(fn, shape, fold_dim)
+        log.append((fold_dim, x))
+        return x
+    return mock.patch.object(draws, "_draw", record)
+
+
+def _mesh_run(mesh, ds, mode: str, device, out_dir: str, tag: str,
+              hold: bool) -> dict:
+    """F = 10 folds of seed 42 at the CLI's width over ``mesh``: the first
+    step's loss and gradients with every draw recorded (and, with ``hold``,
+    every decoder launch held against its plain version), then MESH_STEPS
+    steps of ``make_multichip_train_fns``, the last two timed; the largest
+    difference within the rank's mp group of each first-step gradient
+    (the fused decoders' step broadcasts none) and of each parameter after
+    the steps, and the time of one broadcast of the gradients over the
+    group, the one the step would make to align them.  Writes the first
+    step's gradients to ``out_dir/{tag}_grads{rank}.pt``."""
+    import torch.distributed as dist
+
+    from dream_gnn_tpu_torch.config import TrainConfig
+    from dream_gnn_tpu_torch.sharding.collectives import (broadcast_first_,
+                                                           replica_spread)
+    from dream_gnn_tpu_torch.sharding.foldstack import stack_folds
+    from dream_gnn_tpu_torch.sharding.partition import (
+        make_multichip_train_fns, shard_stacked)
+    from dream_gnn_tpu_torch.train.loop import derive_model_cfg
+    from dream_gnn_tpu_torch.train.stacked import stacked_loss
+
+    cfg = TrainConfig()
+    mcfg = dataclasses.replace(derive_model_cfg(cfg, ds),
+                               **dict(MAIN_PATH, decode_mode=mode))
+    init_state, run_steps, _ = make_multichip_train_fns(mesh, mcfg, cfg)
+    state = init_state(MESH_SEED, range(NF), device)
+    tr = shard_stacked(mesh, stack_folds(ds, list(range(NF))), mode)
+    gen = torch.Generator(device=device)
+    gen.set_state(state.generator.get_state())
+    log, errs = [], {}
+    with _recorded_draws(log):
+        if hold:
+            with _mesh_held_launches(errs):
+                losses = stacked_loss(state.params, tr.inputs, mcfg, cfg,
+                                      gen, tr.labels, tr.edge_weight, mesh)
+                losses.sum().backward()
+        else:
+            losses = stacked_loss(state.params, tr.inputs, mcfg, cfg, gen,
+                                  tr.labels, tr.edge_weight, mesh)
+            losses.sum().backward()
+    named = named_leaves(state.params)
+    torch.save([(k, p.grad.detach().cpu()) for k, p in named],
+               os.path.join(out_dir, f"{tag}_grads{dist.get_rank()}.pt"))
+    grads = [p.grad for _, p in named]
+    grad_spread = replica_spread(grads, mesh.group("mp"))
+    torch.cuda.synchronize(device)
+    t0 = time.perf_counter()
+    broadcast_first_(grads, mesh.group("mp"))
+    torch.cuda.synchronize(device)
+    bcast_ms = (time.perf_counter() - t0) * 1e3
+    for _, p in named:
+        p.grad = None
+    _zero_launches()
+    step_losses = [run_steps(state, tr, 1).cpu()]
+    torch.cuda.synchronize(device)
+    torch.cuda.reset_peak_memory_stats(device)
+    start = torch.cuda.Event(enable_timing=True)
+    stop = torch.cuda.Event(enable_timing=True)
+    start.record()
+    step_losses += [run_steps(state, tr, 1) for _ in range(MESH_STEPS - 1)]
+    stop.record()
+    torch.cuda.synchronize(device)
+    return dict(loss0=losses.detach().cpu(),
+                step_losses=torch.stack([x.cpu() for x in step_losses]),
+                draws=[(d, _digest(x)) for d, x in log],
+                one_blocks=[[_digest(x.narrow(d, b * NF // MESH_DP,
+                                              NF // MESH_DP))
+                             for d, x in log] for b in range(MESH_DP)]
+                if mesh.shape["dp"] == 1 else None,
+                errs=errs, launches=_launches(),
+                ms=start.elapsed_time(stop) / (MESH_STEPS - 1),
+                grad_spread=grad_spread, bcast_ms=bcast_ms,
+                peak=torch.cuda.max_memory_allocated(device),
+                spread=max(replica_spread([p for _, p in named],
+                                          mesh.group("mp"))))
+
+
+def _spmd2d_held(mesh, device) -> dict:
+    """One launch of rows 1 and 2 through ``fused_grid_decoder_spmd2d``
+    (drug rows over dp, diseases over mp) at the Gdataset grid, bf16,
+    dropout 0.3, each held against its plain version on the rank's block;
+    the gathered logits against one unsharded launch of row 1, bit for
+    bit."""
+    from dream_gnn_tpu_torch.kernels import grid_decoder as gd
+    from dream_gnn_tpu_torch.sharding.decoder_spmd import \
+        fused_grid_decoder_spmd2d
+
+    x = _decoder_inputs(device)
+    args = [x[k].clone().requires_grad_(k not in ("seed",))
+            for k in KERNEL_ARGS]
+    errs = {}
+    _zero_launches()
+    with _mesh_held_launches(errs):
+        logits = fused_grid_decoder_spmd2d(mesh, "dp", "mp", *args, 0.3,
+                                           True, torch.bfloat16)
+        logits.backward(x["g"])
+    launches = _launches()["grid"]
+    whole = gd.launch_fwd(*[x[k] for k in KERNEL_ARGS], 0.3, True,
+                          torch.bfloat16)
+    return dict(errs=errs, launches=launches,
+                same=bool(torch.equal(logits.detach(), whole)))
+
+
+def _mesh_step_rank(device, out_dir: str, dp: int, mp: int) -> dict:
+    """One rank of phase 31: the grid and edges runs over the (dp, mp)
+    mesh, and on rank 0 of a multi-rank spawn the same runs over its
+    (1, 1) mesh; then the 2-D grid decoder once.  Returns, on rank 0, every
+    rank's numbers."""
+    import torch.distributed as dist
+
+    from dream_gnn_tpu_torch.data.loader import DreamDataset
+    from dream_gnn_tpu_torch.sharding.mesh import make_mesh
+    from dream_gnn_tpu_torch.sharding.multihost import describe
+    from dream_gnn_tpu_torch.utils.device import set_numerics
+
+    set_numerics()
+    mesh = make_mesh(dp=dp, mp=mp)
+    mesh1 = make_mesh(dp=1, mp=1) if dp * mp > 1 else None
+    rank = dist.get_rank()
+    ds = DreamDataset.load("Gdataset", device=device)
+    mine = {}
+    for mode in ("grid", "edges"):
+        mine[mode] = _mesh_run(mesh, ds, mode, device, out_dir,
+                               f"{mode}_mesh", True)
+        if mesh1 is not None and rank == 0:
+            mine[f"{mode} one"] = _mesh_run(mesh1, ds, mode, device, out_dir,
+                                            f"{mode}_one", False)
+    if dp > 1 and mp > 1:
+        mine["spmd2d"] = _spmd2d_held(mesh, device)
+    every = [None] * dist.get_world_size()
+    dist.all_gather_object(every, mine)
+    return dict(ranks=every, describe=describe())
+
+
+def _hold_mesh_runs(res: dict, out_dir: str, label: str, gpu: str) -> dict:
+    """Phase 31's checks of one spawn; returns each mode's launches of a
+    rank."""
+    kinds = {"grid": ("fwd_b", "bwd_b"), "edges": ("fwd_b", "bwd_b")}
+    mods = {"grid": "grid", "edges": "edge"}
+    out = {}
+    for mode in ("grid", "edges"):
+        one = res["ranks"][0].get(f"{mode} one")
+        for r, rank in enumerate(res["ranks"]):
+            run = rank[mode]
+            counts = run["launches"][mods[mode]]
+            want = {k: MESH_STEPS if k in kinds[mode] else 0 for k in counts}
+            other = "edge" if mode == "grid" else "grid"
+            print(f"  {label} {mode} rank {r}: {run['ms']:.1f} ms/step "
+                  f"(steps 2-{MESH_STEPS}, CUDA events; {gpu}), peak "
+                  f"{run['peak'] / 2 ** 30:.2f} GiB, launches {counts} in "
+                  f"{MESH_STEPS} steps; each launch of the first step "
+                  f"against its plain version: "
+                  + ", ".join(f"{k} {v:.3e}" for k, v in run["errs"].items())
+                  + "; losses " + ", ".join(
+                      f"{float(x):.6f}" for x in run["step_losses"][:, 0])
+                  + f" (fold 0 of the rank); the mp group's first-step "
+                  f"gradients, as computed: "
+                  f"{sum(v != 0.0 for v in run['grad_spread'])} of "
+                  f"{len(run['grad_spread'])} leaves apart, largest "
+                  f"difference {max(run['grad_spread']):.1e}; one "
+                  f"broadcast of them {run['bcast_ms']:.2f} ms (host "
+                  f"clock); parameters after the steps: largest difference "
+                  f"{run['spread']:.1e}")
+            if counts != want or any(run["launches"][other].values()):
+                raise AssertionError(f"{label} {mode} rank {r}: launches "
+                                     f"{run['launches']}, the path implies "
+                                     f"{want}")
+            held = {f"{mods[mode]} {k}" for k in ("fwd_batched",
+                                                  "bwd_batched")}
+            if set(run["errs"]) != held or any(
+                    not v <= TOL[torch.bfloat16]
+                    for v in run["errs"].values()):
+                raise AssertionError(f"{label} {mode} rank {r}: a launch "
+                                     f"disagrees with its plain version: "
+                                     f"{run['errs']}")
+            if run["spread"] != 0.0:
+                raise AssertionError(f"{label} {mode} rank {r}: the mp "
+                                     f"group's replicas differ by "
+                                     f"{run['spread']}")
+            if not torch.isfinite(run["step_losses"]).all():
+                raise AssertionError(f"{label} {mode}: losses "
+                                     f"{run['step_losses']}")
+        out[mode] = res["ranks"][0][mode]["launches"][mods[mode]]
+        if one is None:
+            continue
+        # The mesh against rank 0 alone: masks, losses, gradients.
+        size = NF // MESH_DP
+        errs = {"loss": 0.0, "grads1": 0.0}
+        leaf = {}
+        for r, rank in enumerate(res["ranks"]):
+            run, block = rank[mode], r // MESH_MP
+            if [h for _, h in run["draws"]] != one["one_blocks"][block]:
+                raise AssertionError(f"{label} {mode} rank {r}: its draws "
+                                     f"are not one rank's block of folds")
+            sl = slice(block * size, (block + 1) * size)
+            errs["loss"] = max(errs["loss"], _rel(run["loss0"],
+                                                  one["loss0"][sl]),
+                               _rel(run["step_losses"],
+                                    one["step_losses"]))
+            grads = torch.load(os.path.join(out_dir,
+                                            f"{mode}_mesh_grads{r}.pt"))
+            ref = torch.load(os.path.join(out_dir, f"{mode}_one_grads0.pt"))
+            for (name, a), (_, b) in zip(grads, ref):
+                leaf[name] = max(leaf.get(name, 0.0), _rel(a, b[sl]))
+        errs["grads1"] = max(leaf.values())
+        worst = sorted(((v, k) for k, v in leaf.items()), reverse=True)
+        print(f"  {label} {mode}: {len(one['draws'])} draws of the first "
+              f"step (augmentation, dropout, decoder seeds), each rank's bit "
+              f"for bit one rank's block of folds; 4 ranks vs one: "
+              + ", ".join(f"{k} {v:.3e} (tol {MESH_TOL[k]:.0e})"
+                          for k, v in errs.items())
+              + "; worst leaves " + ", ".join(f"{k} {v:.3e}"
+                                              for v, k in worst[:3])
+              + "; one rank "
+              f"{one['ms']:.1f} ms/step, peak {one['peak'] / 2 ** 30:.2f} "
+              f"GiB")
+        if any(not errs[k] <= MESH_TOL[k] for k in errs):
+            raise AssertionError(f"{label} {mode}: the mesh disagrees with "
+                                 f"one rank: {errs}")
+    return out
+
+
+def phase_mesh(gpu: str) -> dict:
+    """Phase 31, the fold-parallel step on a dp x mp mesh (see the module
+    doc); returns the launches a rank of rows 1-4, 7 and 8 over the 2 x 2
+    mesh's runs."""
+    from dream_gnn_tpu_torch.sharding.multihost import spawn
+
+    n = MESH_DP * MESH_MP
+    print(f"== mesh step: {MESH_DP} x {MESH_MP} gloo ranks sharing cuda:0 "
+          f"(their times measure host staging, not a multi-GPU fabric) with "
+          f"rank 0's one-rank reference, then one NCCL rank; Gdataset F = "
+          f"{NF} folds of seed {MESH_SEED}, bf16, dropout 0.3, edge dropout "
+          f"and feature noise, {MESH_STEPS} steps; {gpu}")
+    torch.cuda.empty_cache()
+    out_dir = tempfile.mkdtemp(prefix="chip_smoke_mesh_")
+    t0 = time.perf_counter()
+    res = spawn(_mesh_step_rank, n, "gloo", (out_dir, MESH_DP, MESH_MP))
+    print(f"  {res['describe']}; {time.perf_counter() - t0:.1f} s of wall "
+          f"time")
+    launches = _hold_mesh_runs(res, out_dir, f"{MESH_DP}x{MESH_MP}", gpu)
+    for r, rank in enumerate(res["ranks"]):
+        s2 = rank["spmd2d"]
+        print(f"  spmd2d rank {r}: launches {s2['launches']}; against the "
+              f"plain version on the rank's block: "
+              + ", ".join(f"{k} {v:.3e}" for k, v in s2["errs"].items())
+              + f"; gathered logits bit for bit one unsharded launch: "
+              f"{s2['same']}")
+        want = {"fwd": 1, "bwd": 1, "fwd_b": 0, "bwd_b": 0}
+        if s2["launches"] != want or not s2["same"] or set(s2["errs"]) != {
+                "grid fwd", "grid bwd"} or any(
+                not v <= TOL[torch.bfloat16] for v in s2["errs"].values()):
+            raise AssertionError(f"spmd2d rank {r}: {s2}")
+    t0 = time.perf_counter()
+    res1 = spawn(_mesh_step_rank, 1, "nccl", (out_dir, 1, 1))
+    print(f"  {res1['describe']}; {time.perf_counter() - t0:.1f} s of wall "
+          f"time")
+    _hold_mesh_runs(res1, out_dir, "nccl 1x1", gpu)
+    return dict(launches, spmd2d=res["ranks"][0]["spmd2d"]["launches"])
 
 
 def main() -> int:
@@ -2822,6 +3195,7 @@ def main() -> int:
     phase_chained_ms()
     phase_six_augment_methods(gpu, {"grid": ms_grid, "edges": ms_edges})
     phase_sharded(gpu)
+    mesh = phase_mesh(gpu)
     print("  launches of rows 1, 3, 4 and 5 on the tooling paths: "
           + "; ".join(f"{k}: row 1 {v['grid']['fwd']}, row 3 "
                       f"{v['grid']['fwd_b']}, row 4 {v['grid']['bwd_b']}, "
@@ -2845,6 +3219,14 @@ def main() -> int:
                              launches_s["scale"]["b1"],
                              launches_s["scale"]["mirror"])):
         row["launches"] = n
+    # A rank's launches on the 2 x 2 mesh's paths of phase 31: rows 1 and 2
+    # through the 2-D grid decoder, rows 3-4 and 7-8 in its three steps.
+    for i, n in ((0, mesh["spmd2d"]["fwd"]), (1, mesh["spmd2d"]["bwd"]),
+                 (2, mesh["grid"]["fwd_b"]), (3, mesh["grid"]["bwd_b"]),
+                 (6, mesh["edges"]["fwd_b"]), (7, mesh["edges"]["bwd_b"])):
+        rows[i]["mesh_launches"] = n
+    for row in rows:
+        row.setdefault("mesh_launches", 0)
     if len(rows) != 15:
         raise AssertionError(f"the kernel table has {len(rows)} rows, not 15")
     print(gpu)

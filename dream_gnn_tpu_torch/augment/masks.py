@@ -80,6 +80,7 @@ from dream_gnn_tpu_torch.graph.slabbed import BipartiteSlabbed
 from dream_gnn_tpu_torch.kernels.grid_decoder import fmix32
 from dream_gnn_tpu_torch.sharding.scale_graph import (BipartiteSharded,
                                                       BipartiteShardedGrouped)
+from dream_gnn_tpu_torch.utils import draws as rng
 
 # The encoder layouts whose edge dropout is the PRF of physical edge ids.
 PRF_LAYOUTS = (BipartiteSlabbed, BipartiteGrouped, BipartiteShardedGrouped)
@@ -95,8 +96,7 @@ EDGE_MASKS = "edge_masks"
 def _bernoulli(gen, p, shape, device) -> torch.Tensor:
     """A float32 Bernoulli(p) mask of ``shape``; ``p`` is a float or a
     tensor that broadcasts against ``shape``."""
-    return (torch.rand(shape, generator=gen, device=device) < p).to(
-        torch.float32)
+    return (rng.rand(gen, shape, device) < p).to(torch.float32)
 
 
 def edge_dropout_masks(gen, n_drug: int, n_dis: int, num_ratings: int,
@@ -267,18 +267,20 @@ def row_permutations(gen, shape, device) -> torch.Tensor:
     """Uniform random permutations of range(shape[-1]), one per leading
     index: the argsort of float64 uniform draws, since ``torch.randperm``
     makes one permutation a call."""
-    return torch.argsort(torch.rand(shape, generator=gen, device=device,
-                                    dtype=torch.float64), dim=-1)
+    return torch.argsort(rng.rand(gen, shape, device, torch.float64),
+                         dim=-1)
 
 
-def beta_sample(gen, alpha: float, device, shape=()) -> torch.Tensor:
+def beta_sample(gen, alpha: float, device, shape=(),
+                fold_dim: int = 0) -> torch.Tensor:
     """Beta(alpha, alpha) draws of ``shape`` as float32 on ``device``: the
     inverse CDF (scipy's ``betaincinv``) of uniform draws from ``gen``;
     torch's own Beta sampler takes no generator.  All the draws of a call
-    make one round trip to the host."""
+    make one round trip to the host.  ``fold_dim``: the fold axis of a
+    stack's draws (utils/draws.py)."""
     from scipy.special import betaincinv
 
-    u = torch.rand(shape, generator=gen, device=device, dtype=torch.float64)
+    u = rng.rand(gen, shape, device, torch.float64, fold_dim)
     return torch.as_tensor(betaincinv(alpha, alpha, u.cpu().numpy()),
                            dtype=torch.float32, device=device)
 
@@ -344,23 +346,24 @@ def draw_augment(gen, inputs, cfg: AugmentConfig, num_ratings: int = 2):
         elif method == "feature_noise":
             for field in FEATURE_FIELDS:
                 x = getattr(inputs, field)
-                draws.append((method, field, torch.randn(
-                    x.shape, generator=gen, device=x.device, dtype=x.dtype)))
+                draws.append((method, field, rng.randn(
+                    gen, x.shape, x.device, x.dtype)))
         elif method == "graph_noise":
             # ``.a``: dense graphs only; a CooGraph fails here as in JAX.
             for field, g in _similarity_graphs(inputs):
-                draws.append((method, field, torch.randn(
-                    g.a.shape, generator=gen, device=g.a.device)))
+                draws.append((method, field, rng.randn(
+                    gen, g.a.shape, g.a.device)))
         elif method == "feature_masking":
             for field in EMBED_FIELDS:
                 x = getattr(inputs, field)
-                draws.append((method, field, torch.rand(
-                    x.shape, generator=gen, device=x.device)))
+                draws.append((method, field, rng.rand(
+                    gen, x.shape, x.device)))
         elif method == "mix_up":
             # Both fields' coefficients in one call: one host round trip.
             x = inputs.drug_feat
             lams = beta_sample(gen, cfg.mixup_alpha, x.device,
-                               (len(EMBED_FIELDS), *x.shape[:-2]))
+                               (len(EMBED_FIELDS), *x.shape[:-2]),
+                               fold_dim=1)
             for field, lam in zip(EMBED_FIELDS, lams):
                 x = getattr(inputs, field)
                 draws.append((method, field, (row_permutations(

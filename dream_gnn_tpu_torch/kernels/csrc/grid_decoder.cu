@@ -14,9 +14,12 @@
 //
 // rnd() rounds to bf16 in bf16 mode and is the identity in fp32 mode, at
 // the same points as the Pallas kernels.  Dropout bits are a stateless hash
-// of (seed[f], layer, i, j, k), with no fold term; see
+// of (seed[f], layer, row_base + i, col_base + j, k), with no fold term; see
 // dream_gnn_tpu_torch/kernels/grid_decoder.py for the definition that the
-// plain PyTorch version shares bit for bit.
+// plain PyTorch version shares bit for bit.  The bases are 0 for a whole
+// grid; a launch on one block of a larger grid (the mesh wrappers) passes
+// the block's first global row and column, and so draws that block of the
+// whole grid's masks.
 //
 // Folds.  The fold index is blockIdx.z: each fold reads its own Pd, Pv, b1,
 // w2, b2, w3, g and seed at a fold stride and writes its own slice of the
@@ -143,7 +146,8 @@ __global__ void __launch_bounds__(NT) grid_fwd_kernel(
     const float* __restrict__ b1, const float* __restrict__ w2,
     const float* __restrict__ b2, const float* __restrict__ w3,
     const int* __restrict__ seed_ptr, float* __restrict__ out, int nd, int nv,
-    uint32_t thresh, float scale, int use_drop) {
+    uint32_t thresh, float scale, int use_drop, int row_base,
+    int col_base) {
   extern __shared__ float4 smem4[];
   float* w2s = reinterpret_cast<float*>(smem4);
   float* pvs = w2s + H1 * H2;
@@ -182,9 +186,10 @@ __global__ void __launch_bounds__(NT) grid_fwd_kernel(
   const bool drop = use_drop != 0;
   const uint32_t seed = (uint32_t)seed_ptr[f];
   float acc[H2];
-  cell_layer1(pds + ti * H1, pvs + tj * LD1, b1s, w2s, cell_key(seed, 1u, i, j),
-              drop, thresh, scale, acc, nullptr);
-  const uint32_t key2 = cell_key(seed, 2u, i, j);
+  cell_layer1(pds + ti * H1, pvs + tj * LD1, b1s, w2s,
+              cell_key(seed, 1u, row_base + i, col_base + j), drop, thresh,
+              scale, acc, nullptr);
+  const uint32_t key2 = cell_key(seed, 2u, row_base + i, col_base + j);
   float s = 0.f;
 #pragma unroll
   for (int n = 0; n < H2; ++n) {
@@ -206,7 +211,8 @@ __global__ void __launch_bounds__(NT) grid_bwd_kernel(
     float* __restrict__ dw2_part,   // (F, n_blocks, H1, H2)
     float* __restrict__ db2_part,   // (F, n_blocks, H2)
     float* __restrict__ dw3_part,   // (F, n_blocks, H2)
-    int nd, int nv, uint32_t thresh, float scale, int use_drop) {
+    int nd, int nv, uint32_t thresh, float scale, int use_drop,
+    int row_base, int col_base) {
   extern __shared__ float4 smem4[];
   float* w2s = reinterpret_cast<float*>(smem4);
   float* pvs = w2s + H1 * H2;
@@ -273,10 +279,10 @@ __global__ void __launch_bounds__(NT) grid_bwd_kernel(
     // Per cell: recompute the forward, then da2 = (a2 > 0) * g * w3 * m2.
     {
       float acc[H2];
-      const uint32_t key1 = cell_key(seed, 1u, i, j);
+      const uint32_t key1 = cell_key(seed, 1u, row_base + i, col_base + j);
       cell_layer1(pds + ti * H1, pvs + tj * LD1, b1s, w2s, key1, drop, thresh,
                   scale, acc, hbuf + t * LD1);
-      const uint32_t key2 = cell_key(seed, 2u, i, j);
+      const uint32_t key2 = cell_key(seed, 2u, row_base + i, col_base + j);
       const float gc = gs[t];
 #pragma unroll
       for (int n = 0; n < H2; ++n) {
@@ -349,7 +355,7 @@ __global__ void __launch_bounds__(NT) grid_bwd_kernel(
         const float4 v = drow[q];
         d[4 * q] = v.x; d[4 * q + 1] = v.y; d[4 * q + 2] = v.z; d[4 * q + 3] = v.w;
       }
-      const uint32_t key1 = cell_key(seed, 1u, i, j);
+      const uint32_t key1 = cell_key(seed, 1u, row_base + i, col_base + j);
       const float* pd_row = pds + ti * H1;
       const float* pv_row = pvs + tj * LD1;
 #pragma unroll 1
@@ -422,7 +428,8 @@ __global__ void __launch_bounds__(MT, FWD_RESIDENT) grid_fwd_mma_kernel(
     const float* __restrict__ b1, const float* __restrict__ w2,
     const float* __restrict__ b2, const float* __restrict__ w3,
     const int* __restrict__ seed_ptr, float* __restrict__ out, int nd, int nv,
-    uint32_t thresh, float scale, int use_drop) {
+    uint32_t thresh, float scale, int use_drop, int row_base,
+    int col_base) {
   extern __shared__ float4 smem4[];
   __nv_bfloat16* w2s = reinterpret_cast<__nv_bfloat16*>(smem4);
   float* pvs = reinterpret_cast<float*>(w2s + H1 * LDW);
@@ -468,10 +475,11 @@ __global__ void __launch_bounds__(MT, FWD_RESIDENT) grid_fwd_mma_kernel(
   for (int it = blockIdx.y; it < n_it; it += gridDim.y) {
     const int i = it * TI + ti;
     if (i >= nd) continue;
-    const uint32_t key1[2] = {drop ? cell_key(seed, 1u, i, jc0) : 0u,
-                              drop ? cell_key(seed, 1u, i, jc1) : 0u};
-    const uint32_t key2[2] = {drop ? cell_key(seed, 2u, i, jc0) : 0u,
-                              drop ? cell_key(seed, 2u, i, jc1) : 0u};
+    const int gi = row_base + i, g0 = col_base + jc0, g1 = col_base + jc1;
+    const uint32_t key1[2] = {drop ? cell_key(seed, 1u, gi, g0) : 0u,
+                              drop ? cell_key(seed, 1u, gi, g1) : 0u};
+    const uint32_t key2[2] = {drop ? cell_key(seed, 2u, gi, g0) : 0u,
+                              drop ? cell_key(seed, 2u, gi, g1) : 0u};
     // The drug row's values at the thread's units of the next k-step.
     const float* pdr = pd + (size_t)i * H1 + 2 * q;
     float2 nxt[2] = {*reinterpret_cast<const float2*>(pdr),
@@ -516,7 +524,8 @@ __global__ void __launch_bounds__(MT, 1) grid_bwd_mma_kernel(
     float* __restrict__ dpd_part, float* __restrict__ dpv_part,
     float* __restrict__ db1_part, float* __restrict__ dw2_part,
     float* __restrict__ db2_part, float* __restrict__ dw3_part,
-    int nd, int nv, uint32_t thresh, float scale, int use_drop) {
+    int nd, int nv, uint32_t thresh, float scale, int use_drop,
+    int row_base, int col_base) {
   extern __shared__ float4 smem4[];
   __nv_bfloat16* w2s = reinterpret_cast<__nv_bfloat16*>(smem4);
   __nv_bfloat16* h1s = w2s + H1 * LDW;
@@ -622,8 +631,8 @@ __global__ void __launch_bounds__(MT, 1) grid_bwd_mma_kernel(
 #pragma unroll
       for (int c = 0; c < 4; ++c) acc[nt][c] = 0.f;
     {
-      const uint32_t key0 = cell_key(seed, 1u, i, j0 + tj0);
-      const uint32_t key1 = cell_key(seed, 1u, i, j0 + tj1);
+      const uint32_t key0 = cell_key(seed, 1u, row_base + i, col_base + j0 + tj0);
+      const uint32_t key1 = cell_key(seed, 1u, row_base + i, col_base + j0 + tj1);
       const float* pdr = pds + ti * H1;
 #pragma unroll 1
       for (int ks = 0; ks < H1 / 16; ++ks) {
@@ -683,8 +692,8 @@ __global__ void __launch_bounds__(MT, 1) grid_bwd_mma_kernel(
     // da2s for dW2.
     uint32_t da[H2 / 16][4];
     {
-      const uint32_t key0 = cell_key(seed, 2u, i, j0 + tj0);
-      const uint32_t key1 = cell_key(seed, 2u, i, j0 + tj1);
+      const uint32_t key0 = cell_key(seed, 2u, row_base + i, col_base + j0 + tj0);
+      const uint32_t key1 = cell_key(seed, 2u, row_base + i, col_base + j0 + tj1);
       const float mk = drop ? scale : 1.f;
       const float band[2] = {0x1p-20f * hs0 * *wmx, 0x1p-20f * hs1 * *wmx};
       // acc becomes a2; the thread's value v = 4 nt + 2 e + r gets its m2
@@ -901,18 +910,20 @@ int launch_fwd(const float* pd, const float* pv, const float* b1,
                const float* w2, const float* b2, const float* w3,
                const int* seed, float* out, int nf, int nd, int nv,
                unsigned int thresh, float scale, int use_drop, int bf16,
-               void* stream) {
+               int row_base, int col_base, void* stream) {
   const int n_jt = (nv + TJ - 1) / TJ, n_it = (nd + TI - 1) / TI;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (bf16) {
     const dim3 grid(n_jt, fwd_split(n_it, n_jt, nf), nf);
     grid_fwd_mma_kernel<<<grid, MT, FWD_MMA_SMEM, s>>>(pd, pv, b1, w2, b2, w3, seed, out,
-                                                       nd, nv, thresh, scale, use_drop);
+                                                       nd, nv, thresh, scale, use_drop,
+                                                       row_base, col_base);
   } else {
     const cudaError_t err = prepare(grid_fwd_kernel, FWD_SMEM);
     if (err != cudaSuccess) return (int)err;
     grid_fwd_kernel<<<dim3(n_jt, n_it, nf), NT, FWD_SMEM * sizeof(float), s>>>(
-        pd, pv, b1, w2, b2, w3, seed, out, nd, nv, thresh, scale, use_drop);
+        pd, pv, b1, w2, b2, w3, seed, out, nd, nv, thresh, scale, use_drop,
+        row_base, col_base);
   }
   return (int)cudaGetLastError();
 }
@@ -923,7 +934,7 @@ int launch_bwd(const float* pd, const float* pv, const float* b1,
                float* dpv_part, float* db1_part, float* dw2_part,
                float* db2_part, float* dw3_part, int nf, int nd, int nv,
                unsigned int thresh, float scale, int use_drop, int bf16,
-               void* stream) {
+               int row_base, int col_base, void* stream) {
   const int n_jt = (nv + TJ - 1) / TJ;
   const dim3 grid(n_jt, bwd_split((nd + TI - 1) / TI, n_jt, nf), nf);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
@@ -933,13 +944,13 @@ int launch_bwd(const float* pd, const float* pv, const float* b1,
     if (err != cudaSuccess) return (int)err;
     grid_bwd_mma_kernel<<<grid, MT, MMA_SMEM, s>>>(
         pd, pv, b1, w2, b2, w3, seed, g, dpd_part, dpv_part, db1_part, dw2_part,
-        db2_part, dw3_part, nd, nv, thresh, scale, use_drop);
+        db2_part, dw3_part, nd, nv, thresh, scale, use_drop, row_base, col_base);
   } else {
     err = prepare(grid_bwd_kernel, BWD_SMEM);
     if (err != cudaSuccess) return (int)err;
     grid_bwd_kernel<<<grid, NT, BWD_SMEM * sizeof(float), s>>>(
         pd, pv, b1, w2, b2, w3, seed, g, dpd_part, dpv_part, db1_part, dw2_part,
-        db2_part, dw3_part, nd, nv, thresh, scale, use_drop);
+        db2_part, dw3_part, nd, nv, thresh, scale, use_drop, row_base, col_base);
   }
   return (int)cudaGetLastError();
 }
@@ -1010,9 +1021,9 @@ int grid_decoder_fwd(const float* pd, const float* pv, const float* b1,
                      const float* w2, const float* b2, const float* w3,
                      const int* seed, float* out, int nd, int nv,
                      unsigned int thresh, float scale, int use_drop, int bf16,
-                     void* stream) {
+                     int row_base, int col_base, void* stream) {
   return launch_fwd(pd, pv, b1, w2, b2, w3, seed, out, 1, nd, nv, thresh,
-                    scale, use_drop, bf16, stream);
+                    scale, use_drop, bf16, row_base, col_base, stream);
 }
 
 int grid_decoder_bwd(const float* pd, const float* pv, const float* b1,
@@ -1021,10 +1032,10 @@ int grid_decoder_bwd(const float* pd, const float* pv, const float* b1,
                      float* dpv_part, float* db1_part, float* dw2_part,
                      float* db2_part, float* dw3_part, int nd, int nv,
                      unsigned int thresh, float scale, int use_drop, int bf16,
-                     void* stream) {
+                     int row_base, int col_base, void* stream) {
   return launch_bwd(pd, pv, b1, w2, b2, w3, seed, g, dpd_part, dpv_part,
                     db1_part, dw2_part, db2_part, dw3_part, 1, nd, nv, thresh,
-                    scale, use_drop, bf16, stream);
+                    scale, use_drop, bf16, row_base, col_base, stream);
 }
 
 // nf folds in one launch: pd (nf, nd, H1), pv (nf, nv, H1), b1 (nf, H1),
@@ -1033,9 +1044,9 @@ int grid_decoder_fwd_batched(const float* pd, const float* pv, const float* b1,
                              const float* w2, const float* b2, const float* w3,
                              const int* seed, float* out, int nf, int nd, int nv,
                              unsigned int thresh, float scale, int use_drop,
-                             int bf16, void* stream) {
+                             int bf16, int row_base, int col_base, void* stream) {
   return launch_fwd(pd, pv, b1, w2, b2, w3, seed, out, nf, nd, nv, thresh,
-                    scale, use_drop, bf16, stream);
+                    scale, use_drop, bf16, row_base, col_base, stream);
 }
 
 // Its backward; g (nf, nd, nv), partial slabs as grid_decoder_bwd_layout_batched.
@@ -1045,10 +1056,11 @@ int grid_decoder_bwd_batched(const float* pd, const float* pv, const float* b1,
                              float* dpv_part, float* db1_part, float* dw2_part,
                              float* db2_part, float* dw3_part, int nf, int nd,
                              int nv, unsigned int thresh, float scale,
-                             int use_drop, int bf16, void* stream) {
+                             int use_drop, int bf16, int row_base, int col_base,
+                             void* stream) {
   return launch_bwd(pd, pv, b1, w2, b2, w3, seed, g, dpd_part, dpv_part,
                     db1_part, dw2_part, db2_part, dw3_part, nf, nd, nv, thresh,
-                    scale, use_drop, bf16, stream);
+                    scale, use_drop, bf16, row_base, col_base, stream);
 }
 
 }  // extern "C"

@@ -406,17 +406,30 @@ def decoder_apply_fused_batched(params, edge_src, edge_dst, drug_feat,
                                 dis_feat, *, dropout_rate: float,
                                 train: bool = False, generator=None,
                                 dtype=torch.bfloat16,
-                                csr: Optional[EdgeCSR] = None):
+                                csr: Optional[EdgeCSR] = None, mesh=None,
+                                shard=None):
     """Fold-batched fused edge decode, the counterpart of the JAX
-    ``decoder_apply_fused_batched`` (pallas_decoder_batched.py:310-363)
-    without a mesh.  Params leaves, ``edge_src``/``edge_dst`` (F, E) and
-    features (F, N, d) carry a leading fold axis; the F dropout seeds come
-    from one draw of ``generator``.  Returns (F, E) logits."""
+    ``decoder_apply_fused_batched`` (pallas_decoder_batched.py:310-363).
+    Params leaves, ``edge_src``/``edge_dst`` (F, E) and features (F, N, d)
+    carry a leading fold axis; the F dropout seeds come from one draw of
+    ``generator``; ``csr`` is the list's ``EdgeCSR``.  With a ``mesh`` they
+    are this rank's folds, and the kernels run on ``shard``, the rank's
+    ``EdgeShard`` of the edges over ``mp`` (sharding/decoder_spmd.py,
+    built once by ``shard_edges``).  Returns (F, E) logits."""
     proj_drug, proj_dis = node_projections(params, drug_feat, dis_feat, dtype)
-    edges = torch.stack([edge_src.int(), edge_dst.int()], dim=1)
     seed = dropout_seeds(proj_drug.shape[0], proj_drug.device, dropout_rate,
                          train, generator)
-    return fused_decoder_batched(
-        proj_drug, proj_dis, params["b1"], params["w2"], params["b2"],
-        params["w3"][..., 0], params["b3"], edges, seed, dropout_rate, train,
-        dtype, csr)
+    weights = (params["b1"], params["w2"], params["b2"],
+               params["w3"][..., 0], params["b3"])
+    if mesh is None:
+        edges = torch.stack([edge_src.int(), edge_dst.int()], dim=1)
+        return fused_decoder_batched(proj_drug, proj_dis, *weights, edges,
+                                     seed, dropout_rate, train, dtype, csr)
+    if shard is None:
+        raise ValueError("the fused edge decoder on a mesh runs on the "
+                         "rank's EdgeShard: shard the stack with "
+                         "sharding.partition.shard_stacked")
+    from dream_gnn_tpu_torch.sharding.decoder_spmd import \
+        fused_decoder_batched_spmd
+    return fused_decoder_batched_spmd(mesh, proj_drug, proj_dis, *weights,
+                                      shard, seed, dropout_rate, train, dtype)

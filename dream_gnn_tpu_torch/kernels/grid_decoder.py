@@ -58,6 +58,7 @@ import numpy as np
 import torch
 
 from dream_gnn_tpu_torch.kernels import cuda_build
+from dream_gnn_tpu_torch.utils import draws as rng
 
 H1, H2 = 128, 64          # widths the CUDA kernel is built for
 
@@ -97,12 +98,16 @@ def hash_bits(seed: torch.Tensor, layer: int, i: torch.Tensor,
 
 
 def dropout_bits(seed: torch.Tensor, layer: int, nd: int, nv: int,
-                 h: int) -> torch.Tensor:
+                 h: int, row_base: int = 0, col_base: int = 0) -> torch.Tensor:
     """The hash bits of every grid cell: (nd, nv, h) for a seed of shape
-    (1,), and (F, nd, nv, h) for one of shape (F, 1)."""
+    (1,), and (F, nd, nv, h) for one of shape (F, 1).  With bases, the
+    cells are rows row_base .. row_base + nd - 1 and columns col_base ..
+    col_base + nv - 1 of a larger grid: that block of its bits."""
     dev = seed.device
-    i = torch.arange(nd, device=dev, dtype=torch.int64).view(nd, 1, 1)
-    j = torch.arange(nv, device=dev, dtype=torch.int64).view(1, nv, 1)
+    i = torch.arange(row_base, row_base + nd, device=dev,
+                     dtype=torch.int64).view(nd, 1, 1)
+    j = torch.arange(col_base, col_base + nv, device=dev,
+                     dtype=torch.int64).view(1, nv, 1)
     k = torch.arange(h, device=dev, dtype=torch.int64).view(1, 1, h)
     s = seed.reshape(*seed.shape[:-1], 1, 1, 1).to(torch.int64)
     return hash_bits(s, layer, i, j, k)
@@ -118,9 +123,11 @@ def keep_scale(rate: float) -> float:
 
 
 def dropout_mask(seed: torch.Tensor, layer: int, nd: int, nv: int, h: int,
-                 rate: float) -> torch.Tensor:
+                 rate: float, row_base: int = 0,
+                 col_base: int = 0) -> torch.Tensor:
     """f32 mask with values 0 or 1/(1-rate), shaped as ``dropout_bits``."""
-    keep = dropout_bits(seed, layer, nd, nv, h) >= keep_threshold(rate)
+    keep = dropout_bits(seed, layer, nd, nv, h, row_base,
+                        col_base) >= keep_threshold(rate)
     return keep.to(torch.float32) * keep_scale(rate)
 
 
@@ -144,37 +151,45 @@ def _cells(x):
     return x.flatten(-3, -2)
 
 
-def _plain_parts(pd, pv, b1, w2, b2, seed, rate, train, dtype):
-    """(a1, h1d, m1, a2, h2d, m2) over the whole grid, as _tile_forward."""
+def _plain_parts(pd, pv, b1, w2, b2, seed, rate, train, dtype, bases=(0, 0)):
+    """(a1, h1d, m1, a2, h2d, m2) over the whole grid, as _tile_forward;
+    ``bases`` = (row_base, col_base) of the masks."""
     nd, nv = pd.shape[-2], pv.shape[-2]
     h1, h2 = w2.shape[-2:]
     use_drop = train and rate > 0.0
     a1 = (pd[..., :, None, :] + pv[..., None, :, :]) + b1[..., None, None, :]
     h1a = torch.relu(a1)
-    m1 = dropout_mask(seed, 1, nd, nv, h1, rate) if use_drop else None
+    m1 = dropout_mask(seed, 1, nd, nv, h1, rate, *bases) if use_drop \
+        else None
     h1d = h1a * m1 if use_drop else h1a
     a2 = torch.matmul(_cells(round_to(h1d, dtype)), round_to(w2, dtype)) \
         .unflatten(-2, (nd, nv)) + b2[..., None, None, :]
     h2a = torch.relu(a2)
-    m2 = dropout_mask(seed, 2, nd, nv, h2, rate) if use_drop else None
+    m2 = dropout_mask(seed, 2, nd, nv, h2, rate, *bases) if use_drop \
+        else None
     h2d = h2a * m2 if use_drop else h2a
     return a1, h1d, m1, a2, h2d, m2
 
 
 def grid_decoder_plain(pd, pv, b1, w2, b2, w3, seed, rate: float,
-                       train: bool, dtype=torch.bfloat16) -> torch.Tensor:
-    """Forward of the kernel in plain PyTorch; differentiable by autograd."""
-    *_, h2d, _ = _plain_parts(pd, pv, b1, w2, b2, seed, rate, train, dtype)
+                       train: bool, dtype=torch.bfloat16, row_base: int = 0,
+                       col_base: int = 0) -> torch.Tensor:
+    """Forward of the kernel in plain PyTorch; differentiable by autograd.
+    The bases place the grid as a block of a larger one (its masks)."""
+    *_, h2d, _ = _plain_parts(pd, pv, b1, w2, b2, seed, rate, train, dtype,
+                              (row_base, col_base))
     return torch.sum(h2d * w3[..., None, None, :], dim=-1)
 
 
 def grid_decoder_plain_bwd(pd, pv, b1, w2, b2, w3, seed, rate: float,
-                           train: bool, dtype, g):
+                           train: bool, dtype, g, row_base: int = 0,
+                           col_base: int = 0):
     """Explicit backward, step for step as the Pallas ``_bwd_kernel``.
     Returns (dpd, dpv, db1, dw2, db2, dw3)."""
     use_drop = train and rate > 0.0
     a1, h1d, m1, a2, h2d, m2 = _plain_parts(pd, pv, b1, w2, b2, seed, rate,
-                                            train, dtype)
+                                            train, dtype,
+                                            (row_base, col_base))
     g = g[..., None]
     dw3 = torch.matmul(round_to(g, dtype).flatten(-3).unsqueeze(-2),
                        _cells(round_to(h2d, dtype)))[..., 0, :]
@@ -195,20 +210,22 @@ def grid_decoder_plain_bwd(pd, pv, b1, w2, b2, w3, seed, rate: float,
 
 
 def grid_decoder_batched_plain(pd, pv, b1, w2, b2, w3, seed, rate: float,
-                               train: bool,
-                               dtype=torch.bfloat16) -> torch.Tensor:
+                               train: bool, dtype=torch.bfloat16,
+                               row_base: int = 0,
+                               col_base: int = 0) -> torch.Tensor:
     """Forward of the batched kernel in plain PyTorch: the single-fold
     version over a leading fold axis, fold f with ``seed[f]``."""
     return grid_decoder_plain(pd, pv, b1, w2, b2, w3, seed[:, None], rate,
-                              train, dtype)
+                              train, dtype, row_base, col_base)
 
 
 def grid_decoder_batched_plain_bwd(pd, pv, b1, w2, b2, w3, seed, rate: float,
-                                   train: bool, dtype, g):
+                                   train: bool, dtype, g, row_base: int = 0,
+                                   col_base: int = 0):
     """Explicit backward of the batched version, as ``_bwd_kernel_b``.
     Returns (dpd, dpv, db1, dw2, db2, dw3), each with a leading fold axis."""
     return grid_decoder_plain_bwd(pd, pv, b1, w2, b2, w3, seed[:, None], rate,
-                                  train, dtype, g)
+                                  train, dtype, g, row_base, col_base)
 
 
 # ---------------------------------------------------------------------------
@@ -220,17 +237,18 @@ def _load():
         lib = cuda_build.load("grid_decoder")
         p, i, u, f = (ctypes.c_void_p, ctypes.c_int, ctypes.c_uint,
                       ctypes.c_float)
-        lib.grid_decoder_fwd.argtypes = [p] * 8 + [i, i, u, f, i, i, p]
+        lib.grid_decoder_fwd.argtypes = [p] * 8 + [i, i, u, f, i, i, i, i, p]
         lib.grid_decoder_fwd.restype = i
-        lib.grid_decoder_bwd.argtypes = [p] * 14 + [i, i, u, f, i, i, p]
+        lib.grid_decoder_bwd.argtypes = [p] * 14 + [i, i, u, f, i, i, i, i,
+                                                    p]
         lib.grid_decoder_bwd.restype = i
         lib.grid_decoder_bwd_layout.argtypes = [i, i, p]
         lib.grid_decoder_bwd_layout.restype = None
         lib.grid_decoder_fwd_batched.argtypes = [p] * 8 + [i, i, i, u, f, i,
-                                                           i, p]
+                                                           i, i, i, p]
         lib.grid_decoder_fwd_batched.restype = i
         lib.grid_decoder_bwd_batched.argtypes = [p] * 14 + [i, i, i, u, f, i,
-                                                            i, p]
+                                                            i, i, i, p]
         lib.grid_decoder_bwd_batched.restype = i
         lib.grid_decoder_bwd_layout_batched.argtypes = [i, i, i, p]
         lib.grid_decoder_bwd_layout_batched.restype = None
@@ -277,7 +295,8 @@ def drop_args(rate, train):
             keep_scale(rate) if use_drop else 1.0, int(use_drop))
 
 
-def _launch_fwd(pd, pv, b1, w2, b2, w3, seed, rate, train, dtype, folds):
+def _launch_fwd(pd, pv, b1, w2, b2, w3, seed, rate, train, dtype, folds,
+                bases):
     check_inputs(pd, pv, b1, w2, b2, w3, seed, dtype, folds)
     lib = _load()
     nd, nv = pd.shape[-2], pv.shape[-2]
@@ -285,7 +304,7 @@ def _launch_fwd(pd, pv, b1, w2, b2, w3, seed, rate, train, dtype, folds):
                       device=pd.device)
     ptrs = [x.data_ptr() for x in (pd, pv, b1, w2, b2, w3, seed, out)]
     tail = (nd, nv, *drop_args(rate, train), int(dtype == torch.bfloat16),
-            stream_ptr(pd.device))
+            *bases, stream_ptr(pd.device))
     if folds:
         err = lib.grid_decoder_fwd_batched(*ptrs, folds[0], *tail)
     else:
@@ -297,7 +316,8 @@ def _launch_fwd(pd, pv, b1, w2, b2, w3, seed, rate, train, dtype, folds):
     return out
 
 
-def _launch_bwd(pd, pv, b1, w2, b2, w3, seed, rate, train, dtype, g, folds):
+def _launch_bwd(pd, pv, b1, w2, b2, w3, seed, rate, train, dtype, g, folds,
+                bases):
     check_inputs(pd, pv, b1, w2, b2, w3, seed, dtype, folds)
     nd, nv = pd.shape[-2], pv.shape[-2]
     if g.device != pd.device or g.dtype != torch.float32 \
@@ -319,7 +339,7 @@ def _launch_bwd(pd, pv, b1, w2, b2, w3, seed, rate, train, dtype, g, folds):
         (n_blk, H1, H2), (n_blk, H2), (n_blk, H2))]
     ptrs = [x.data_ptr() for x in (pd, pv, b1, w2, b2, w3, seed, g, *parts)]
     tail = (nd, nv, *drop_args(rate, train), int(dtype == torch.bfloat16),
-            stream_ptr(pd.device))
+            *bases, stream_ptr(pd.device))
     if folds:
         err = lib.grid_decoder_bwd_batched(*ptrs, folds[0], *tail)
     else:
@@ -355,98 +375,100 @@ def bwd_occupancy(dtype) -> tuple:
     return occupancy(_load(), "grid_decoder_bwd_occupancy", dtype)
 
 
-def launch_fwd(pd, pv, b1, w2, b2, w3, seed, rate, train, dtype):
-    """One forward kernel launch; returns (Nd, Nv) f32 without b3."""
-    return _launch_fwd(pd, pv, b1, w2, b2, w3, seed, rate, train, dtype, ())
+def launch_fwd(pd, pv, b1, w2, b2, w3, seed, rate, train, dtype,
+               row_base=0, col_base=0):
+    """One forward kernel launch; returns (Nd, Nv) f32 without b3.  The
+    bases are the grid's first global row and column, for the masks."""
+    return _launch_fwd(pd, pv, b1, w2, b2, w3, seed, rate, train, dtype, (),
+                       (row_base, col_base))
 
 
-def launch_bwd(pd, pv, b1, w2, b2, w3, seed, rate, train, dtype, g):
+def launch_bwd(pd, pv, b1, w2, b2, w3, seed, rate, train, dtype, g,
+               row_base=0, col_base=0):
     """One backward kernel launch plus the sums over its partial slabs.
     Returns (dpd, dpv, db1, dw2, db2, dw3)."""
     return _launch_bwd(pd, pv, b1, w2, b2, w3, seed, rate, train, dtype, g,
-                       ())
+                       (), (row_base, col_base))
 
 
-def launch_fwd_batched(pd, pv, b1, w2, b2, w3, seed, rate, train, dtype):
+def launch_fwd_batched(pd, pv, b1, w2, b2, w3, seed, rate, train, dtype,
+                       row_base=0, col_base=0):
     """One batched forward launch over F folds; returns (F, Nd, Nv) f32
     without b3."""
     return _launch_fwd(pd, pv, b1, w2, b2, w3, seed, rate, train, dtype,
-                       (pd.shape[0],))
+                       (pd.shape[0],), (row_base, col_base))
 
 
-def launch_bwd_batched(pd, pv, b1, w2, b2, w3, seed, rate, train, dtype, g):
+def launch_bwd_batched(pd, pv, b1, w2, b2, w3, seed, rate, train, dtype, g,
+                       row_base=0, col_base=0):
     """One batched backward launch plus the sums over its partial slabs.
     Returns (dpd, dpv, db1, dw2, db2, dw3), each with a leading F."""
     return _launch_bwd(pd, pv, b1, w2, b2, w3, seed, rate, train, dtype, g,
-                       (pd.shape[0],))
+                       (pd.shape[0],), (row_base, col_base))
 
 
 class _FusedGridDecoder(torch.autograd.Function):
+    """One fold (``batched`` False) or a fold stack, with the bases of the
+    masks."""
+
     @staticmethod
-    def forward(ctx, pd, pv, b1, w2, b2, w3, seed, rate, train, dtype):
+    def forward(ctx, pd, pv, b1, w2, b2, w3, seed, rate, train, dtype,
+                batched, row_base, col_base):
         ctx.save_for_backward(pd, pv, b1, w2, b2, w3, seed)
         ctx.cfg = (rate, train, dtype)
+        ctx.batched, ctx.bases = batched, (row_base, col_base)
+        args = (pd, pv, b1, w2, b2, w3, seed, rate, train, dtype, row_base,
+                col_base)
         if pd.is_cuda:
-            return launch_fwd(pd, pv, b1, w2, b2, w3, seed, rate, train, dtype)
-        return grid_decoder_plain(pd, pv, b1, w2, b2, w3, seed, rate, train,
-                                  dtype)
+            return (launch_fwd_batched if batched else launch_fwd)(*args)
+        return (grid_decoder_batched_plain if batched
+                else grid_decoder_plain)(*args)
 
     @staticmethod
     def backward(ctx, g):
-        args = (*ctx.saved_tensors, *ctx.cfg, g.contiguous())
-        grads = launch_bwd(*args) if g.is_cuda else grid_decoder_plain_bwd(*args)
-        return (*grads, None, None, None, None)
+        args = (*ctx.saved_tensors, *ctx.cfg, g.contiguous(), *ctx.bases)
+        if g.is_cuda:
+            grads = (launch_bwd_batched if ctx.batched else launch_bwd)(*args)
+        else:
+            grads = (grid_decoder_batched_plain_bwd if ctx.batched
+                     else grid_decoder_plain_bwd)(*args)
+        return (*grads,) + (None,) * 7
 
 
 def fused_grid_decoder(proj_drug, proj_dis, b1, w2, b2, w3, seed,
-                       rate: float, train: bool, dtype=torch.bfloat16):
+                       rate: float, train: bool, dtype=torch.bfloat16,
+                       row_base: int = 0, col_base: int = 0):
     """Grid decoder MLP, the contract of the JAX ``fused_grid_decoder``.
 
     proj_drug (Nd, 128) f32, proj_dis (Nv, 128) f32, b1 (128,),
     w2 (128, 64), b2 (64,), w3 (64,), seed (1,) int32 on the same device.
     Returns (Nd, Nv) f32 logits without b3.  CUDA tensors run the kernel,
-    CPU tensors the plain version.
+    CPU tensors the plain version.  ``row_base`` and ``col_base`` place the
+    grid as a block of a larger one: it draws that block's dropout masks.
     """
     return _FusedGridDecoder.apply(
         proj_drug.contiguous(), proj_dis.contiguous(), b1.contiguous(),
         w2.contiguous(), b2.contiguous(), w3.contiguous(), seed, rate, train,
-        dtype)
-
-
-class _FusedGridDecoderBatched(torch.autograd.Function):
-    @staticmethod
-    def forward(ctx, pd, pv, b1, w2, b2, w3, seed, rate, train, dtype):
-        ctx.save_for_backward(pd, pv, b1, w2, b2, w3, seed)
-        ctx.cfg = (rate, train, dtype)
-        if pd.is_cuda:
-            return launch_fwd_batched(pd, pv, b1, w2, b2, w3, seed, rate,
-                                      train, dtype)
-        return grid_decoder_batched_plain(pd, pv, b1, w2, b2, w3, seed, rate,
-                                          train, dtype)
-
-    @staticmethod
-    def backward(ctx, g):
-        args = (*ctx.saved_tensors, *ctx.cfg, g.contiguous())
-        grads = launch_bwd_batched(*args) if g.is_cuda \
-            else grid_decoder_batched_plain_bwd(*args)
-        return (*grads, None, None, None, None)
+        dtype, False, row_base, col_base)
 
 
 def fused_grid_decoder_batched(proj_drug, proj_dis, b1, w2, b2, w3, seed,
                                rate: float, train: bool,
-                               dtype=torch.bfloat16):
+                               dtype=torch.bfloat16, row_base: int = 0,
+                               col_base: int = 0):
     """Fold-batched grid decoder MLP, the contract of the JAX
     ``fused_grid_decoder_batched`` (pallas_grid_decoder.py:489-501).
 
     proj_drug (F, Nd, 128), proj_dis (F, Nv, 128), b1 (F, 128),
     w2 (F, 128, 64), b2 (F, 64), w3 (F, 64), seed (F,) int32, all f32 but
     the seed, on one device.  Returns (F, Nd, Nv) f32 logits without b3.
-    CUDA tensors run one kernel launch, CPU tensors the plain version.
+    CUDA tensors run one kernel launch, CPU tensors the plain version.  The
+    bases as ``fused_grid_decoder``'s.
     """
-    return _FusedGridDecoderBatched.apply(
+    return _FusedGridDecoder.apply(
         proj_drug.contiguous(), proj_dis.contiguous(), b1.contiguous(),
         w2.contiguous(), b2.contiguous(), w3.contiguous(), seed, rate, train,
-        dtype)
+        dtype, True, row_base, col_base)
 
 
 def node_projections(params, drug_feat, dis_feat, dtype):
@@ -470,9 +492,8 @@ def dropout_seeds(n: int, device, rate: float, train: bool,
     if train and rate > 0.0:
         if generator is None:
             raise ValueError("dropout in training needs a generator")
-        return torch.randint(0, np.iinfo(np.int32).max, (n,),
-                             generator=generator, device=device,
-                             dtype=torch.int32)
+        return rng.randint(generator, np.iinfo(np.int32).max, (n,), device,
+                           torch.int32)
     return torch.zeros((n,), dtype=torch.int32, device=device)
 
 
@@ -493,16 +514,27 @@ def decoder_apply_grid_fused(params, drug_feat, dis_feat, *,
 
 def decoder_apply_grid_fused_batched(params, drug_feat, dis_feat, *,
                                      dropout_rate: float, train: bool = False,
-                                     generator=None, dtype=torch.bfloat16):
+                                     generator=None, dtype=torch.bfloat16,
+                                     mesh=None):
     """Fold-batched fused grid decode, the counterpart of the JAX
-    ``decoder_apply_grid_fused_batched`` (pallas_grid_decoder.py:675-712)
-    without a mesh.  Params leaves and features (F, N, d) carry a leading
-    fold axis; the F dropout seeds come from one draw of ``generator``.
-    Returns (F, Nd, Nv) logits."""
+    ``decoder_apply_grid_fused_batched`` (pallas_grid_decoder.py:675-712).
+    Params leaves and features (F, N, d) carry a leading fold axis; the F
+    dropout seeds come from one draw of ``generator``.  With a ``mesh``
+    they are this rank's folds, and the kernel runs on the rank's block of
+    disease columns over ``mp``
+    (sharding/decoder_spmd.py:fused_grid_decoder_batched_spmd).  Returns
+    (F, Nd, Nv) logits."""
     proj_drug, proj_dis = node_projections(params, drug_feat, dis_feat, dtype)
     seed = dropout_seeds(proj_drug.shape[0], proj_drug.device, dropout_rate,
                          train, generator)
-    logits = fused_grid_decoder_batched(
-        proj_drug, proj_dis, params["b1"], params["w2"], params["b2"],
-        params["w3"][..., 0], seed, dropout_rate, train, dtype)
+    weights = (params["b1"], params["w2"], params["b2"], params["w3"][..., 0])
+    if mesh is None:
+        logits = fused_grid_decoder_batched(proj_drug, proj_dis, *weights,
+                                            seed, dropout_rate, train, dtype)
+    else:
+        from dream_gnn_tpu_torch.sharding.decoder_spmd import \
+            fused_grid_decoder_batched_spmd
+        logits = fused_grid_decoder_batched_spmd(
+            mesh, proj_drug, proj_dis, *weights, seed, dropout_rate, train,
+            dtype)
     return logits + params["b3"][:, :, None]

@@ -65,6 +65,7 @@ from dream_gnn_tpu_torch.nn.decoder import (decoder_apply, decoder_apply_grid,
 from dream_gnn_tpu_torch.nn.fgcn import fgcn_apply, fgcn_init
 from dream_gnn_tpu_torch.nn.gcmc import (SHARDED_LAYOUTS, gcmc_layer_apply,
                                          gcmc_layer_init)
+from dream_gnn_tpu_torch.sharding.decoder_spmd import EdgeShard
 from dream_gnn_tpu_torch.sharding.scale_decoder_spmd import (
     ShardedScaleDecoderLayout, decoder_apply_scale_spmd)
 
@@ -100,6 +101,10 @@ class ModelInputs:
     # built once per list (train/loop.py:fold_inputs); the counterpart of
     # the JAX package's dec_layout.  Built in each backward when None.
     dec_csr: Optional[EdgeCSR] = None
+    # On a dp x mp mesh, this rank's block of the edge list over mp and its
+    # CSR for the fused edge decoder (sharding/partition.py:shard_stacked),
+    # built once per list; None without a mesh and in grid mode.
+    dec_shard: Optional[EdgeShard] = None
     # The scale decoder's ScaleDecoderLayout of the candidate list
     # (kernels/scale_decoder.py), static per list like the reference's dec
     # graph (data_loader.py:492-509).
@@ -148,6 +153,18 @@ def param_leaves(params):
     if isinstance(params, list):
         return [x for v in params for x in param_leaves(v)]
     return [params]
+
+
+def named_leaves(tree, path=""):
+    """(name, tensor) of a param tree in ``param_leaves`` order, named as
+    ``tgcn[0].weight``."""
+    if isinstance(tree, dict):
+        return [x for k in sorted(tree)
+                for x in named_leaves(tree[k], f"{path}.{k}".lstrip("."))]
+    if isinstance(tree, list):
+        return [x for i, v in enumerate(tree)
+                for x in named_leaves(v, f"{path}[{i}]")]
+    return [(path, tree)]
 
 
 def params_from_leaves(template, leaves):
@@ -235,21 +252,32 @@ def forward(params, inputs: ModelInputs, cfg: ModelConfig, *,
 def forward_stacked(params, inputs: ModelInputs, cfg: ModelConfig, *,
                     train: bool = False,
                     generator: Optional[torch.Generator] = None,
-                    edge_masks=None):
+                    edge_masks=None, mesh=None):
     """Fold-batched forward, the counterpart of the JAX ``forward_stacked``
     (dream_gnn.py:224-308): every param leaf, input leaf and
     ``edge_masks`` leaf carries a leading fold axis F.  Each op runs once
     over the stack; the fused decoder is one fold-batched kernel launch
     with one dropout seed per fold, all F drawn at once from ``generator``.
 
+    ``mesh``: the dp x mp mesh of the fold-parallel step
+    (sharding/partition.py).  The leaves are then this rank's folds of the
+    stack (the fold axis over ``dp``); the encoder runs whole on every rank
+    of the ``mp`` group, and the fused decoders on the rank's block of the
+    disease columns or of the edges (sharding/decoder_spmd.py; in edges
+    mode ``inputs.dec_shard``), their logits gathered over ``mp``.  The
+    plain decoders ('xla') run whole on every rank.  A training forward
+    draws one rank's masks when it runs under ``mesh.fold_draws``, as
+    ``stacked_loss`` runs it (utils/draws.py).
+
     Returns (pred (F, E) or (F, n_drug, n_dis), drug_out, drug_sim_out,
     dis_out, dis_sim_out) with leading fold axes.
     """
     return _forward(params, inputs, cfg, stacked=True, train=train,
-                    generator=generator, edge_masks=edge_masks)
+                    generator=generator, edge_masks=edge_masks, mesh=mesh)
 
 
-def _forward(params, inputs, cfg, *, stacked, train, generator, edge_masks):
+def _forward(params, inputs, cfg, *, stacked, train, generator, edge_masks,
+             mesh=None):
     decoders = _DECODERS.get((cfg.decode_mode, cfg.decoder_backend))
     if decoders is None:
         raise ValueError(
@@ -264,6 +292,8 @@ def _forward(params, inputs, cfg, *, stacked, train, generator, edge_masks):
     kw = dict(dropout_rate=cfg.dropout, train=train, generator=generator,
               dtype=_DTYPES[cfg.compute_dtype])
     decode = decoders[stacked]
+    if mesh is not None and cfg.decoder_backend == "pallas":
+        kw["mesh"] = mesh
     if cfg.decode_mode == "grid":
         # pred is the (..., n_drug, n_dis) logit grid; the loss/metrics mask
         # out-of-fold cells with enc_graph.mask (labels = enc_graph.a1).
@@ -294,7 +324,10 @@ def _forward(params, inputs, cfg, *, stacked, train, generator, edge_masks):
                              f"{type(layout).__name__}")
     else:
         if cfg.decoder_backend == "pallas":
-            kw["csr"] = inputs.dec_csr
+            if mesh is None:
+                kw["csr"] = inputs.dec_csr
+            else:
+                kw["shard"] = inputs.dec_shard
         pred = decode(params["decoder"], inputs.dec_src, inputs.dec_dst,
                       drug_feats, dis_feats, **kw)
     return pred, drug_out, drug_sim_out, dis_out, dis_sim_out

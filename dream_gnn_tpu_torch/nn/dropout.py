@@ -4,6 +4,8 @@ from __future__ import annotations
 
 import torch
 
+from dream_gnn_tpu_torch.utils import draws
+
 
 def dropout(gen, x: torch.Tensor, rate: float, train: bool) -> torch.Tensor:
     """Zero elements with prob ``rate`` and scale survivors by 1/(1-rate),
@@ -11,5 +13,5 @@ def dropout(gen, x: torch.Tensor, rate: float, train: bool) -> torch.Tensor:
     if not train or rate <= 0.0:
         return x
     keep = 1.0 - rate
-    mask = torch.rand(x.shape, generator=gen, device=x.device) < keep
+    mask = draws.rand(gen, x.shape, x.device) < keep
     return torch.where(mask, x / keep, torch.zeros_like(x))

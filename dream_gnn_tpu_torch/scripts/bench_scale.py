@@ -168,7 +168,8 @@ def _run(args, device, graph_fn, rank0: bool = True, group=None) -> dict:
     """Build the graph with ``graph_fn(n, n_edges)``, then time the steps;
     prints on ``rank0``.  Returns the numbers."""
     from dream_gnn_tpu_torch.config import AugmentConfig, TrainConfig
-    from dream_gnn_tpu_torch.model.dream_gnn import init_params
+    from dream_gnn_tpu_torch.model.dream_gnn import init_params, named_leaves
+    from dream_gnn_tpu_torch.sharding.collectives import replica_spread
     from dream_gnn_tpu_torch.train.step import (init_state, make_one_step,
                                                 run_steps)
     from dream_gnn_tpu_torch.utils.profiling import StepTimer
@@ -238,8 +239,16 @@ def _run(args, device, graph_fn, rank0: bool = True, group=None) -> dict:
                 + " (rank 0, 1, ...)"
     say(f"{ms:.2f} ms/step  -> {msg_edges / ms * 1e3:.3e} edges/s")
     say(f"peak device memory {memory}")
-    return dict(loss=loss, ms_per_step=ms, edges_per_s=msg_edges / ms * 1e3,
-                layout_build_s=build_s, peak_memory_bytes=peak)
+    res = dict(loss=loss, ms_per_step=ms, edges_per_s=msg_edges / ms * 1e3,
+               layout_build_s=build_s, peak_memory_bytes=peak)
+    if group is not None:
+        names, leaves = zip(*named_leaves(state.params))
+        res["replica_spread"] = dict(zip(names,
+                                         replica_spread(leaves, group)))
+        differ = sum(v != 0.0 for v in res["replica_spread"].values())
+        say(f"replicated parameters: {differ} of {len(names)} differ "
+            f"between the ranks")
+    return res
 
 
 def _sharded_rank(device, args) -> dict:

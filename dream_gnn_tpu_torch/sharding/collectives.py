@@ -17,6 +17,8 @@ rank, so here each pair is an autograd function:
   each rank holds a part of (scale_decoder_spmd.py:216-218);
 - ``sum_ranks``: forward an all-reduce, backward the identity: the global
   sums of the sharded decoder's loss;
+- ``broadcast_first_``: no gradient; the step's replicated gradients made
+  the group's first rank's bits on every rank (train/step.py);
 - ``RowBlock.shard_rows`` and ``RowBlock.gather``: the boundary between a
   row-sharded region (each rank holds one block of ``ceil(n / S)`` rows of
   an ``(n, ...)`` array) and replicated compute (each rank holds all of it,
@@ -123,6 +125,30 @@ def _shift_raw(x: torch.Tensor, group, step: int) -> torch.Tensor:
     for req in dist.batch_isend_irecv(ops):
         req.wait()
     return recv.to(x.device) if staged else recv
+
+
+def broadcast_first_(tensors, group) -> None:
+    """Every rank's ``tensors`` set in place to the group's first rank's:
+    one broadcast of the flattened tensors.  Nothing at one rank."""
+    if dist.get_world_size(group) == 1 or not tensors:
+        return
+    flat = torch.cat([t.reshape(-1) for t in tensors])
+    dist.broadcast(flat, src=dist.get_global_rank(group, 0), group=group)
+    for t, part in zip(tensors, flat.split([t.numel() for t in tensors])):
+        t.copy_(part.view_as(t))
+
+
+def replica_spread(tensors, group) -> list:
+    """For each tensor that every rank of ``group`` holds a copy of, the
+    largest |x_r - x_0| over the ranks r and the elements (x_0 the group's
+    first rank's copy), on every rank; 0.0 where all copies are the same
+    bits (up to the sign of a zero).  One all-gather of the flattened
+    tensors."""
+    flat = torch.cat([t.detach().reshape(-1).float() for t in tensors])
+    every = all_gather_raw(flat, group).view(-1, flat.numel())
+    spread = (every - every[:1]).abs().amax(0)
+    return [float(x.max()) if x.numel() else 0.0
+            for x in spread.split([t.numel() for t in tensors])]
 
 
 class _AllGatherRows(torch.autograd.Function):

@@ -17,6 +17,7 @@ import numpy as np
 import torch.distributed as dist
 
 from dream_gnn_tpu_torch.sharding.collectives import require_group
+from dream_gnn_tpu_torch.utils import draws
 
 AXES = ("dp", "mp")
 
@@ -44,6 +45,13 @@ class Mesh:
     def index(self, axis: str) -> int:
         """This rank's coordinate along ``axis``."""
         return dist.get_rank(self.group(axis))
+
+    def fold_draws(self, n_local: int):
+        """The context in which a rank holding ``n_local`` folds of a stack
+        sharded over ``dp`` draws the whole stack's randomness and keeps
+        its folds' (utils/draws.py)."""
+        return draws.fold_block(self.shape["dp"] * n_local,
+                                self.index("dp") * n_local, n_local)
 
 
 def _axis_groups(ranks: np.ndarray, axis: int):

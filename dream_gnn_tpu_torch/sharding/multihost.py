@@ -66,6 +66,17 @@ def describe(group=None) -> str:
             f"{dist.get_world_size(group)}, {cards} card(s)")
 
 
+def global_mesh(mp: int = 1, dp: int | None = None):
+    """The (dp, mp) mesh over every rank of the default group, after
+    ``initialize`` or under ``spawn`` (multihost.py:62): ``dp`` spans the
+    hosts and defaults to world size // mp (folds never communicate), and
+    ``mp`` groups consecutive ranks, one host's cards, so that the decoders'
+    collectives stay on a host's fabric."""
+    from dream_gnn_tpu_torch.sharding.mesh import make_mesh
+
+    return make_mesh(dp=dp, mp=mp)
+
+
 def local_shard_slice(global_len: int) -> slice:
     """The contiguous [start, stop) range of a length-``global_len``
     leading axis owned by this rank (equal split; multihost.py:70-75)."""

@@ -35,6 +35,7 @@ and refuses a checkpoint of a stack of another size.
 
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 import os
 import time
@@ -48,6 +49,7 @@ from dream_gnn_tpu_torch.data.loader import DreamDataset
 from dream_gnn_tpu_torch.model.dream_gnn import (ModelInputs, forward_stacked,
                                                  init_params, map_params,
                                                  param_leaves)
+from dream_gnn_tpu_torch.sharding.collectives import broadcast_first_
 from dream_gnn_tpu_torch.sharding.foldstack import (StackedFolds, stack_folds,
                                                     tile, tree_map)
 from dream_gnn_tpu_torch.train.checkpoint import (checkpoint_items,
@@ -108,16 +110,24 @@ def init_state_stacked(params, generator: torch.Generator,
 
 def stacked_loss(params, inputs: ModelInputs, model_cfg: ModelConfig,
                  train_cfg: TrainConfig, generator: torch.Generator,
-                 labels=None, weight=None) -> torch.Tensor:
+                 labels=None, weight=None, mesh=None) -> torch.Tensor:
     """Augment, stacked training forward and the (F,) per-fold losses on
     each fold's targets: its edge ``labels`` and ``weight``
     (``StackedFolds.labels``, ``.edge_weight``) in edges mode, its grid's
-    (``enc_graph.a1``, ``enc_graph.mask``) in grid mode."""
-    aug, edge_masks = augment_inputs(generator, inputs, train_cfg.augment,
-                                     num_ratings=model_cfg.num_ratings)
-    pred, drug_out, drug_sim_out, dis_out, dis_sim_out = forward_stacked(
-        params, aug, model_cfg, train=True, generator=generator,
-        edge_masks=edge_masks)
+    (``enc_graph.a1``, ``enc_graph.mask``) in grid mode.  With a ``mesh``
+    the folds are this rank's, and every draw, the augmentation's and the
+    forward's, is made for the whole stack and cut to the rank's folds
+    (utils/draws.py)."""
+    block = mesh.fold_draws(inputs.drug_feat.shape[0]) if mesh \
+        else contextlib.nullcontext()
+    with block:
+        aug, edge_masks = augment_inputs(generator, inputs,
+                                         train_cfg.augment,
+                                         num_ratings=model_cfg.num_ratings)
+        pred, drug_out, drug_sim_out, dis_out, dis_sim_out = \
+            forward_stacked(params, aug, model_cfg, train=True,
+                            generator=generator, edge_masks=edge_masks,
+                            mesh=mesh)
     pred, labels, weight = decoder_targets(pred, aug, model_cfg, labels,
                                            weight)
     losses, _ = total_loss(
@@ -127,22 +137,38 @@ def stacked_loss(params, inputs: ModelInputs, model_cfg: ModelConfig,
     return losses
 
 
-def make_one_step_stacked(model_cfg: ModelConfig, train_cfg: TrainConfig):
+def make_one_step_stacked(model_cfg: ModelConfig, train_cfg: TrainConfig,
+                          mesh=None):
     """One iteration of every fold of the stack.  The folds are
     independent, so the gradient of the summed losses is each fold's own
     gradient (stacked.py:69-85 of the JAX package); then the per-fold clip
     and the per-fold-lr Adam.  ``one_step(state, inputs, labels, weight)``
-    returns the (F,) losses."""
+    returns the (F,) losses.
+
+    ``mesh``: the state and the inputs are this rank's folds
+    (sharding/partition.py), and the folds never communicate: the clip and
+    Adam run on the rank's folds alone.  Within the ``mp`` group every rank
+    holds the same folds' parameters.  With the fused decoders the group's
+    gradients are the same bits on every rank as they come: the encoder is
+    dense products and the kernels sum in a fixed order (on an H100, 0 of
+    33 leaves apart, PERF.md §5).  The plain decoders run whole on every
+    rank, and the edge one's gathers take their backward through atomic
+    adds on a card, so with them the gradients are made the group's first
+    rank's bits before the clip, as train/step.py does over its replica
+    group."""
     clip = train_cfg.train_grad_clip
+    sync = mesh is not None and model_cfg.decoder_backend == "xla"
 
     def one_step(state: StackedState, inputs: ModelInputs, labels=None,
                  weight=None) -> torch.Tensor:
         losses = stacked_loss(state.params, inputs, model_cfg, train_cfg,
-                              state.generator, labels, weight)
+                              state.generator, labels, weight, mesh)
         for p in state.opt.params:
             p.grad = None
         losses.sum().backward()
         grads = [p.grad for p in state.opt.params]
+        if sync:
+            broadcast_first_(grads, mesh.group("mp"))
         if clip and clip > 0:
             clip_by_global_norm_per_fold_(grads, clip)
         state.opt.step(grads)
@@ -152,13 +178,14 @@ def make_one_step_stacked(model_cfg: ModelConfig, train_cfg: TrainConfig):
 
 
 @torch.no_grad()
-def evaluate_stacked(params, stacked: StackedFolds,
-                     model_cfg: ModelConfig) -> torch.Tensor:
+def evaluate_stacked(params, stacked: StackedFolds, model_cfg: ModelConfig,
+                     mesh=None) -> torch.Tensor:
     """Eval forward of the stack and each fold's (AUROC, AUPR) over its
     weighted edges (edges mode) or in-fold cells (grid mode); returns
-    (F, 2).  The metrics loop over folds: eval runs once an interval,
-    outside the step."""
-    pred, *_ = forward_stacked(params, stacked.inputs, model_cfg, train=False)
+    (F, 2), with a ``mesh`` for this rank's folds.  The metrics loop over
+    folds: eval runs once an interval, outside the step."""
+    pred, *_ = forward_stacked(params, stacked.inputs, model_cfg, train=False,
+                               mesh=mesh)
     pred, labels, weight = decoder_targets(pred, stacked.inputs, model_cfg,
                                            stacked.labels, stacked.edge_weight)
     return torch.stack([torch.stack([auroc_masked(y, p, w),

@@ -22,18 +22,28 @@ same step, and every parameter gradient it ends with is the one-rank
 gradient, the same on every rank, so the clip norm and Adam see identical
 gradients.  Replicated compute (the FGCN route, the attention, the node
 projections, the plain decoder, the common loss) runs on every rank on the
-full arrays, the same ops on the same inputs, and gives the same gradients
-everywhere with no collective.  Sharded compute (the GCMC route on row
-blocks, the scale decoder on candidate chunks) gives each rank part of the
-gradient of the weights it uses; they enter through ``replicated_in``,
-whose backward all-reduces that part.  With a candidate-sharded decoder,
-the loss is the global weighted mean: this rank's weighted sum and weight
-mass, each summed over the ranks (train/losses.py), whose backward hands
-each rank the gradient of its own logits.  The generator is seeded alike on
-every rank and every draw is made for the whole problem, so all ranks hold
-the same draws.  Replicated compute must run deterministically for the
-ranks to stay identical: the plain edge decoder's gather backward on a card
-adds with atomics, so ranks sharing it may differ in the last bits.
+full arrays, the same ops on the same inputs.  Sharded compute (the GCMC
+route on row blocks, the scale decoder on candidate chunks) gives each rank
+part of the gradient of the weights it uses; they enter through
+``replicated_in``, whose backward all-reduces that part.  With a
+candidate-sharded decoder, the loss is the global weighted mean: this
+rank's weighted sum and weight mass, each summed over the ranks
+(train/losses.py), whose backward hands each rank the gradient of its own
+logits.  The generator is seeded alike on every rank and every draw is made
+for the whole problem, so all ranks hold the same draws.
+
+Replicated compute is not bit for bit the same on every rank on a card:
+the plain edge decoder's gathers take their backward through atomic adds
+(``take_along_dim``), whose order changes from run to run, and the FGCN's
+and the attention's gradients follow them.  Measured on an H100 over two
+ranks, ``bench_scale --sharded-grouped`` left 17 of its 33 parameters
+apart after three steps, by up to 3.2e-4 (PERF.md §5).  So after the
+backward, before the clip, the step broadcasts the group's first rank's
+gradients to the others (``broadcast_first_``, one flattened broadcast a
+step): every rank then clips and steps with the same bits, as JAX's one
+logical array does.  A broadcast keeps the first rank's arithmetic, which
+is the one-rank run's; an all-reduce mean would move bits that are
+already equal.
 """
 
 from __future__ import annotations
@@ -47,6 +57,8 @@ from dream_gnn_tpu_torch.augment.masks import augment_inputs
 from dream_gnn_tpu_torch.config import ModelConfig, TrainConfig
 from dream_gnn_tpu_torch.model.dream_gnn import (ModelInputs, forward,
                                                  param_leaves)
+from dream_gnn_tpu_torch.nn.gcmc import SHARDED_LAYOUTS
+from dream_gnn_tpu_torch.sharding.collectives import broadcast_first_
 from dream_gnn_tpu_torch.sharding.scale_decoder_spmd import \
     ShardedScaleDecoderLayout
 from dream_gnn_tpu_torch.train.losses import total_loss
@@ -99,6 +111,15 @@ def _candidate_group(inputs: ModelInputs):
         else None
 
 
+def _replica_group(inputs: ModelInputs):
+    """The process group whose ranks each hold a replica of every
+    parameter (that of a rank-sharded encoder graph or a candidate-sharded
+    decoder), or None on one rank."""
+    if isinstance(inputs.enc_graph, SHARDED_LAYOUTS):
+        return inputs.enc_graph.drug_rows.group
+    return _candidate_group(inputs)
+
+
 def make_one_step(model_cfg: ModelConfig, train_cfg: TrainConfig):
     """Single iteration: augment -> forward -> loss -> grads -> Adam.
     ``one_step(state, inputs, labels, weight)`` returns the loss (a device
@@ -123,11 +144,13 @@ def make_one_step(model_cfg: ModelConfig, train_cfg: TrainConfig):
             group=_candidate_group(aug_inputs))
         state.opt.zero_grad()
         loss.backward()
-        leaves = param_leaves(state.params)
+        grads = [p.grad for p in param_leaves(state.params)
+                 if p.grad is not None]
+        group = _replica_group(aug_inputs)
+        if group is not None:
+            broadcast_first_(grads, group)
         if train_cfg.train_grad_clip and train_cfg.train_grad_clip > 0:
-            clip_by_global_norm_(
-                [p.grad for p in leaves if p.grad is not None],
-                train_cfg.train_grad_clip)
+            clip_by_global_norm_(grads, train_cfg.train_grad_clip)
         state.opt.step()
         return loss.detach()
 

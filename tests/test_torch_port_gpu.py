@@ -182,6 +182,93 @@ def test_batched_wrapper_checks_inputs(cuda):
         gd.launch_fwd_batched(*bad, 0.0, False, torch.bfloat16)
 
 
+# ---------------------------------------------------------------------------
+# The grid kernels' row and column bases (the mesh wrappers' blocks).
+
+def _digest(x: torch.Tensor) -> str:
+    import hashlib
+
+    raw = x.detach().contiguous().cpu().view(torch.uint8).numpy()
+    return hashlib.sha256(raw.tobytes()).hexdigest()[:16]
+
+
+def grid_digests(module, dev) -> dict:
+    """Digests of the four grid kernels' outputs (the fp32 and bf16
+    forwards and backwards, one fold and a stack of 3) at fixed inputs with
+    dropout 0.3, through the launch calls without bases, which every
+    checkout's ``kernels/grid_decoder.py`` has; ``module`` is that file's
+    module.  A backward's digest is over its six outputs in order."""
+    out = {}
+    for nf in (None, 3):
+        if nf is None:
+            args, g = _args(dev, 37, 45, seed=5)
+            fwd, bwd = module.launch_fwd, module.launch_bwd
+        else:
+            args, g = _args_b(dev, nf, 37, 45, seed=5)
+            fwd, bwd = module.launch_fwd_batched, module.launch_bwd_batched
+        for dtype in (torch.float32, torch.bfloat16):
+            tag = f"{'one' if nf is None else 'stack'} {str(dtype)[6:]}"
+            out[f"{tag} fwd"] = _digest(fwd(*args, 0.3, True, dtype))
+            out[f"{tag} bwd"] = _digest(torch.cat([
+                x.reshape(-1) for x in bwd(*args, 0.3, True, dtype, g)]))
+    return out
+
+
+# ``grid_digests`` of the kernels before they took row and column bases,
+# printed on an NVIDIA H100 80GB HBM3 (700.00 W) by the parent checkout.
+GRID_DIGESTS = {
+    "one float32 fwd": "a41357ea2fee8dc6",
+    "one float32 bwd": "ae0b79663418430e",
+    "one bfloat16 fwd": "4c2085d4c09fc915",
+    "one bfloat16 bwd": "e064e0cae2fa2c74",
+    "stack float32 fwd": "8a18f08b4ed80492",
+    "stack float32 bwd": "8ca8255c238a26a0",
+    "stack bfloat16 fwd": "c64633a29c6a363d",
+    "stack bfloat16 bwd": "e420cf4f4a547ea6"}
+
+
+def test_grid_kernels_with_bases_of_zero_keep_their_bits(cuda):
+    """Bases of 0 (the default) give, bit for bit, the outputs the kernels
+    gave before they took bases."""
+    assert GRID_DIGESTS and grid_digests(gd, cuda) == GRID_DIGESTS
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("nf", [None, 3])
+@pytest.mark.parametrize("bases", [(4, 0), (0, 33), (1000, 77)])
+def test_grid_kernels_with_bases_match_plain(cuda, dtype, nf, bases):
+    """Each of the four grid kernels with nonzero bases against its plain
+    version with the same bases, dropout 0.3."""
+    args, g = _args(cuda, 37, 45) if nf is None else _args_b(cuda, nf, 37, 45)
+    fwd, bwd, pfwd, pbwd = (
+        (gd.launch_fwd, gd.launch_bwd, gd.grid_decoder_plain,
+         gd.grid_decoder_plain_bwd) if nf is None else
+        (gd.launch_fwd_batched, gd.launch_bwd_batched,
+         gd.grid_decoder_batched_plain, gd.grid_decoder_batched_plain_bwd))
+    out = fwd(*args, 0.3, True, dtype, *bases)
+    grads = bwd(*args, 0.3, True, dtype, g, *bases)
+    ref = pfwd(*args, 0.3, True, dtype, *bases)
+    refs = pbwd(*args, 0.3, True, dtype, g, *bases)
+    torch.cuda.synchronize()
+    for a, b in zip((out, *grads), (ref, *refs)):
+        assert a.shape == b.shape and _rel(a, b) <= TOL[dtype]
+    assert not torch.equal(out, fwd(*args, 0.3, True, dtype))
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_grid_fwd_on_a_block_is_the_block_of_the_whole(cuda, dtype):
+    """A forward launch on a block of the grid, with the block's bases, is
+    that block of one launch on the whole grid, bit for bit (a cell's
+    logit depends on its own inputs and its global row and column)."""
+    args, _ = _args_b(cuda, 3, 37, 45, seed=3)
+    whole = gd.launch_fwd_batched(*args, 0.3, True, dtype)
+    for r0, r1, c0, c1 in ((0, 37, 23, 45), (5, 30, 0, 17), (36, 37, 44, 45)):
+        blk = gd.launch_fwd_batched(args[0][:, r0:r1].contiguous(),
+                                    args[1][:, c0:c1].contiguous(),
+                                    *args[2:], 0.3, True, dtype, r0, c0)
+        assert torch.equal(blk, whole[:, r0:r1, c0:c1])
+
+
 @pytest.mark.parametrize("flag", ["--fold_parallel", "--seed_parallel"])
 def test_stacked_trainer_launches_batched_kernels(cuda, tmp_path, flag):
     """Two folds of two seeds through the CLI: one batched forward and one

@@ -110,8 +110,9 @@ def _j_stacked_params(jcfg):
 
 def _leaves_equal(port_tree, jax_tree, what):
     """Every tensor of a port dataclass tree equals the JAX array of the
-    same field: shape, dtype and values.  ``dec_csr``, the port's index
-    preparation for its edge kernel, has no JAX field."""
+    same field: shape, dtype and values.  ``dec_csr`` and ``dec_shard``,
+    the port's index preparation for its edge kernel without and with a
+    mesh, have no JAX field."""
     if port_tree is None:
         assert jax_tree is None, what
         return
@@ -121,7 +122,7 @@ def _leaves_equal(port_tree, jax_tree, what):
         np.testing.assert_array_equal(a, b, err_msg=what)
         return
     for f in dataclasses.fields(port_tree):
-        if f.name != "dec_csr":
+        if f.name not in ("dec_csr", "dec_shard"):
             _leaves_equal(getattr(port_tree, f.name),
                           getattr(jax_tree, f.name), f"{what}.{f.name}")
 
