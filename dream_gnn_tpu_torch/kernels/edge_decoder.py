@@ -55,6 +55,7 @@ from dream_gnn_tpu_torch.kernels import cuda_build
 from dream_gnn_tpu_torch.kernels.grid_decoder import (
     H1, H2, check_inputs, drop_args, dropout_seeds, hash_bits, keep_scale,
     keep_threshold, node_projections, occupancy, round_to, stream_ptr)
+from dream_gnn_tpu_torch.utils.profiling import span
 
 LAUNCHES = {"fwd": 0, "bwd": 0, "fwd_b": 0, "bwd_b": 0}
 
@@ -336,16 +337,18 @@ class _FusedDecoder(torch.autograd.Function):
 
     @staticmethod
     def backward(ctx, g):
-        rate, train, dtype, csr, batched = ctx.cfg
-        args = (*ctx.saved_tensors, rate, train, dtype, g.contiguous())
-        if g.is_cuda:
-            launch = launch_bwd_batched if batched else launch_bwd
-            grads = launch(*args, csr)
-        else:
-            grads = (edge_decoder_batched_plain_bwd if batched
-                     else edge_decoder_plain_bwd)(*args)
-        db3 = g.sum(-1, keepdim=True)       # d/db3 (out + b3), outside the kernel
-        return (*grads, db3) + (None,) * 7
+        with span("decoder_bwd"):
+            rate, train, dtype, csr, batched = ctx.cfg
+            args = (*ctx.saved_tensors, rate, train, dtype, g.contiguous())
+            if g.is_cuda:
+                launch = launch_bwd_batched if batched else launch_bwd
+                grads = launch(*args, csr)
+            else:
+                grads = (edge_decoder_batched_plain_bwd if batched
+                         else edge_decoder_plain_bwd)(*args)
+            # d/db3 (out + b3), outside the kernel
+            db3 = g.sum(-1, keepdim=True)
+            return (*grads, db3) + (None,) * 7
 
 
 def fused_decoder(proj_drug, proj_dis, b1, w2, b2, w3, b3, edges, seed,

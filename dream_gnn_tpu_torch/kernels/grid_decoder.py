@@ -59,6 +59,7 @@ import torch
 
 from dream_gnn_tpu_torch.kernels import cuda_build
 from dream_gnn_tpu_torch.utils import draws as rng
+from dream_gnn_tpu_torch.utils.profiling import span
 
 H1, H2 = 128, 64          # widths the CUDA kernel is built for
 
@@ -426,13 +427,15 @@ class _FusedGridDecoder(torch.autograd.Function):
 
     @staticmethod
     def backward(ctx, g):
-        args = (*ctx.saved_tensors, *ctx.cfg, g.contiguous(), *ctx.bases)
-        if g.is_cuda:
-            grads = (launch_bwd_batched if ctx.batched else launch_bwd)(*args)
-        else:
-            grads = (grid_decoder_batched_plain_bwd if ctx.batched
-                     else grid_decoder_plain_bwd)(*args)
-        return (*grads,) + (None,) * 7
+        with span("decoder_bwd"):
+            args = (*ctx.saved_tensors, *ctx.cfg, g.contiguous(), *ctx.bases)
+            if g.is_cuda:
+                grads = (launch_bwd_batched if ctx.batched
+                         else launch_bwd)(*args)
+            else:
+                grads = (grid_decoder_batched_plain_bwd if ctx.batched
+                         else grid_decoder_plain_bwd)(*args)
+            return (*grads,) + (None,) * 7
 
 
 def fused_grid_decoder(proj_drug, proj_dis, b1, w2, b2, w3, seed,

@@ -79,6 +79,7 @@ from dream_gnn_tpu_torch.kernels.seq_scatter import (SeqScatter,
                                                       seq_scatter)
 from dream_gnn_tpu_torch.kernels.spmm_gather import spmm_gather_raw
 from dream_gnn_tpu_torch.utils.device import as_tensor
+from dream_gnn_tpu_torch.utils.profiling import span
 
 LAUNCHES = {"k2": 0, "b1": 0, "mirror": 0}
 
@@ -423,26 +424,27 @@ class _ScaleDecoder(torch.autograd.Function):
 
     @staticmethod
     def backward(ctx, gout):
-        a1, pd, pv, b1, w2, b2, w3, seed = ctx.saved_tensors
-        layout, rate, train, dtype = ctx.cfg
-        g = gout.float().contiguous()
-        g_m = g[layout.gout_perm.long()]
-        common = (w2, b2, w3, seed, rate, train, dtype)
-        if g.is_cuda:
-            da1, dw2, db2, dw3, db1 = launch_b1(a1, pd, pv, layout, g, b1,
-                                                *common)
-            da1_m = launch_mirror(pd, pv, layout, g_m, b1, *common)
-        else:
-            da1, dw2, db2, dw3, db1 = scale_bwd_plain(
-                a1, pd, pv, layout.drug_of_slot, layout.dis_of_slot,
-                layout.fwd_eid, g, b1, *common, True)
-            da1_m = scale_bwd_plain(
-                None, pd, pv, layout.drug_of_mslot, layout.dis_of_mslot,
-                layout.mirror_eid, g_m, b1, *common, False)
-        d_pd = _scatter(layout.seq_drug, layout.scat_drug, da1, dtype)
-        d_pv = _scatter(layout.seq_dis, layout.scat_dis, da1_m, dtype)
-        db3 = g.sum(0, keepdim=True)
-        return (d_pd, d_pv, db1, dw2, db2, dw3, db3) + (None,) * 6
+        with span("decoder_bwd"):
+            a1, pd, pv, b1, w2, b2, w3, seed = ctx.saved_tensors
+            layout, rate, train, dtype = ctx.cfg
+            g = gout.float().contiguous()
+            g_m = g[layout.gout_perm.long()]
+            common = (w2, b2, w3, seed, rate, train, dtype)
+            if g.is_cuda:
+                da1, dw2, db2, dw3, db1 = launch_b1(a1, pd, pv, layout, g, b1,
+                                                    *common)
+                da1_m = launch_mirror(pd, pv, layout, g_m, b1, *common)
+            else:
+                da1, dw2, db2, dw3, db1 = scale_bwd_plain(
+                    a1, pd, pv, layout.drug_of_slot, layout.dis_of_slot,
+                    layout.fwd_eid, g, b1, *common, True)
+                da1_m = scale_bwd_plain(
+                    None, pd, pv, layout.drug_of_mslot, layout.dis_of_mslot,
+                    layout.mirror_eid, g_m, b1, *common, False)
+            d_pd = _scatter(layout.seq_drug, layout.scat_drug, da1, dtype)
+            d_pv = _scatter(layout.seq_dis, layout.scat_dis, da1_m, dtype)
+            db3 = g.sum(0, keepdim=True)
+            return (d_pd, d_pv, db1, dw2, db2, dw3, db3) + (None,) * 6
 
 
 def scale_decoder(proj_drug, proj_dis, b1, w2, b2, w3, b3,

@@ -42,6 +42,7 @@ import torch
 from dream_gnn_tpu_torch.graph.slabbed import SlabbedCoo, SlabbedCooPair
 from dream_gnn_tpu_torch.kernels import cuda_build
 from dream_gnn_tpu_torch.kernels.grid_decoder import round_to, stream_ptr
+from dream_gnn_tpu_torch.utils.profiling import span
 
 LAUNCHES = {"fwd": 0, "bwd": 0}
 
@@ -72,22 +73,23 @@ def segment_sum_plain(ptr: torch.Tensor, src: Optional[torch.Tensor],
     ``rounded`` rounds each message to bf16: rnd(rnd(x) * val), or
     rnd(x * val) without ``round_x``, or rnd(rnd(x) * rnd(val)) with
     ``round_val``."""
-    rounding_mode(rounded, round_x, round_val)
-    n_rows = ptr.shape[0] - 1
-    counts = (ptr[1:] - ptr[:-1]).long()
-    rows = torch.repeat_interleave(
-        torch.arange(n_rows, device=x.device), counts)
-    xs = x[src.long()] if src is not None else x[:rows.shape[0]]
-    xs = xs.float()
-    dtype = torch.bfloat16 if rounded else torch.float32
-    msg = round_to(xs, dtype) if round_x else xs
-    if val is not None:
-        v = round_to(val, dtype) if round_val else val
-        msg = msg * v[:, None]
-    msg = round_to(msg, dtype)
-    out = torch.zeros((n_rows, x.shape[1]), dtype=torch.float32,
-                      device=x.device)
-    return out.index_add_(0, rows, msg)
+    with span("segment_sum"):
+        rounding_mode(rounded, round_x, round_val)
+        n_rows = ptr.shape[0] - 1
+        counts = (ptr[1:] - ptr[:-1]).long()
+        rows = torch.repeat_interleave(
+            torch.arange(n_rows, device=x.device), counts)
+        xs = x[src.long()] if src is not None else x[:rows.shape[0]]
+        xs = xs.float()
+        dtype = torch.bfloat16 if rounded else torch.float32
+        msg = round_to(xs, dtype) if round_x else xs
+        if val is not None:
+            v = round_to(val, dtype) if round_val else val
+            msg = msg * v[:, None]
+        msg = round_to(msg, dtype)
+        out = torch.zeros((n_rows, x.shape[1]), dtype=torch.float32,
+                          device=x.device)
+        return out.index_add_(0, rows, msg)
 
 
 def _load():
@@ -121,31 +123,34 @@ def launch_segment_sum(ptr: torch.Tensor, src: Optional[torch.Tensor],
     it.  When d % 8 == 0 the kernel reads x in 16-byte loads, so an x that
     does not start 16-byte aligned (a view at an odd offset) is copied
     first: how a row is split and summed depends on d only."""
-    mode = rounding_mode(rounded, round_x, round_val)
-    dev = x.device
-    nnz = (src if src is not None else val if val is not None else x).shape[0]
-    n_rows, d = ptr.shape[0] - 1, x.shape[-1]
-    _check(ptr, "ptr", (torch.int32,), (n_rows + 1,), dev)
-    if val is not None:
-        _check(val, "val", (torch.float32,), (nnz,), dev)
-    if src is not None:
-        _check(src, "src", (torch.int32,), (nnz,), dev)
-    elif x.shape[0] < nnz:
-        raise ValueError("segment sum kernel: x has fewer rows than entries")
-    _check(x, "x", (torch.float32, torch.bfloat16), (x.shape[0], d), dev)
-    if d % 8 == 0 and x.data_ptr() % 16 != 0:
-        x = x.clone()
-    lib = _load()
-    out = torch.empty((n_rows, d), dtype=torch.float32, device=dev)
-    err = lib.segment_sum(ptr.data_ptr(),
-                          src.data_ptr() if src is not None else None,
-                          val.data_ptr() if val is not None else None,
-                          x.data_ptr(), out.data_ptr(),
-                          n_rows, d, int(x.dtype == torch.bfloat16), mode,
-                          stream_ptr(dev))
-    if err != 0:
-        raise RuntimeError(f"segment_sum launch failed: CUDA error {err}")
-    return out
+    with span("segment_sum"):
+        mode = rounding_mode(rounded, round_x, round_val)
+        dev = x.device
+        nnz = (src if src is not None else val if val is not None
+               else x).shape[0]
+        n_rows, d = ptr.shape[0] - 1, x.shape[-1]
+        _check(ptr, "ptr", (torch.int32,), (n_rows + 1,), dev)
+        if val is not None:
+            _check(val, "val", (torch.float32,), (nnz,), dev)
+        if src is not None:
+            _check(src, "src", (torch.int32,), (nnz,), dev)
+        elif x.shape[0] < nnz:
+            raise ValueError("segment sum kernel: x has fewer rows than "
+                             "entries")
+        _check(x, "x", (torch.float32, torch.bfloat16), (x.shape[0], d), dev)
+        if d % 8 == 0 and x.data_ptr() % 16 != 0:
+            x = x.clone()
+        lib = _load()
+        out = torch.empty((n_rows, d), dtype=torch.float32, device=dev)
+        err = lib.segment_sum(ptr.data_ptr(),
+                              src.data_ptr() if src is not None else None,
+                              val.data_ptr() if val is not None else None,
+                              x.data_ptr(), out.data_ptr(),
+                              n_rows, d, int(x.dtype == torch.bfloat16), mode,
+                              stream_ptr(dev))
+        if err != 0:
+            raise RuntimeError(f"segment_sum launch failed: CUDA error {err}")
+        return out
 
 
 def spmm_csr(g: SlabbedCoo, x: torch.Tensor, dtype=torch.bfloat16,

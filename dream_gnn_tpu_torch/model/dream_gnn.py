@@ -68,6 +68,7 @@ from dream_gnn_tpu_torch.nn.gcmc import (SHARDED_LAYOUTS, gcmc_layer_apply,
 from dream_gnn_tpu_torch.sharding.decoder_spmd import EdgeShard
 from dream_gnn_tpu_torch.sharding.scale_decoder_spmd import (
     ShardedScaleDecoderLayout, decoder_apply_scale_spmd)
+from dream_gnn_tpu_torch.utils.profiling import span
 
 _DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16}
 
@@ -196,43 +197,50 @@ def _encode(params, inputs: ModelInputs, cfg: ModelConfig, *, train: bool,
     dis_sim_out).
     """
     enc_graph = inputs.enc_graph
-    # The salts are per relation, not per layer: one masked graph serves
-    # every layer (the JAX layer masks it anew in each).
-    if isinstance(enc_graph, PRF_LAYOUTS) and edge_masks is not None:
-        enc_graph, edge_masks = prf_mask_graph(enc_graph, edge_masks), None
-    drug_feat, dis_feat = inputs.drug_feat, inputs.dis_feat
-    sharded = isinstance(enc_graph, SHARDED_LAYOUTS)
-    if sharded:
-        # The GCMC route runs on this rank's row blocks (nn/gcmc.py).
-        drug_feat = enc_graph.drug_rows.shard_rows(drug_feat)
-        dis_feat = enc_graph.dis_rows.shard_rows(dis_feat)
-    drug_out = dis_out = 0.0
-    for i in range(cfg.layers):
-        drug_o, dis_o = gcmc_layer_apply(
-            params["tgcn"][i], enc_graph, drug_feat, dis_feat,
-            dropout_rate=cfg.dropout, agg_act=cfg.model_activation,
-            share_param=cfg.share_param, train=train, generator=generator,
-            edge_masks=edge_masks)
-        # Decayed residual accumulation (model.py:67-76).
-        drug_out = drug_o if i == 0 else drug_out + drug_o / float(i + 1)
-        dis_out = dis_o if i == 0 else dis_out + dis_o / float(i + 1)
-        drug_feat, dis_feat = drug_o, dis_o
-    if sharded:
-        drug_out = enc_graph.drug_rows.gather(drug_out)
-        dis_out = enc_graph.dis_rows.gather(dis_out)
+    with span("gcmc"):
+        # The salts are per relation, not per layer: one masked graph serves
+        # every layer (the JAX layer masks it anew in each).
+        if isinstance(enc_graph, PRF_LAYOUTS) and edge_masks is not None:
+            enc_graph = prf_mask_graph(enc_graph, edge_masks)
+            edge_masks = None
+        drug_feat, dis_feat = inputs.drug_feat, inputs.dis_feat
+        sharded = isinstance(enc_graph, SHARDED_LAYOUTS)
+        if sharded:
+            # The GCMC route runs on this rank's row blocks (nn/gcmc.py).
+            drug_feat = enc_graph.drug_rows.shard_rows(drug_feat)
+            dis_feat = enc_graph.dis_rows.shard_rows(dis_feat)
+        drug_out = dis_out = 0.0
+        for i in range(cfg.layers):
+            drug_o, dis_o = gcmc_layer_apply(
+                params["tgcn"][i], enc_graph, drug_feat, dis_feat,
+                dropout_rate=cfg.dropout, agg_act=cfg.model_activation,
+                share_param=cfg.share_param, train=train, generator=generator,
+                edge_masks=edge_masks)
+            # Decayed residual accumulation (model.py:67-76).
+            drug_out = drug_o if i == 0 else drug_out + drug_o / float(i + 1)
+            dis_out = dis_o if i == 0 else dis_out + dis_o / float(i + 1)
+            drug_feat, dis_feat = drug_o, dis_o
+        if sharded:
+            drug_out = enc_graph.drug_rows.gather(drug_out)
+            dis_out = enc_graph.dis_rows.gather(dis_out)
 
-    drug_sim_out, dis_sim_out, *_ = fgcn_apply(
-        params["fgcn"], inputs.drug_graph, inputs.drug_sim_feat,
-        inputs.dis_graph, inputs.dis_sim_feat,
-        inputs.drug_feature_graph, inputs.dis_feature_graph,
-        dropout_rate=cfg.dropout, train=train, generator=generator)
+    with span("fgcn"):
+        drug_sim_out, dis_sim_out, *_ = fgcn_apply(
+            params["fgcn"], inputs.drug_graph, inputs.drug_sim_feat,
+            inputs.dis_graph, inputs.dis_sim_feat,
+            inputs.drug_feature_graph, inputs.dis_feature_graph,
+            dropout_rate=cfg.dropout, train=train, generator=generator)
 
-    drug_feats, _ = attention_apply(
-        params["attention"], torch.stack([drug_out, drug_sim_out], dim=-2),
-        dropout_rate=cfg.attention_dropout, train=train, generator=generator)
-    dis_feats, _ = attention_apply(
-        params["attention"], torch.stack([dis_out, dis_sim_out], dim=-2),
-        dropout_rate=cfg.attention_dropout, train=train, generator=generator)
+    with span("attention"):
+        drug_feats, _ = attention_apply(
+            params["attention"],
+            torch.stack([drug_out, drug_sim_out], dim=-2),
+            dropout_rate=cfg.attention_dropout, train=train,
+            generator=generator)
+        dis_feats, _ = attention_apply(
+            params["attention"], torch.stack([dis_out, dis_sim_out], dim=-2),
+            dropout_rate=cfg.attention_dropout, train=train,
+            generator=generator)
     return drug_feats, dis_feats, drug_out, drug_sim_out, dis_out, dis_sim_out
 
 
@@ -294,40 +302,42 @@ def _forward(params, inputs, cfg, *, stacked, train, generator, edge_masks,
     decode = decoders[stacked]
     if mesh is not None and cfg.decoder_backend == "pallas":
         kw["mesh"] = mesh
-    if cfg.decode_mode == "grid":
-        # pred is the (..., n_drug, n_dis) logit grid; the loss/metrics mask
-        # out-of-fold cells with enc_graph.mask (labels = enc_graph.a1).
-        pred = decode(params["decoder"], drug_feats, dis_feats, **kw)
-    elif cfg.decoder_backend == "pallas" and inputs.dec_layout is not None:
-        layout = inputs.dec_layout
-        if stacked:
-            raise ValueError("the scale decoder takes one candidate list, "
-                             "not a fold stack")
-        if isinstance(layout, ShardedScaleDecoderLayout):
-            # Candidate-sharded (dream_gnn.py:182-200 of the JAX package):
-            # pred is this rank's slots, in its slot order.
-            if layout.mesh is None or layout.axis is None:
-                raise ValueError(
-                    "ShardedScaleDecoderLayout routed through the model "
-                    "needs mesh+axis captured at build time — pass "
-                    "mesh=/axis= to build_scale_decoder_layout_sharded "
-                    "(a mesh-less layout only works with the explicit "
-                    "decoder_apply_scale_spmd(..., mesh, axis) call)")
-            pred = decoder_apply_scale_spmd(
-                params["decoder"], layout, drug_feats, dis_feats,
-                layout.mesh, layout.axis, **kw)
-        elif isinstance(layout, ScaleDecoderLayout):
-            pred = decoder_apply_scale(params["decoder"], layout, drug_feats,
-                                       dis_feats, **kw)
-        else:
-            raise ValueError(f"no scale decoder over a "
-                             f"{type(layout).__name__}")
-    else:
-        if cfg.decoder_backend == "pallas":
-            if mesh is None:
-                kw["csr"] = inputs.dec_csr
+    with span("decoder"):
+        if cfg.decode_mode == "grid":
+            # pred is the (..., n_drug, n_dis) logit grid; the loss/metrics
+            # mask out-of-fold cells with enc_graph.mask (labels =
+            # enc_graph.a1).
+            pred = decode(params["decoder"], drug_feats, dis_feats, **kw)
+        elif cfg.decoder_backend == "pallas" and inputs.dec_layout is not None:
+            layout = inputs.dec_layout
+            if stacked:
+                raise ValueError("the scale decoder takes one candidate list, "
+                                 "not a fold stack")
+            if isinstance(layout, ShardedScaleDecoderLayout):
+                # Candidate-sharded (dream_gnn.py:182-200 of the JAX package):
+                # pred is this rank's slots, in its slot order.
+                if layout.mesh is None or layout.axis is None:
+                    raise ValueError(
+                        "ShardedScaleDecoderLayout routed through the model "
+                        "needs mesh+axis captured at build time — pass "
+                        "mesh=/axis= to build_scale_decoder_layout_sharded "
+                        "(a mesh-less layout only works with the explicit "
+                        "decoder_apply_scale_spmd(..., mesh, axis) call)")
+                pred = decoder_apply_scale_spmd(
+                    params["decoder"], layout, drug_feats, dis_feats,
+                    layout.mesh, layout.axis, **kw)
+            elif isinstance(layout, ScaleDecoderLayout):
+                pred = decoder_apply_scale(params["decoder"], layout,
+                                           drug_feats, dis_feats, **kw)
             else:
-                kw["shard"] = inputs.dec_shard
-        pred = decode(params["decoder"], inputs.dec_src, inputs.dec_dst,
-                      drug_feats, dis_feats, **kw)
+                raise ValueError(f"no scale decoder over a "
+                                 f"{type(layout).__name__}")
+        else:
+            if cfg.decoder_backend == "pallas":
+                if mesh is None:
+                    kw["csr"] = inputs.dec_csr
+                else:
+                    kw["shard"] = inputs.dec_shard
+            pred = decode(params["decoder"], inputs.dec_src, inputs.dec_dst,
+                          drug_feats, dis_feats, **kw)
     return pred, drug_out, drug_sim_out, dis_out, dis_sim_out

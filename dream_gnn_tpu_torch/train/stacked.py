@@ -64,7 +64,7 @@ from dream_gnn_tpu_torch.train.optim import (PlateauScheduler, StackedAdam,
 from dream_gnn_tpu_torch.train.step import decoder_targets, run_steps
 from dream_gnn_tpu_torch.utils.logging import MetricLogger
 from dream_gnn_tpu_torch.utils.metrics import aupr_masked, auroc_masked
-from dream_gnn_tpu_torch.utils.profiling import StepTimer
+from dream_gnn_tpu_torch.utils.profiling import StepTimer, span
 
 
 def stack_seed(seeds: Sequence[int], folds: Sequence[int]) -> int:
@@ -120,20 +120,23 @@ def stacked_loss(params, inputs: ModelInputs, model_cfg: ModelConfig,
     (utils/draws.py)."""
     block = mesh.fold_draws(inputs.drug_feat.shape[0]) if mesh \
         else contextlib.nullcontext()
-    with block:
-        aug, edge_masks = augment_inputs(generator, inputs,
-                                         train_cfg.augment,
-                                         num_ratings=model_cfg.num_ratings)
-        pred, drug_out, drug_sim_out, dis_out, dis_sim_out = \
-            forward_stacked(params, aug, model_cfg, train=True,
-                            generator=generator, edge_masks=edge_masks,
-                            mesh=mesh)
-    pred, labels, weight = decoder_targets(pred, aug, model_cfg, labels,
-                                           weight)
-    losses, _ = total_loss(
-        pred, labels, drug_out, drug_sim_out, dis_out, dis_sim_out,
-        beta=train_cfg.beta, smoothing=train_cfg.label_smoothing,
-        weight=weight)
+    with span("forward"):
+        with block:
+            with span("augment"):
+                aug, edge_masks = augment_inputs(
+                    generator, inputs, train_cfg.augment,
+                    num_ratings=model_cfg.num_ratings)
+            pred, drug_out, drug_sim_out, dis_out, dis_sim_out = \
+                forward_stacked(params, aug, model_cfg, train=True,
+                                generator=generator, edge_masks=edge_masks,
+                                mesh=mesh)
+        pred, labels, weight = decoder_targets(pred, aug, model_cfg, labels,
+                                               weight)
+        with span("loss"):
+            losses, _ = total_loss(
+                pred, labels, drug_out, drug_sim_out, dis_out, dis_sim_out,
+                beta=train_cfg.beta, smoothing=train_cfg.label_smoothing,
+                weight=weight)
     return losses
 
 
@@ -165,13 +168,16 @@ def make_one_step_stacked(model_cfg: ModelConfig, train_cfg: TrainConfig,
                               state.generator, labels, weight, mesh)
         for p in state.opt.params:
             p.grad = None
-        losses.sum().backward()
-        grads = [p.grad for p in state.opt.params]
-        if sync:
-            broadcast_first_(grads, mesh.group("mp"))
-        if clip and clip > 0:
-            clip_by_global_norm_per_fold_(grads, clip)
-        state.opt.step(grads)
+        with span("backward"):
+            losses.sum().backward()
+        with span("optimizer"):
+            grads = [p.grad for p in state.opt.params]
+            if sync:
+                broadcast_first_(grads, mesh.group("mp"))
+            if clip and clip > 0:
+                clip_by_global_norm_per_fold_(grads, clip)
+            with span("adam"):
+                state.opt.step(grads)
         return losses.detach()
 
     return one_step
@@ -184,13 +190,15 @@ def evaluate_stacked(params, stacked: StackedFolds, model_cfg: ModelConfig,
     weighted edges (edges mode) or in-fold cells (grid mode); returns
     (F, 2), with a ``mesh`` for this rank's folds.  The metrics loop over
     folds: eval runs once an interval, outside the step."""
-    pred, *_ = forward_stacked(params, stacked.inputs, model_cfg, train=False,
-                               mesh=mesh)
-    pred, labels, weight = decoder_targets(pred, stacked.inputs, model_cfg,
-                                           stacked.labels, stacked.edge_weight)
-    return torch.stack([torch.stack([auroc_masked(y, p, w),
-                                     aupr_masked(y, p, w)])
-                        for y, p, w in zip(labels, pred, weight)])
+    with span("eval"):
+        pred, *_ = forward_stacked(params, stacked.inputs, model_cfg,
+                                   train=False, mesh=mesh)
+        pred, labels, weight = decoder_targets(
+            pred, stacked.inputs, model_cfg, stacked.labels,
+            stacked.edge_weight)
+        return torch.stack([torch.stack([auroc_masked(y, p, w),
+                                         aupr_masked(y, p, w)])
+                            for y, p, w in zip(labels, pred, weight)])
 
 
 def train_seed_foldparallel(dataset: DreamDataset, cfg: TrainConfig,

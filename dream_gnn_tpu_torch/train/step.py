@@ -64,6 +64,7 @@ from dream_gnn_tpu_torch.sharding.scale_decoder_spmd import \
 from dream_gnn_tpu_torch.train.losses import total_loss
 from dream_gnn_tpu_torch.train.optim import clip_by_global_norm_
 from dream_gnn_tpu_torch.utils.metrics import aupr_masked, auroc_masked
+from dream_gnn_tpu_torch.utils.profiling import span
 
 
 @dataclasses.dataclass
@@ -129,29 +130,35 @@ def make_one_step(model_cfg: ModelConfig, train_cfg: TrainConfig):
 
     def one_step(state: TrainState, inputs: ModelInputs, labels=None,
                  weight=None) -> torch.Tensor:
-        aug_inputs, edge_masks = augment_inputs(
-            state.generator, inputs, augment,
-            num_ratings=model_cfg.num_ratings)
-        pred, drug_out, drug_sim_out, dis_out, dis_sim_out = forward(
-            state.params, aug_inputs, model_cfg, train=True,
-            generator=state.generator, edge_masks=edge_masks)
-        pred, labels, weight = decoder_targets(pred, aug_inputs, model_cfg,
-                                               labels, weight)
-        loss, _ = total_loss(
-            pred, labels, drug_out, drug_sim_out, dis_out,
-            dis_sim_out, beta=train_cfg.beta,
-            smoothing=train_cfg.label_smoothing, weight=weight,
-            group=_candidate_group(aug_inputs))
+        with span("forward"):
+            with span("augment"):
+                aug_inputs, edge_masks = augment_inputs(
+                    state.generator, inputs, augment,
+                    num_ratings=model_cfg.num_ratings)
+            pred, drug_out, drug_sim_out, dis_out, dis_sim_out = forward(
+                state.params, aug_inputs, model_cfg, train=True,
+                generator=state.generator, edge_masks=edge_masks)
+            pred, labels, weight = decoder_targets(pred, aug_inputs,
+                                                   model_cfg, labels, weight)
+            with span("loss"):
+                loss, _ = total_loss(
+                    pred, labels, drug_out, drug_sim_out, dis_out,
+                    dis_sim_out, beta=train_cfg.beta,
+                    smoothing=train_cfg.label_smoothing, weight=weight,
+                    group=_candidate_group(aug_inputs))
         state.opt.zero_grad()
-        loss.backward()
-        grads = [p.grad for p in param_leaves(state.params)
-                 if p.grad is not None]
-        group = _replica_group(aug_inputs)
-        if group is not None:
-            broadcast_first_(grads, group)
-        if train_cfg.train_grad_clip and train_cfg.train_grad_clip > 0:
-            clip_by_global_norm_(grads, train_cfg.train_grad_clip)
-        state.opt.step()
+        with span("backward"):
+            loss.backward()
+        with span("optimizer"):
+            grads = [p.grad for p in param_leaves(state.params)
+                     if p.grad is not None]
+            group = _replica_group(aug_inputs)
+            if group is not None:
+                broadcast_first_(grads, group)
+            if train_cfg.train_grad_clip and train_cfg.train_grad_clip > 0:
+                clip_by_global_norm_(grads, train_cfg.train_grad_clip)
+            with span("adam"):
+                state.opt.step()
         return loss.detach()
 
     return one_step
@@ -166,19 +173,24 @@ def evaluate(params, inputs: ModelInputs, model_cfg: ModelConfig,
     graph for test-set evaluation.  With a candidate-sharded decoder the
     labels and weights are this rank's slot-order ones, and the metrics run
     over every rank's candidates."""
-    pred, *_ = forward(params, inputs, model_cfg, train=False)
-    pred, labels, weight = decoder_targets(pred, inputs, model_cfg, labels,
-                                           weight)
-    if _candidate_group(inputs) is not None:
-        # Every rank's slots, in candidate order, on every rank.
-        pred, labels, weight = (inputs.dec_layout.gather(x)
-                                for x in (pred, labels, weight))
-    return auroc_masked(labels, pred, weight), aupr_masked(labels, pred,
-                                                           weight)
+    with span("eval"):
+        pred, *_ = forward(params, inputs, model_cfg, train=False)
+        pred, labels, weight = decoder_targets(pred, inputs, model_cfg,
+                                               labels, weight)
+        if _candidate_group(inputs) is not None:
+            # Every rank's slots, in candidate order, on every rank.
+            pred, labels, weight = (inputs.dec_layout.gather(x)
+                                    for x in (pred, labels, weight))
+        return auroc_masked(labels, pred, weight), aupr_masked(labels, pred,
+                                                               weight)
 
 
 def run_steps(one_step, state, n_steps: int, *args) -> torch.Tensor:
-    """``n_steps`` iterations of ``one_step(state, *args)``; returns their
-    losses stacked on a leading axis."""
-    return torch.stack([one_step(state, *args) for _ in range(n_steps)])
+    """``n_steps`` iterations of ``one_step(state, *args)``, each in the
+    span ``step``; returns their losses stacked on a leading axis."""
+    losses = []
+    for _ in range(n_steps):
+        with span("step"):
+            losses.append(one_step(state, *args))
+    return torch.stack(losses)
 
