@@ -30,11 +30,14 @@ Phases, each of which fails the run if it fails:
    dropout equals the grid kernel's cell [src, dst], and two backward
    launches give the same bits; then their times, the forward's and the
    backward's TFLOP/s and residency in bf16 (tensor cores) and fp32 (CUDA
-   cores), the CSR build's time and the da1 buffer's size;
+   cores), the edge ordering's build time and the size of the backward's
+   dPd partial;
 5. the fold-batched per-edge kernels at F = 3 folds' real lists, fold f
    equal to the single-fold kernel with seed[f] bit for bit, determinism;
-   their times, rates and residency at F = 10, and the backward's device
-   time split by a profile into its pass 1, its pass 2 and the slab sums;
+   their times, rates and residency at F = 10 and at F = 100 (the 10 folds
+   tiled ten times, as the benchmark's protocol stack), and at both the
+   backward's device time split by a profile into its kernel and the
+   partial sums;
 6. the model's eval forward on the card (kernels) against the same
    forward on the CPU (plain versions), at full default width, in grid
    and in edges mode;
@@ -513,7 +516,7 @@ def phase_kernels_batched():
 def _edge_inputs(ds, nf=None):
     """Edge kernel inputs on fold 0's real train list (or the stacked train
     lists of folds 0 .. nf-1): random Gdataset-sized tables and weights,
-    the edges, their CSR orderings and a cotangent that is 0 on padding."""
+    the edges, their ordering and a cotangent that is 0 on padding."""
     from dream_gnn_tpu_torch.sharding.foldstack import stack_folds
     from dream_gnn_tpu_torch.train.loop import fold_inputs
 
@@ -526,7 +529,7 @@ def _edge_inputs(ds, nf=None):
         inputs, w = stacked.inputs, stacked.edge_weight
     x["edges"] = torch.stack([inputs.dec_src, inputs.dec_dst], dim=-2) \
         .contiguous()
-    x["csr"] = inputs.dec_csr
+    x["order"] = inputs.dec_order
     rng = np.random.default_rng(1)
     x["g"] = torch.tensor(rng.normal(0, 1e-3, tuple(w.shape)).astype(
         np.float32), device=ds.device) * w
@@ -563,7 +566,7 @@ def _edge_checks(ed, x, batched, label, err):
     for dtype in (torch.float32, torch.bfloat16):
         for rate in (0.0, 0.3):
             out = fwd(*args, rate, True, dtype)
-            out_g = bwd(*args, rate, True, dtype, x["g"], x["csr"])
+            out_g = bwd(*args, rate, True, dtype, x["g"], x["order"])
             ref = plain(*args, rate, True, dtype)
             ref_g = plain_bwd(*args, rate, True, dtype, x["g"])
             torch.cuda.synchronize()
@@ -575,7 +578,7 @@ def _edge_checks(ed, x, batched, label, err):
         ref = plain(*args, rate, True, torch.bfloat16)
         ref_g = plain_bwd(*args, rate, True, torch.bfloat16, x["g"])
         out = fwd(*args, rate, True, torch.float32)
-        out_g = bwd(*args, rate, True, torch.float32, x["g"], x["csr"])
+        out_g = bwd(*args, rate, True, torch.float32, x["g"], x["order"])
         for name, a, b in [("logits", out, ref)] + list(zip(GRAD_NAMES, out_g,
                                                             ref_g)):
             rel = float((a - b).abs().max()) / max(float(b.abs().max()), 1e-30)
@@ -585,8 +588,8 @@ def _edge_checks(ed, x, batched, label, err):
                 raise AssertionError(f"control: {label} {name} without bf16 "
                                      f"rounding passes the bf16 tolerance")
         del ref, ref_g
-    first = bwd(*args, 0.3, True, torch.bfloat16, x["g"], x["csr"])
-    again = bwd(*args, 0.3, True, torch.bfloat16, x["g"], x["csr"])
+    first = bwd(*args, 0.3, True, torch.bfloat16, x["g"], x["order"])
+    again = bwd(*args, 0.3, True, torch.bfloat16, x["g"], x["order"])
     if not all(torch.equal(a, b) for a, b in zip(first, again)):
         raise AssertionError(f"two {label} backward launches differ")
     print(f"  {label} backward: two launches give identical bits")
@@ -607,10 +610,10 @@ def _edge_times(ed, x, batched):
     launches = dict(ed.LAUNCHES)
     t = {"fwd": _time_ms(lambda: fwd(*args, rate, True, dtype)),
          "bwd": _time_ms(lambda: bwd(*args, rate, True, dtype, x["g"],
-                                     x["csr"]))}
+                                     x["order"]))}
     t32 = {"fwd": _time_ms(lambda: fwd(*args, rate, True, torch.float32)),
            "bwd": _time_ms(lambda: bwd(*args, rate, True, torch.float32,
-                                       x["g"], x["csr"]))}
+                                       x["g"], x["order"]))}
     ed.LAUNCHES.update(launches)
     with torch.no_grad():
         tp = {"fwd": _time_ms(lambda: plain(*args, rate, True, dtype), reps=3),
@@ -648,13 +651,14 @@ def phase_edge_kernels(ds):
     if rel > 1e-4:
         raise AssertionError("edge kernel disagrees with the grid kernel")
     t, tp = _edge_times(ed, x, False)
-    # The CSR build, once per edge list (not in the step): its time and its
-    # kernels.
-    _profile("edge_csr (torch ops)",
-             lambda: ed.edge_csr(x["edges"][0], x["edges"][1], ND, NV), 5)
-    da1_bytes = ne * 128 * 4
-    print(f"  da1 buffer {da1_bytes / 1e6:.1f} MB, written once and read "
-          f"twice: {3 * da1_bytes / PEAK_BYTES_S * 1e3:.4f} ms at "
+    # The ordering's build, once per edge list (not in the step): its time
+    # and its kernels.
+    _profile("edge_order (torch ops)",
+             lambda: ed.edge_order(x["edges"][0], x["edges"][1], ND, NV), 5)
+    pd_bytes = -(-NV // ed.COL_BLOCK) * ND * 128 * 4
+    print(f"  dPd partial {pd_bytes / 1e6:.2f} MB a fold (the (E, 128) da1 "
+          f"rows it replaces: {ne * 128 * 4 / 1e6:.1f} MB), written once and "
+          f"read once: {2 * pd_bytes / PEAK_BYTES_S * 1e3:.4f} ms at "
           f"{PEAK_BYTES_S / 1e12:.2f} TB/s")
     return [_edge_row(kind, False, err, t, tp, torch.bfloat16, ne)
             for kind in ("fwd", "bwd")]
@@ -662,8 +666,8 @@ def phase_edge_kernels(ds):
 
 def phase_edge_kernels_batched(ds):
     """Rows 7-8: checks at F = 3 folds' real lists, fold f against the
-    single-fold kernel with seed[f], timing at F = 10; returns their table
-    rows without launches."""
+    single-fold kernel with seed[f], timing at F = 10 and the kernels alone
+    at F = 100; returns their table rows (F = 10) without launches."""
     from dream_gnn_tpu_torch.kernels import edge_decoder as ed
 
     x = _edge_inputs(ds, NF_CHECK)
@@ -674,7 +678,7 @@ def phase_edge_kernels_batched(ds):
     for dtype in (torch.float32, torch.bfloat16):
         out = ed.launch_fwd_batched(*args, 0.3, True, dtype)
         grads = ed.launch_bwd_batched(*args, 0.3, True, dtype, x["g"],
-                                      x["csr"])
+                                      x["order"])
         # The forward of fold f is the single-fold kernel's bit for bit.  The
         # backward splits each fold into another number of blocks (the split
         # depends on F), so its partial sums add in another order.
@@ -701,15 +705,62 @@ def phase_edge_kernels_batched(ds):
     ne = x["edges"].shape[-1]
     t, tp = _edge_times(ed, x, True)
     _edge_bwd_split(ed, x)
-    return [_edge_row(kind, True, err, t, tp, torch.bfloat16, ne, NF)
+    rows = [_edge_row(kind, True, err, t, tp, torch.bfloat16, ne, NF)
             for kind in ("fwd", "bwd")]
+    del x
+    _edge_times_stack(ed, ds)
+    return rows
+
+
+def _edge_times_stack(ed, ds, n_tile: int = 10):
+    """Rows 7 and 8 alone at the protocol stack's F = 100 (the 10 folds'
+    train lists tiled ten times, as ``--seed_parallel`` and the benchmark
+    stack them), bf16, dropout 0.3: times, rates, the backward's split, and
+    its peak allocation over what the inputs hold."""
+    from dream_gnn_tpu_torch.sharding.foldstack import stack_folds, tile
+
+    stacked = tile(stack_folds(ds, list(range(NF))), n_tile)
+    nf = NF * n_tile
+    x = _decoder_inputs(ds.device, nf)
+    x["edges"] = torch.stack([stacked.inputs.dec_src, stacked.inputs.dec_dst],
+                             dim=-2).contiguous()
+    x["order"] = stacked.inputs.dec_order
+    rng = np.random.default_rng(1)
+    x["g"] = torch.tensor(rng.normal(0, 1e-3, tuple(
+        stacked.edge_weight.shape)).astype(np.float32),
+        device=ds.device) * stacked.edge_weight
+    del stacked
+    args = [x[k] for k in KERNEL_ARGS[:6]] + [x["edges"], x["seed"]]
+    ne = x["edges"].shape[-1]
+    launches = dict(ed.LAUNCHES)
+    t = {"fwd": _time_ms(lambda: ed.launch_fwd_batched(
+             *args, 0.3, True, torch.bfloat16)),
+         "bwd": _time_ms(lambda: ed.launch_bwd_batched(
+             *args, 0.3, True, torch.bfloat16, x["g"], x["order"]))}
+    torch.cuda.synchronize()
+    base = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    ed.launch_bwd_batched(*args, 0.3, True, torch.bfloat16, x["g"],
+                          x["order"])
+    torch.cuda.synchronize()
+    added = torch.cuda.max_memory_allocated() - base
+    ed.LAUNCHES.update(launches)
+    peak = PEAK_FLOPS_S[torch.bfloat16]
+    for kind in ("fwd", "bwd"):
+        rate = decoder_flops(kind == "fwd", ne, nf) / t[kind] * 1e3
+        print(f"  edge_decoder_{kind}_batched F={nf} E={ne}: {t[kind]:.4f} ms "
+              f"({t[kind] / nf:.4f} ms per fold), {rate / 1e12:.2f} TFLOP/s "
+              f"({100 * rate / peak:.1f}% of the bf16 peak)")
+    print(f"  edge_decoder_bwd_batched F={nf}: peak allocation "
+          f"{added / 2**30:.3f} GiB over its inputs (an (F, E, 128) f32 "
+          f"buffer: {nf * ne * 512 / 2**30:.3f} GiB)")
+    _edge_bwd_split(ed, x)
 
 
 def _edge_bwd_split(ed, x, n_calls: int = 10):
     """Row 8's device time per launch (bf16, dropout 0.3), split by a
-    profile into pass 1 (edge_bwd_mma_kernel), pass 2
-    (edge_scatter_kernel) and the wrapper's slab sums (every other
-    kernel)."""
+    profile into its kernel (edge_bwd_mma_kernel) and the wrapper's sums
+    over the partials (every other kernel)."""
     from torch.profiler import ProfilerActivity, profile
 
     args = [x[k] for k in KERNEL_ARGS[:6]] + [x["edges"], x["seed"]]
@@ -717,7 +768,7 @@ def _edge_bwd_split(ed, x, n_calls: int = 10):
 
     def call():
         ed.launch_bwd_batched(*args, 0.3, True, torch.bfloat16, x["g"],
-                              x["csr"])
+                              x["order"])
 
     call()
     torch.cuda.synchronize()
@@ -732,15 +783,15 @@ def _edge_bwd_split(ed, x, n_calls: int = 10):
         print("  edge_decoder_bwd_batched split: the profiler saw no device "
               "time (not measured)")
         return
-    parts = {"pass 1": 0.0, "pass 2": 0.0, "slab sums": 0.0}
+    parts = {"kernel": 0.0, "partial sums": 0.0}
     for ms, _, key in rows:
-        part = "pass 1" if "edge_bwd_mma_kernel" in key else \
-            "pass 2" if "edge_scatter_kernel" in key else "slab sums"
-        parts[part] += ms
-    if not parts["pass 1"] or not parts["pass 2"]:
-        raise AssertionError(f"edge backward profile lacks a pass: {rows}")
+        parts["kernel" if "edge_bwd_mma_kernel" in key
+              else "partial sums"] += ms
+    if not parts["kernel"]:
+        raise AssertionError(f"edge backward profile lacks its kernel: {rows}")
     total = sum(parts.values())
-    print(f"  edge_decoder_bwd_batched F={NF} device time per launch "
+    nf = x["edges"].shape[0]
+    print(f"  edge_decoder_bwd_batched F={nf} device time per launch "
           f"(torch.profiler, {n_calls} launches): {total:.4f} ms = "
           + ", ".join(f"{k} {v:.4f} ms ({100 * v / total:.1f}%)"
                       for k, v in parts.items()))

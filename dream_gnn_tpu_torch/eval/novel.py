@@ -67,7 +67,7 @@ def novel_scores(params, model_cfg: ModelConfig, dataset: DreamDataset,
             inputs, dec_src=torch.as_tensor(zr, dtype=torch.int32,
                                             device=device),
             dec_dst=torch.as_tensor(zc, dtype=torch.int32, device=device),
-            dec_csr=None)
+            dec_order=None)
         pred, *_ = forward(params, candidates, model_cfg, train=False)
     return zr, zc, torch.sigmoid(pred).cpu().numpy()
 

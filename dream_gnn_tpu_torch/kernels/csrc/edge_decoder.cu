@@ -20,7 +20,12 @@
 // draws the masks of grid cell [i, j] and, in fp32, gives its logit.
 //
 // What bounds it on an H100: about 16.8 kFLOP per edge forward and 50.2
-// kFLOP backward against a few bytes per edge, so operations, by far.
+// kFLOP backward against a few bytes per edge, so operations, by far.  The
+// backward also owes every edge's rnd(da1) row to the node gradients dPd
+// and dPv: 512 bytes an edge, 8.56 GB at 100 folds of 167,168 edges, if it
+// leaves the block, and read twice more to be summed.  So the backward sums
+// those rows where it forms them, in shared memory, and writes per-node
+// partials only.
 //
 // Design:
 // - forward, the fold on blockIdx.y:
@@ -30,19 +35,38 @@
 //     tile, rnd(h1d) built in the A fragments from the rounded table rows.
 //     A block stages w2 in bf16 once and walks a fixed, strided subset of
 //     its fold's tiles, in whole waves of two blocks an SM; each thread
-//     reads its two edges' table rows from L2 one k-step ahead of the mma,
-//     as edge_bwd_mma_kernel does.  No unit-order recompute: h2d is not
-//     rounded and the logit is continuous in a2.
+//     reads its two edges' table rows from L2 one k-step ahead of the mma.
+//     No unit-order recompute: h2d is not rounded and the logit is
+//     continuous in a2.
 //   - fp32 (edge_fwd_kernel): on the CUDA cores, where TF32 would round
 //     what the fp32 Pallas kernel does not: one thread per edge, 128 edges
 //     a block.  w2, b1, b2 and w3 sit in shared memory; each thread reads
 //     its two table rows from global memory (the tables stay in L2) and
 //     keeps its 64 a2 sums in registers.
-// - backward, pass 1: a block walks a fixed, strided subset of one fold's
-//   128-edge tiles.  Per tile it recomputes the forward, forms da2 and da1,
-//   sums dW2, db1, db2 and dw3 over its tiles, and writes each edge's
-//   rnd(da1) row to an (F, E, 128) buffer.  Each block writes its own
-//   partial slabs, which the caller sums in a fixed order.
+// - backward, one pass over an ordering of each fold's edges by column
+//   block dst / 32, then by src, stable (EdgeOrder, built once per edge
+//   list by edge_decoder.py:edge_order).  A block owns one 32-disease
+//   column block of one fold, or a contiguous group of the parts that the
+//   ordering cuts it into at the starts of drug runs
+//   (edge_decoder.py:bwd_split).  It walks its positions in 128-edge tiles,
+//   in order, each tile's edge ids, drugs, diseases and g fetched a tile
+//   ahead.  Per tile it recomputes the forward, forms da2 and da1, sums
+//   dW2, db1, db2 and dw3 over its tiles, and puts each edge's rnd(da1) row
+//   into a shared-memory tile.  tile_node_sums then adds the rows into the
+//   node gradients, a warp a segment, each segment's rows added in order:
+//   - dPd over the tile's runs of one drug: a run that ends in the tile is
+//     the block's partial row of that (column block, drug) pair; the run
+//     that ends the tile is carried to the next.  Every pair has one
+//     writer, which writes 0 for a drug without edges there.
+//   - dPv over the tile's columns (a stable counting sort of the tile in
+//     shared memory), each added to the block's 32 dPv rows in shared
+//     memory, written out once as the block's partial.
+//   A walk over the tile's 128 edges, one edge a step, is a chain of
+//   dependent instructions; a segment a warp spreads the work over the 8
+//   warps (a tile of a Gdataset fold holds about 4 runs and 29 columns).  The partials, (F, n_cb, nd, 128) for dPd (304 MB at 100 folds)
+//   and (F, n_split, nv, 128) for dPv, and the weight slabs are summed by
+//   the caller in a fixed order.  No float atomics anywhere, so two runs
+//   give the same bits.
 //   - bf16 (edge_bwd_mma_kernel): the tile's three products, a2 = rnd(h1d)
 //     @ rnd(w2), dW2 += rnd(h1d)^T @ rnd(da2) and dh1 = rnd(da2) @
 //     rnd(w2)^T, run on the tensor cores as mma.sync m16n8k16 bf16 x bf16
@@ -56,17 +80,16 @@
 //     trees and a fixed warp order for the cross-lane sums.  Unlike the
 //     grid kernel it rounds da1 before dPd and dPv sum it, so dh1 too is
 //     added in per-k-step partials and summed again in unit order where
-//     da1 is near a bf16 midpoint (seq_dh1); and it has no table tile to
-//     share: each thread reads its two edges' table rows at its units from
-//     global memory, one k-step ahead.
+//     da1 is near a bf16 midpoint (seq_dh1).  As in the grid kernel the
+//     block stages its column block's 32 Pv rows once (rounded, in bf16),
+//     so only the Pd rows are gathered: each thread reads its two edges'
+//     at its units from global memory, one k-step ahead.  The tile's
+//     rnd(da1) rows sit in shared memory in bf16, which holds them exactly
+//     and halves what the node sums read.
 //   - fp32 (edge_bwd_kernel): the tensor cores would take fp32 operands
 //     only as TF32, which rounds where the fp32 Pallas kernel does not, so
 //     the products stay on the CUDA cores: one thread per edge, f32 tiles
-//     in shared memory.
-// - backward, pass 2: a segmented row sum of that buffer into dPd and dPv,
-//   one block per node and fold, over a CSR ordering of the fold's edges by
-//   src and by dst (stable, so each node's edges in list order).  No float
-//   atomics anywhere, so two runs give the same bits.
+//     in shared memory, the same node sums over its f32 da1 rows.
 //
 // Every entry point returns cudaGetLastError() after its launches.
 
@@ -78,6 +101,14 @@ namespace {
 
 constexpr int TE = 128;          // edges per tile, one thread per edge
 static_assert(TE == H1, "the backward's reductions map one thread to one H1 unit");
+constexpr int CB = 32;           // diseases of a column block: a lane each in a scan
+constexpr int TW = TE / 32;      // warps that load a tile's edges
+
+// A backward tile's edges in shared memory, in ints (TileEdges).
+constexpr int IDX_SMEM = 6 * TE + TW * CB + 2 * CB + 8;
+// The dPd row carried from one tile to the next, in floats: two slots by
+// tile parity, and their drugs.
+constexpr int RUN_SMEM = 2 * H1 + 4;
 
 // Shared memory, in floats.
 constexpr int FWD_SMEM = H1 * H2 + H1 + 2 * H2;
@@ -86,7 +117,9 @@ constexpr int BWD_SMEM = H1 * H2          // w2
                        + TE * LD1         // h1d of the tile, then da1
                        + TE * LD2         // da2 of the tile
                        + 2 * (TE / 32) * H2   // per-warp sums for db2, dw3
-                       + H1 * LD2;        // dW2 accumulator
+                       + H1 * LD2         // dW2 accumulator
+                       + CB * H1          // dPv rows of the column block
+                       + IDX_SMEM + RUN_SMEM;
 
 // The bf16 backward: MW = 8 warps (decoder_common.cuh), each owning 16
 // edges of a tile.  Shared memory, in bytes.
@@ -96,13 +129,289 @@ static_assert(MT == H1 + 2 * H2, "the final sums map one thread to one output");
 constexpr int MMA_SMEM = H1 * LDW * 2     // w2, bf16
                        + TE * LDH * 2     // rnd(h1d) of the tile
                        + TE * LDW * 2     // rnd(da2) of the tile
+                       + CB * LDH * 2     // rnd(Pv) rows of the column block, bf16
+                       + TE * LDH * 2     // rnd(da1) rows of the tile, bf16
+                       + CB * H1 * 4      // dPv rows of the column block
                        + (H1 + 2 * H2) * 4    // b1, b2, w3
                        + 2 * MW * H1 * 4  // per-warp db1, db2 and dw3 sums
+                       + (IDX_SMEM + RUN_SMEM) * 4
                        + 4                // max |rnd(w2)|
                        + MT * FIX_LD * 4; // a2 and da1 taken again, per thread
 
 // The bf16 forward, in bytes: w2 in bf16, b1, b2, w3.
 constexpr int FWD_MMA_SMEM = H1 * LDW * 2 + (H1 + 2 * H2) * 4;
+
+// The backward's view of its block: fold f, column block cb (diseases j0
+// ..), its edges at positions [lo, hi) of the fold's ordering, the drugs
+// [d_lo, d_hi) whose dPd rows it writes, and its index among the fold's
+// n_cb * n_split blocks.  blockIdx.x = cb * n_split + split: a column
+// block's parts, n_part of them, go to n_split blocks in contiguous groups.
+struct BwdBlock {
+  int f, cb, split, n_split, j0, lo, hi, d_lo, d_hi;
+};
+
+__device__ __forceinline__ BwdBlock bwd_block(const int* split_edge, const int* split_drug,
+                                              int nv, int n_part) {
+  BwdBlock b;
+  const int n_cb = (nv + CB - 1) / CB;
+  b.f = blockIdx.y;
+  b.n_split = gridDim.x / n_cb;
+  b.cb = blockIdx.x / b.n_split;
+  b.split = blockIdx.x % b.n_split;
+  b.j0 = b.cb * CB;
+  const size_t at = ((size_t)b.f * n_cb + b.cb) * (n_part + 1);
+  const int p_lo = b.split * n_part / b.n_split, p_hi = (b.split + 1) * n_part / b.n_split;
+  b.lo = split_edge[at + p_lo];
+  b.hi = split_edge[at + p_hi];
+  b.d_lo = split_drug[at + p_lo];
+  b.d_hi = split_drug[at + p_hi];
+  return b;
+}
+
+// A tile's edges in shared memory (IDX_SMEM ints).
+struct TileEdges {
+  int* src;      // [TE] drug
+  int* col;      // [TE] disease - j0
+  float* g;      // [TE] cotangent, 0 past the tile's n edges
+  int* byc;      // [TE] the tile's edges by column, stable
+  int* cnt;      // [TW][CB] edges of each warp's 32 in each column
+  int* ctot;     // [CB] edges in each column
+  int* cstart;   // [CB] their first position in byc
+  int* rstart;   // [TE + 1] the first edge of each run of one drug, then n
+  int* rdrug;    // [TE] the run's drug
+  int* nrun;     // [1] runs in the tile
+  int* prev;     // [2] the drug of the last edge before the tile, by parity
+
+  __device__ explicit TileEdges(int* base)
+      : src(base), col(base + TE), g(reinterpret_cast<float*>(base + 2 * TE)),
+        byc(base + 3 * TE), cnt(base + 4 * TE), ctot(cnt + TW * CB), cstart(ctot + CB),
+        rstart(cstart + CB), rdrug(rstart + TE + 4), nrun(rdrug + TE), prev(nrun + 1) {}
+};
+
+// One edge of a tile as thread t < TE fetches it for the tile after the
+// current one, so that its global loads have a tile's time to land: the
+// edge id at position p is read two tiles ahead (edge_id), its drug,
+// disease and g one tile ahead (fetch_edge).  A position past the block's
+// edges is id -1, which fetches drug 0, column 0 and g = 0: it adds
+// nothing to any sum.
+struct EdgeIdx {
+  int i, j;
+  float g;
+};
+
+__device__ __forceinline__ int edge_id(const int* __restrict__ perm, int p, int hi) {
+  return p < hi ? perm[p] : -1;
+}
+
+__device__ __forceinline__ EdgeIdx fetch_edge(const int* __restrict__ edges,
+                                              const float* __restrict__ g, int id, int j0,
+                                              int ne) {
+  EdgeIdx e = {0, j0, 0.f};
+  if (id >= 0) {
+    assert(id < ne);
+    e = {edges[id], edges[ne + id], g[id]};
+  }
+  return e;
+}
+
+// Thread t < TE stores edge t of the tile (of n edges) and counts its
+// warp's edges in each column.
+__device__ __forceinline__ void store_tile_edge(const TileEdges& te, const EdgeIdx& e, int n,
+                                                int j0, int nd, int nv, int t) {
+  const int lane = t % 32, w = t / 32;
+  const bool valid = t < n;
+  const int j = e.j - j0;
+  // A row outside the tables, or an ordering of other edges.
+  assert(0 <= e.i && e.i < nd && 0 <= j && j < CB && e.j < nv);
+  te.src[t] = e.i;
+  te.col[t] = j;
+  te.g[t] = e.g;
+  te.cnt[w * CB + lane] = 0;
+  __syncwarp();
+  const unsigned peers = __match_any_sync(0xffffffffu, valid ? j : CB + lane);
+  if (valid && (peers & ((1u << lane) - 1u)) == 0u) te.cnt[w * CB + j] = __popc(peers);
+}
+
+// After store_tile_edge and a barrier, thread t < TE of the tile of parity
+// par: places its edge in te.byc, after every edge of a lower column and
+// every earlier edge of its own (warp 0 leaves each column's count and
+// start); numbers the tile's runs of one drug, each starting where the
+// drug differs from the edge before it in the tile; where its edge starts
+// a drug's run, writes the zero dPd rows of the drugs skipped since the
+// run before; and the tile's last edge leaves its drug for the next tile.
+__device__ __forceinline__ void place_tile_edge(const TileEdges& te, int n, int par, int t,
+                                                float* __restrict__ dpd) {
+  const int lane = t % 32, w = t / 32;
+  int total = 0;
+#pragma unroll
+  for (int v = 0; v < TW; ++v) total += te.cnt[v * CB + lane];
+  int incl = total;   // inclusive scan over the columns
+#pragma unroll
+  for (int o = 1; o < 32; o <<= 1) {
+    const int x = __shfl_up_sync(0xffffffffu, incl, o);
+    if (lane >= o) incl += x;
+  }
+  if (w == 0) {
+    te.ctot[lane] = total;
+    te.cstart[lane] = incl - total;
+  }
+  const bool valid = t < n;
+  const int j = te.col[t];
+  int pos = __shfl_sync(0xffffffffu, incl - total, j);
+  const unsigned peers = __match_any_sync(0xffffffffu, valid ? j : CB + lane);
+  pos += __popc(peers & ((1u << lane) - 1u));
+  for (int v = 0; v < w; ++v) pos += te.cnt[v * CB + j];
+  // Run starts, counted over the warps in order.
+  int before = 0, runs = 0;
+  bool starts = false;
+#pragma unroll
+  for (int v = 0; v < TW; ++v) {
+    const int e = 32 * v + lane;
+    const bool s = e < n && (e == 0 || te.src[e] != te.src[e - 1]);
+    const unsigned m = __ballot_sync(0xffffffffu, s);
+    if (v < w) before += __popc(m);
+    if (v == w) {
+      before += __popc(m & ((1u << lane) - 1u));
+      starts = s;
+    }
+    runs += __popc(m);
+  }
+  if (t == 0) {
+    te.rstart[runs] = n;
+    *te.nrun = runs;
+  }
+  if (valid) {
+    te.byc[pos] = t;
+    const int d = te.src[t];
+    if (starts) {
+      te.rstart[before] = t;
+      te.rdrug[before] = d;
+      const int last = t == 0 ? te.prev[par] : te.src[t - 1];
+      for (int z = last + 1; z < d; ++z)
+        for (int k = 0; k < H1; k += 4)
+          *reinterpret_cast<float4*>(dpd + (size_t)z * H1 + k) = make_float4(0.f, 0.f, 0.f, 0.f);
+    }
+    if (t == n - 1) te.prev[par ^ 1] = d;
+  }
+}
+
+// Units 4 lane .. 4 lane + 3 of row p of a tile's rnd(da1) rows: f32
+// (row stride LD1), or bf16 (row stride LDH), where rnd(da1) is exact.
+__device__ __forceinline__ float4 row4(const float* rows, int p, int lane) {
+  return *reinterpret_cast<const float4*>(rows + p * LD1 + 4 * lane);
+}
+
+__device__ __forceinline__ float4 row4(const __nv_bfloat16* rows, int p, int lane) {
+  const uint2 u = *reinterpret_cast<const uint2*>(rows + p * LDH + 4 * lane);
+  return make_float4(__uint_as_float(u.x << 16), __uint_as_float(u.x & 0xFFFF0000u),
+                     __uint_as_float(u.y << 16), __uint_as_float(u.y & 0xFFFF0000u));
+}
+
+// s + the tile's rows at positions [lo, hi), rows idx[p] (p where idx is
+// null), at lane's four units, added one row at a time in order; four
+// rows' loads at once.
+template <typename T>
+__device__ __forceinline__ float4 segment_sum(const T* da1s, const int* idx, int lo, int hi,
+                                              float4 s, int lane) {
+  auto row = [&](int p) { return row4(da1s, idx ? idx[p] : p, lane); };
+  auto add = [&](const float4& x) {
+    s = make_float4(s.x + x.x, s.y + x.y, s.z + x.z, s.w + x.w);
+  };
+  int p = lo;
+  for (; p + 4 <= hi; p += 4) {
+    const float4 a = row(p), b = row(p + 1), c = row(p + 2), d = row(p + 3);
+    add(a);
+    add(b);
+    add(c);
+    add(d);
+  }
+  for (; p < hi; ++p) add(row(p));
+  return s;
+}
+
+// The tile's node sums from its rnd(da1) rows in da1s (row4), shared by
+// both backward kernels: warp w of nw, each lane at four units, takes
+// whole segments, each summed in order in one warp (segment_sum).
+// - PD: dPd over the tile's runs of one drug (te.rstart, in list order
+//   within a drug), runs w, w + nw, ...  The run that ends the tile is
+//   carried to the next in carry (RUN_SMEM; slot par holds the row from
+//   the tile before, slot par ^ 1 takes this tile's), where the first run
+//   of the next tile adds to it if it is of the same drug; otherwise that
+//   run writes the carried row out.  A finished run's row goes to dpd (the
+//   block's fold and column block, row stride H1).
+// - !PD: dPv over the tile's columns (te.byc from te.cstart), columns w,
+//   w + nw, ..., each added to its row of dpvs, the block's dPv rows.
+template <bool PD, typename T>
+__device__ __forceinline__ void tile_node_sums(const T* da1s, const TileEdges& te, int w,
+                                               int nw, int lane, int par, float* carry,
+                                               float* __restrict__ dpd, float* dpvs) {
+  const float4 zero = make_float4(0.f, 0.f, 0.f, 0.f);
+  if constexpr (PD) {
+    int* cdrug = reinterpret_cast<int*>(carry + 2 * H1);
+    const int runs = *te.nrun;
+    for (int r = w; r < runs; r += nw) {
+      const int d = te.rdrug[r];
+      float4 s = zero;
+      if (r == 0) {
+        const int c = cdrug[par];
+        const float4 x = reinterpret_cast<const float4*>(carry + par * H1)[lane];
+        if (c == d)
+          s = x;
+        else if (c >= 0)
+          reinterpret_cast<float4*>(dpd + (size_t)c * H1)[lane] = x;
+      }
+      s = segment_sum(da1s, nullptr, te.rstart[r], te.rstart[r + 1], s, lane);
+      if (r == runs - 1) {
+        reinterpret_cast<float4*>(carry + (par ^ 1) * H1)[lane] = s;
+        if (lane == 0) cdrug[par ^ 1] = d;
+      } else {
+        reinterpret_cast<float4*>(dpd + (size_t)d * H1)[lane] = s;
+      }
+    }
+  } else {
+    for (int j = w; j < CB; j += nw) {
+      const int cnt = te.ctot[j];
+      if (cnt == 0) continue;
+      const float4 s = segment_sum(da1s, te.byc, te.cstart[j], te.cstart[j] + cnt, zero, lane);
+      float4* r = reinterpret_cast<float4*>(dpvs + j * H1) + lane;
+      const float4 a = *r;
+      *r = make_float4(a.x + s.x, a.y + s.y, a.z + s.z, a.w + s.w);
+    }
+  }
+}
+
+// The carried dPd row: none at the block's start (by one thread), written
+// out at its end (by a warp).
+__device__ __forceinline__ void start_carry(float* carry) {
+  reinterpret_cast<int*>(carry + 2 * H1)[0] = -1;
+}
+
+__device__ __forceinline__ void finish_carry(const float* carry, int par, int lane,
+                                             float* __restrict__ dpd) {
+  const int c = reinterpret_cast<const int*>(carry + 2 * H1)[par];
+  if (c >= 0)
+    reinterpret_cast<float4*>(dpd + (size_t)c * H1)[lane] =
+        reinterpret_cast<const float4*>(carry + par * H1)[lane];
+}
+
+// The zero dPd rows of the block's drugs after its last run (te.prev[par]
+// holds the drug of the block's last edge, or d_lo - 1), by nthreads
+// threads.
+__device__ __forceinline__ void zero_tail(const TileEdges& te, int par, int d_hi,
+                                          float* __restrict__ dpd, int t, int nthreads) {
+  const int z0 = te.prev[par] + 1;
+  for (int e = t; e < (d_hi - z0) * (H1 / 4); e += nthreads)
+    reinterpret_cast<float4*>(dpd + (size_t)z0 * H1)[e] = make_float4(0.f, 0.f, 0.f, 0.f);
+}
+
+// The block's dPv rows, those of diseases below nv, to its partial (F,
+// n_split, nv, H1), by nthreads threads.
+__device__ __forceinline__ void write_dpv(const float* dpvs, const BwdBlock& b, int nv,
+                                          float* __restrict__ dpv_part, int t, int nthreads) {
+  float* out = dpv_part + (((size_t)b.f * b.n_split + b.split) * nv + b.j0) * H1;
+  const int rows = min(CB, nv - b.j0);
+  for (int e = t; e < rows * H1; e += nthreads) out[e] = dpvs[e];
+}
 
 __global__ void __launch_bounds__(TE) edge_fwd_kernel(
     const float* __restrict__ pd, const float* __restrict__ pv,
@@ -160,13 +469,15 @@ __global__ void __launch_bounds__(TE) edge_bwd_kernel(
     const float* __restrict__ b1, const float* __restrict__ w2,
     const float* __restrict__ b2, const float* __restrict__ w3,
     const int* __restrict__ edges, const int* __restrict__ seed_ptr,
-    const float* __restrict__ g,
-    float* __restrict__ da1_out,    // (F, ne, H1): da1 per edge
-    float* __restrict__ db1_part,   // (F, n_split, H1)
-    float* __restrict__ dw2_part,   // (F, n_split, H1, H2)
-    float* __restrict__ db2_part,   // (F, n_split, H2)
-    float* __restrict__ dw3_part,   // (F, n_split, H2)
-    int nd, int nv, int ne, uint32_t thresh, float scale, int use_drop) {
+    const float* __restrict__ g, const int* __restrict__ perm,
+    const int* __restrict__ split_edge, const int* __restrict__ split_drug,
+    float* __restrict__ dpd_part,   // (F, n_cb, nd, H1)
+    float* __restrict__ dpv_part,   // (F, n_split, nv, H1)
+    float* __restrict__ db1_part,   // (F, n_cb * n_split, H1)
+    float* __restrict__ dw2_part,   // (F, n_cb * n_split, H1, H2)
+    float* __restrict__ db2_part,   // (F, n_cb * n_split, H2)
+    float* __restrict__ dw3_part,   // (F, n_cb * n_split, H2)
+    int nd, int nv, int ne, int n_part, uint32_t thresh, float scale, int use_drop) {
   extern __shared__ float4 smem4[];
   float* w2s = reinterpret_cast<float*>(smem4);
   float* b1s = w2s + H1 * H2;
@@ -176,11 +487,13 @@ __global__ void __launch_bounds__(TE) edge_bwd_kernel(
   float* da2s = hbuf + TE * LD1;
   float* red = da2s + TE * LD2;            // [2][TE/32][H2]: db2, then dw3
   float* dw2acc = red + 2 * (TE / 32) * H2;
+  float* dpvs = dw2acc + H1 * LD2;
+  float* carry = dpvs + CB * H1;
+  const TileEdges te(reinterpret_cast<int*>(carry + RUN_SMEM));
 
   const int t = threadIdx.x, lane = t % 32, warp = t / 32;
-  const int split = blockIdx.x, n_split = gridDim.x;
-  const int f = blockIdx.y, blk = f * n_split + split;
-  const int n_tiles = (ne + TE - 1) / TE;
+  const BwdBlock bb = bwd_block(split_edge, split_drug, nv, n_part);
+  const int f = bb.f, blk = f * gridDim.x + blockIdx.x;
   const bool drop = use_drop != 0;
   const uint32_t seed = (uint32_t)seed_ptr[f];
   pd += (size_t)f * nd * H1;
@@ -191,28 +504,38 @@ __global__ void __launch_bounds__(TE) edge_bwd_kernel(
   w3 += f * H2;
   edges += (size_t)f * 2 * ne;
   g += (size_t)f * ne;
-  da1_out += (size_t)f * ne * H1;
+  perm += (size_t)f * ne;
+  float* dpd = dpd_part + ((size_t)f * ((nv + CB - 1) / CB) + bb.cb) * nd * H1;
 
   for (int e = t; e < H1 * H2; e += TE) w2s[e] = w2[e];
   for (int e = t; e < H1 * LD2; e += TE) dw2acc[e] = 0.f;
+  for (int e = t; e < CB * H1; e += TE) dpvs[e] = 0.f;
   b1s[t] = b1[t];
   if (t < H2) {
     b2s[t] = b2[t];
     w3s[t] = w3[t];
   }
+  if (t == 0) {
+    start_carry(carry);
+    te.prev[0] = bb.d_lo - 1;
+  }
   float db1acc = 0.f, db2acc = 0.f, dw3acc = 0.f;
+  EdgeIdx nxt = fetch_edge(edges, g, edge_id(perm, bb.lo + t, bb.hi), bb.j0, ne);
+  int nxt_id = edge_id(perm, bb.lo + TE + t, bb.hi);
+  int par = 0;   // the tile's parity
 
-  for (int tile = split; tile < n_tiles; tile += n_split) {
-    const int e0 = tile * TE, e = e0 + t;
-    const bool valid = e < ne;
-    // A padding thread runs edge (0, 0) with g = 0: it adds nothing to any
-    // sum and writes no da1 row.
-    const int i = valid ? edges[e] : 0, j = valid ? edges[ne + e] : 0;
-    assert(0 <= i && i < nd && 0 <= j && j < nv);
+  for (int p0 = bb.lo; p0 < bb.hi; p0 += TE, par ^= 1) {
+    const int tn = min(TE, bb.hi - p0);  // edges in the tile
+    __syncthreads();   // the previous tile is done with hbuf, da2s and its edges
+    store_tile_edge(te, nxt, tn, bb.j0, nd, nv, t);
+    __syncthreads();
+    place_tile_edge(te, tn, par, t, dpd);
+    nxt = fetch_edge(edges, g, nxt_id, bb.j0, ne);
+    nxt_id = edge_id(perm, p0 + 2 * TE + t, bb.hi);
+    const int i = te.src[t], j = bb.j0 + te.col[t];
     const float* pd_row = pd + (size_t)i * H1;
     const float* pv_row = pv + (size_t)j * H1;
-    const float gc = valid ? g[e] : 0.f;
-    __syncthreads();   // the previous tile is done with hbuf and da2s
+    const float gc = te.g[t];
 
     // Per edge: recompute the forward, then da2 = (a2 > 0) * g * w3 * m2.
     {
@@ -319,20 +642,17 @@ __global__ void __launch_bounds__(TE) edge_bwd_kernel(
     }
     __syncthreads();
 
-    // Thread k: db1 sums da1, and each edge's da1 row goes out whole.
-    {
-      const int k = t;
-      const int n_valid = min(TE, ne - e0);
+    // Thread k: db1 sums da1 over the tile.  Then the node sums.
 #pragma unroll 4
-      for (int c = 0; c < TE; ++c) {
-        const float v = hbuf[c * LD1 + k];
-        db1acc += v;
-        if (c < n_valid) da1_out[(size_t)(e0 + c) * H1 + k] = v;
-      }
-    }
+    for (int c = 0; c < TE; ++c) db1acc += hbuf[c * LD1 + t];
+    tile_node_sums<true>(hbuf, te, warp, TE / 32, lane, par, carry, dpd, dpvs);
+    tile_node_sums<false>(hbuf, te, warp, TE / 32, lane, par, carry, dpd, dpvs);
   }
   __syncthreads();
+  if (warp == 0) finish_carry(carry, par, lane, dpd);
+  zero_tail(te, par, bb.d_hi, dpd, t, TE);
 
+  write_dpv(dpvs, bb, nv, dpv_part, t, TE);
   for (int e = t; e < H1 * H2; e += TE)
     dw2_part[(size_t)blk * H1 * H2 + e] = dw2acc[(e / H2) * LD2 + e % H2];
   db1_part[(size_t)blk * H1 + t] = db1acc;
@@ -439,42 +759,49 @@ __device__ __forceinline__ bool near_step_abs(float a2, float m2, float band) {
   return near_step(a2, m2, band) || (a2 > 0.f && near_mid(a2 * m2, band * m2));
 }
 
-// The bf16 backward on the tensor cores, pass 1.  The fragment layout of
-// mma m16n8k16 (lane = 4 gq + q; see grid_bwd_mma_kernel) gives a thread
-// of warp w edges c0 = 16 w + gq and c1 = c0 + 8 of the tile, and of each
+// The bf16 backward on the tensor cores.  The fragment layout of mma
+// m16n8k16 (lane = 4 gq + q; see grid_bwd_mma_kernel) gives a thread of
+// warp w edges c0 = 16 w + gq and c1 = c0 + 8 of the tile, and of each
 // 128-unit row the units 8 m + 2 q + e, m < 16, e < 2, which it indexes as
-// 2 m + e.  It reads those units of its two edges' table rows straight from
+// 2 m + e.  It reads those units of its two edges' Pd rows straight from
 // global memory (a fold's tables stay in L2), one k-step ahead of the a2
-// product that consumes them.
+// product that consumes them, and of their Pv rows from the block's staged
+// column block.
 __global__ void __launch_bounds__(MT, 1) edge_bwd_mma_kernel(
     const float* __restrict__ pd, const float* __restrict__ pv,
     const float* __restrict__ b1, const float* __restrict__ w2,
     const float* __restrict__ b2, const float* __restrict__ w3,
     const int* __restrict__ edges, const int* __restrict__ seed_ptr,
-    const float* __restrict__ g,
-    float* __restrict__ da1_out,    // (F, ne, H1): rnd(da1) per edge
-    float* __restrict__ db1_part,   // (F, n_split, H1)
-    float* __restrict__ dw2_part,   // (F, n_split, H1, H2)
-    float* __restrict__ db2_part,   // (F, n_split, H2)
-    float* __restrict__ dw3_part,   // (F, n_split, H2)
-    int nd, int nv, int ne, uint32_t thresh, float scale, int use_drop) {
+    const float* __restrict__ g, const int* __restrict__ perm,
+    const int* __restrict__ split_edge, const int* __restrict__ split_drug,
+    float* __restrict__ dpd_part,   // (F, n_cb, nd, H1)
+    float* __restrict__ dpv_part,   // (F, n_split, nv, H1)
+    float* __restrict__ db1_part,   // (F, n_cb * n_split, H1)
+    float* __restrict__ dw2_part,   // (F, n_cb * n_split, H1, H2)
+    float* __restrict__ db2_part,   // (F, n_cb * n_split, H2)
+    float* __restrict__ dw3_part,   // (F, n_cb * n_split, H2)
+    int nd, int nv, int ne, int n_part, uint32_t thresh, float scale, int use_drop) {
   extern __shared__ float4 smem4[];
   __nv_bfloat16* w2s = reinterpret_cast<__nv_bfloat16*>(smem4);
   __nv_bfloat16* h1s = w2s + H1 * LDW;
   __nv_bfloat16* da2s = h1s + TE * LDH;
-  float* b1s = reinterpret_cast<float*>(da2s + TE * LDW);
+  __nv_bfloat16* pvs = da2s + TE * LDW;   // rnd(Pv) rows j0 .. j0 + CB - 1
+  __nv_bfloat16* da1s = pvs + CB * LDH;   // rnd(da1) of the tile
+  float* dpvs = reinterpret_cast<float*>(da1s + TE * LDH);
+  float* b1s = dpvs + CB * H1;
   float* b2s = b1s + H1;
   float* w3s = b2s + H2;
   float* red = w3s + H2;                  // [MW][H1] db1, then [MW][2 H2] db2, dw3
-  float* wmx = red + 2 * MW * H1;
+  float* carry = red + 2 * MW * H1;
+  const TileEdges te(reinterpret_cast<int*>(carry + RUN_SMEM));
+  float* wmx = carry + RUN_SMEM + IDX_SMEM;
   float* fixv = wmx + 1 + threadIdx.x * FIX_LD;
 
   const int t = threadIdx.x, lane = t % 32, warp = t / 32;
   const int gq = lane >> 2, q = lane & 3;
   const int mi = lane >> 3, mr = lane & 7;   // ldmatrix: matrix and row
-  const int split = blockIdx.x, n_split = gridDim.x;
-  const int f = blockIdx.y, blk = f * n_split + split;
-  const int n_tiles = (ne + TE - 1) / TE;
+  const BwdBlock bb = bwd_block(split_edge, split_drug, nv, n_part);
+  const int f = bb.f, blk = f * gridDim.x + blockIdx.x;
   const bool drop = use_drop != 0;
   const uint32_t seed = (uint32_t)seed_ptr[f];
   pd += (size_t)f * nd * H1;
@@ -485,14 +812,26 @@ __global__ void __launch_bounds__(MT, 1) edge_bwd_mma_kernel(
   w3 += f * H2;
   edges += (size_t)f * 2 * ne;
   g += (size_t)f * ne;
-  da1_out += (size_t)f * ne * H1;
+  perm += (size_t)f * ne;
+  float* dpd = dpd_part + ((size_t)f * ((nv + CB - 1) / CB) + bb.cb) * nd * H1;
 
   for (int e = t; e < H1 * H2 / 2; e += MT) {
     const int k = e / (H2 / 2), n = 2 * (e % (H2 / 2));
     const float2 v = *reinterpret_cast<const float2*>(w2 + k * H2 + n);
     *reinterpret_cast<uint32_t*>(w2s + k * LDW + n) = pack_bf16(v.x, v.y);
   }
+  for (int e = t; e < CB * H1 / 2; e += MT) {
+    const int r = e / (H1 / 2), k = 2 * (e % (H1 / 2)), j = bb.j0 + r;
+    const float2 v = j < nv ? *reinterpret_cast<const float2*>(pv + (size_t)j * H1 + k)
+                            : make_float2(0.f, 0.f);
+    *reinterpret_cast<uint32_t*>(pvs + r * LDH + k) = pack_bf16(v.x, v.y);
+  }
+  for (int e = t; e < CB * H1; e += MT) dpvs[e] = 0.f;
   if (t < H1) b1s[t] = b1[t];
+  if (t == 0) {
+    start_carry(carry);
+    te.prev[0] = bb.d_lo - 1;
+  }
   if (t < H2) {
     b2s[t] = b2[t];
     w3s[t] = w3[t];
@@ -518,27 +857,40 @@ __global__ void __launch_bounds__(MT, 1) edge_bwd_mma_kernel(
 #pragma unroll
   for (int x = 0; x < 16; ++x) db1acc[0][x] = db1acc[1][x] = 0.f;
 
-  for (int tile = split; tile < n_tiles; tile += n_split) {
-    // Edges c0 and c1.  A padding edge is (0, 0) with g = 0: it adds
-    // nothing to any sum and writes no da1 row.
-    const int e0 = tile * TE;
-    const bool v0 = e0 + c0 < ne, v1 = e0 + c1 < ne;
-    const int i0 = v0 ? edges[e0 + c0] : 0, j0 = v0 ? edges[ne + e0 + c0] : 0;
-    const int i1 = v1 ? edges[e0 + c1] : 0, j1 = v1 ? edges[ne + e0 + c1] : 0;
-    assert(0 <= i0 && i0 < nd && 0 <= j0 && j0 < nv);
-    assert(0 <= i1 && i1 < nd && 0 <= j1 && j1 < nv);
-    const float gc[2] = {v0 ? g[e0 + c0] : 0.f, v1 ? g[e0 + c1] : 0.f};
-    const float* rows[4] = {pd + (size_t)i0 * H1, pv + (size_t)j0 * H1,
-                            pd + (size_t)i1 * H1, pv + (size_t)j1 * H1};
-    // The rows' values at the units of one k-step: [h][row] at units
+  // Warps 0-3 fetch the tiles' edges, a tile ahead (EdgeIdx).
+  EdgeIdx nxt = {0, 0, 0.f};
+  int nxt_id = -1;
+  if (t < TE) {
+    nxt = fetch_edge(edges, g, edge_id(perm, bb.lo + t, bb.hi), bb.j0, ne);
+    nxt_id = edge_id(perm, bb.lo + TE + t, bb.hi);
+  }
+
+  int par = 0;   // the tile's parity
+
+  for (int p0 = bb.lo; p0 < bb.hi; p0 += TE, par ^= 1) {
+    const int tn = min(TE, bb.hi - p0);  // edges in the tile
+    __syncthreads();   // the previous tile is done with h1s, da2s, da1s and its edges
+    if (t < TE) store_tile_edge(te, nxt, tn, bb.j0, nd, nv, t);
+    __syncthreads();
+    if (t < TE) {
+      place_tile_edge(te, tn, par, t, dpd);
+      nxt = fetch_edge(edges, g, nxt_id, bb.j0, ne);
+      nxt_id = edge_id(perm, p0 + 2 * TE + t, bb.hi);
+    }
+    // Edges c0 and c1 (an edge past n is drug 0, column 0 with g = 0).
+    const int i0 = te.src[c0], i1 = te.src[c1];
+    const __nv_bfloat16* pv0 = pvs + te.col[c0] * LDH + 2 * q;
+    const __nv_bfloat16* pv1 = pvs + te.col[c1] * LDH + 2 * q;
+    const int j0 = bb.j0 + te.col[c0], j1 = bb.j0 + te.col[c1];
+    const float gc[2] = {te.g[c0], te.g[c1]};
+    const float* rows[2] = {pd + (size_t)i0 * H1 + 2 * q, pd + (size_t)i1 * H1 + 2 * q};
+    // The Pd rows' values at the units of one k-step: [h][row] at units
     // 8 (2 ks + h) + 2 q + {0, 1}.
-    float2 nxt[2][4];
+    float2 nxt[2][2];
 #pragma unroll
     for (int h = 0; h < 2; ++h)
 #pragma unroll
-      for (int r = 0; r < 4; ++r)
-        nxt[h][r] = *reinterpret_cast<const float2*>(rows[r] + 8 * h + 2 * q);
-    __syncthreads();   // the previous tile's dW2 product is done with h1s and da2s
+      for (int r = 0; r < 2; ++r) nxt[h][r] = *reinterpret_cast<const float2*>(rows[r] + 8 * h);
 
     // a2 = rnd(h1d) @ rnd(w2), with h1d formed in the A fragments from the
     // rounded table rows; the da1 gate (a1 > 0 and the m1 keep bit) of each
@@ -558,29 +910,30 @@ __global__ void __launch_bounds__(MT, 1) edge_bwd_mma_kernel(
       const uint32_t key1 = cell_key(seed, 1u, i1, j1);
 #pragma unroll 1
       for (int ks = 0; ks < H1 / 16; ++ks) {
-        float2 cur[2][4];
+        float2 cur[2][2];
 #pragma unroll
         for (int h = 0; h < 2; ++h)
 #pragma unroll
-          for (int r = 0; r < 4; ++r) cur[h][r] = nxt[h][r];
+          for (int r = 0; r < 2; ++r) cur[h][r] = nxt[h][r];
         if (ks + 1 < H1 / 16) {
 #pragma unroll
           for (int h = 0; h < 2; ++h)
 #pragma unroll
-            for (int r = 0; r < 4; ++r)
-              nxt[h][r] = *reinterpret_cast<const float2*>(
-                  rows[r] + 8 * (2 * ks + 2 + h) + 2 * q);
+            for (int r = 0; r < 2; ++r)
+              nxt[h][r] = *reinterpret_cast<const float2*>(rows[r] + 8 * (2 * ks + 2 + h));
         }
         uint32_t a[4];
 #pragma unroll
         for (int h = 0; h < 2; ++h) {
           const int m = 2 * ks + h, k = 8 * m + 2 * q;
           const float2 bv = *reinterpret_cast<const float2*>(b1s + k);
-          const float2 p0 = cur[h][0], q0 = cur[h][1], p1 = cur[h][2], q1 = cur[h][3];
-          const float x[4] = {(rnd<true>(p0.x) + rnd<true>(q0.x)) + bv.x,
-                              (rnd<true>(p0.y) + rnd<true>(q0.y)) + bv.y,
-                              (rnd<true>(p1.x) + rnd<true>(q1.x)) + bv.x,
-                              (rnd<true>(p1.y) + rnd<true>(q1.y)) + bv.y};
+          const float2 p0 = cur[h][0], p1 = cur[h][1];
+          const float2 q0 = __bfloat1622float2(
+              *reinterpret_cast<const __nv_bfloat162*>(pv0 + 8 * m));
+          const float2 q1 = __bfloat1622float2(
+              *reinterpret_cast<const __nv_bfloat162*>(pv1 + 8 * m));
+          const float x[4] = {(rnd<true>(p0.x) + q0.x) + bv.x, (rnd<true>(p0.y) + q0.y) + bv.y,
+                              (rnd<true>(p1.x) + q1.x) + bv.x, (rnd<true>(p1.y) + q1.y) + bv.y};
           float hv[4];
 #pragma unroll
           for (int u = 0; u < 4; ++u) {
@@ -716,7 +1069,7 @@ __global__ void __launch_bounds__(MT, 1) edge_bwd_mma_kernel(
     // dh1 = rnd(da2) @ rnd(w2)^T in two halves of 64 units, each k-step's
     // product started from 0 and added in f32; da1 = gate * dh1 (* scale
     // with dropout), summed again in unit order where it is near a bf16
-    // midpoint, into db1 and, rounded, into the edges' da1 rows.  It needs
+    // midpoint, into db1 and, rounded, into the tile's da1 rows.  It needs
     // only the warp's own rows and w2s, so it runs before the barrier that
     // the dW2 product waits at.
 #pragma unroll
@@ -765,8 +1118,8 @@ __global__ void __launch_bounds__(MT, 1) edge_bwd_mma_kernel(
         if (drop) s = s * scale;
         fixv[v] = s;
       }
-      float* out0 = da1_out + (size_t)(e0 + c0) * H1 + 64 * half + 2 * q;
-      float* out1 = da1_out + (size_t)(e0 + c1) * H1 + 64 * half + 2 * q;
+      __nv_bfloat16* out0 = da1s + c0 * LDH + 64 * half + 2 * q;
+      __nv_bfloat16* out1 = da1s + c1 * LDH + 64 * half + 2 * q;
 #pragma unroll
       for (int nt = 0; nt < 8; ++nt) {
         float d[4];
@@ -775,15 +1128,17 @@ __global__ void __launch_bounds__(MT, 1) edge_bwd_mma_kernel(
           d[c] = (fix >> (4 * nt + c)) & 1u ? fixv[4 * nt + c] : acc3[nt][c];
         db1acc[half][2 * nt] += d[0] + d[2];
         db1acc[half][2 * nt + 1] += d[1] + d[3];
-        if (v0)
-          *reinterpret_cast<float2*>(out0 + 8 * nt) =
-              make_float2(rnd<true>(d[0]), rnd<true>(d[1]));
-        if (v1)
-          *reinterpret_cast<float2*>(out1 + 8 * nt) =
-              make_float2(rnd<true>(d[2]), rnd<true>(d[3]));
+        *reinterpret_cast<uint32_t*>(out0 + 8 * nt) = pack_bf16(d[0], d[1]);
+        *reinterpret_cast<uint32_t*>(out1 + 8 * nt) = pack_bf16(d[2], d[3]);
       }
     }
-    __syncthreads();   // h1s and da2s hold the whole tile
+    __syncthreads();   // h1s, da2s and da1s hold the whole tile
+
+    // The tile's rnd(da1) rows into the node gradients; then the dW2
+    // product, whose tensor-core work drains while the next tile's edges
+    // are stored.
+    tile_node_sums<true>(da1s, te, warp, MW, lane, par, carry, dpd, dpvs);
+    tile_node_sums<false>(da1s, te, warp, MW, lane, par, carry, dpd, dpvs);
 
     // dW2 rows 16 warp .. + 15 += rnd(h1d)^T @ rnd(da2) over the tile's edges.
 #pragma unroll
@@ -800,7 +1155,12 @@ __global__ void __launch_bounds__(MT, 1) edge_bwd_mma_kernel(
         mma_bf16(dw2acc[2 * np + 1], a, b[2], b[3]);
       }
     }
+
   }
+  __syncthreads();   // the sums are done with dpvs and carry, the last tile with te.prev
+  if (warp == 0) finish_carry(carry, par, lane, dpd);
+  zero_tail(te, par, bb.d_hi, dpd, t, MT);
+  write_dpv(dpvs, bb, nv, dpv_part, t, MT);
 
   // db1 over the lanes of each column (fixed shuffle tree), then db1, db2
   // and dw3 over the warps in order.
@@ -838,48 +1198,9 @@ __global__ void __launch_bounds__(MT, 1) edge_bwd_mma_kernel(
       dw3_part[(size_t)blk * H2 + c - H2] = s;
   }
 }
-
-// Pass 2: dPd[f, n] = sum of da1[f, e] over the edges e with src[e] = n, in
-// list order (blocks 0 .. nd-1), and dPv likewise by dst (blocks nd ..).
-// Thread k sums unit k.
-__global__ void __launch_bounds__(H1) edge_scatter_kernel(
-    const float* __restrict__ da1,
-    const int* __restrict__ src_perm, const int* __restrict__ src_off,
-    const int* __restrict__ dst_perm, const int* __restrict__ dst_off,
-    float* __restrict__ dpd, float* __restrict__ dpv, int nd, int nv, int ne) {
-  const int f = blockIdx.y, k = threadIdx.x;
-  int n = blockIdx.x;
-  const int* perm;
-  const int* off;
-  float* out;
-  if (n < nd) {
-    perm = src_perm + (size_t)f * ne;
-    off = src_off + (size_t)f * (nd + 1);
-    out = dpd + ((size_t)f * nd + n) * H1;
-  } else {
-    n -= nd;
-    perm = dst_perm + (size_t)f * ne;
-    off = dst_off + (size_t)f * (nv + 1);
-    out = dpv + ((size_t)f * nv + n) * H1;
-  }
-  da1 += (size_t)f * ne * H1;
-  const int p1 = off[n + 1];
-  float s = 0.f;
-#pragma unroll 4
-  for (int p = off[n]; p < p1; ++p) s += da1[(size_t)perm[p] * H1 + k];
-  out[k] = s;
-}
-
 }  // namespace
 
 extern "C" {
-
-// Blocks per fold of the backward's pass 1 for nf folds of ne edges: the
-// partial slabs are (nf, split, ...).  One block an SM in both dtypes (the
-// fp32 block by its shared memory, the bf16 block by its registers).
-int edge_decoder_bwd_split(int nf, int ne) {
-  return wave_split((ne + TE - 1) / TE, (long)nf);
-}
 
 // nf folds in one launch: pd (nf, nd, H1), pv (nf, nv, H1), b1 (nf, H1),
 // w2 (nf, H1, H2), b2 (nf, H2), w3 (nf, H2), edges (nf, 2, ne) int32
@@ -918,46 +1239,46 @@ int edge_decoder_fwd_occupancy(int bf16, int* occ) {
   return (int)err;
 }
 
-// Its backward: g (nf, ne); the CSR orderings src_perm / dst_perm (nf, ne)
-// and src_off (nf, nd + 1) / dst_off (nf, nv + 1); the da1 buffer
-// (nf, ne, H1); partial slabs (nf, split, ...) with split from
-// edge_decoder_bwd_split; dpd (nf, nd, H1) and dpv (nf, nv, H1), written
-// whole by pass 2.  bf16 runs pass 1 on the tensor cores, fp32 on the CUDA
-// cores.
+// Its backward: g (nf, ne); the edges' ordering (EdgeOrder) perm (nf, ne)
+// and split_edge / split_drug (nf, n_cb, n_part + 1), n_cb = ceil(nv / 32),
+// whose n_part parts of a column block go to n_split blocks
+// (edge_decoder.py:bwd_split); the partials, each written whole: dpd_part
+// (nf, n_cb, nd, H1), dpv_part (nf, n_split, nv, H1) and the weight slabs
+// (nf, n_cb * n_split, ...).  One block an SM in both dtypes (the fp32
+// block by its shared memory, the bf16 block by its registers).  bf16 runs
+// on the tensor cores, fp32 on the CUDA cores.
 int edge_decoder_bwd(const float* pd, const float* pv, const float* b1,
                      const float* w2, const float* b2, const float* w3,
                      const int* edges, const int* seed, const float* g,
-                     const int* src_perm, const int* src_off,
-                     const int* dst_perm, const int* dst_off, float* da1,
-                     float* db1_part, float* dw2_part, float* db2_part,
-                     float* dw3_part, float* dpd, float* dpv, int nf, int nd,
-                     int nv, int ne, unsigned int thresh, float scale,
-                     int use_drop, int bf16, void* stream) {
-  const dim3 grid(edge_decoder_bwd_split(nf, ne), nf);
+                     const int* perm, const int* split_edge, const int* split_drug,
+                     float* dpd_part, float* dpv_part, float* db1_part,
+                     float* dw2_part, float* db2_part, float* dw3_part, int nf,
+                     int nd, int nv, int ne, int n_part, int n_split,
+                     unsigned int thresh, float scale, int use_drop, int bf16,
+                     void* stream) {
+  const dim3 grid((nv + CB - 1) / CB * n_split, nf);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   cudaError_t err;
   if (bf16) {
     err = prepare(edge_bwd_mma_kernel, MMA_SMEM / (int)sizeof(float));
     if (err != cudaSuccess) return (int)err;
     edge_bwd_mma_kernel<<<grid, MT, MMA_SMEM, s>>>(
-        pd, pv, b1, w2, b2, w3, edges, seed, g, da1, db1_part, dw2_part, db2_part,
-        dw3_part, nd, nv, ne, thresh, scale, use_drop);
+        pd, pv, b1, w2, b2, w3, edges, seed, g, perm, split_edge, split_drug, dpd_part,
+        dpv_part, db1_part, dw2_part, db2_part, dw3_part, nd, nv, ne, n_part, thresh, scale,
+        use_drop);
   } else {
     err = prepare(edge_bwd_kernel, BWD_SMEM);
     if (err != cudaSuccess) return (int)err;
     edge_bwd_kernel<<<grid, TE, BWD_SMEM * sizeof(float), s>>>(
-        pd, pv, b1, w2, b2, w3, edges, seed, g, da1, db1_part, dw2_part, db2_part,
-        dw3_part, nd, nv, ne, thresh, scale, use_drop);
+        pd, pv, b1, w2, b2, w3, edges, seed, g, perm, split_edge, split_drug, dpd_part,
+        dpv_part, db1_part, dw2_part, db2_part, dw3_part, nd, nv, ne, n_part, thresh, scale,
+        use_drop);
   }
-  err = cudaGetLastError();
-  if (err != cudaSuccess) return (int)err;
-  edge_scatter_kernel<<<dim3(nd + nv, nf), H1, 0, s>>>(
-      da1, src_perm, src_off, dst_perm, dst_off, dpd, dpv, nd, nv, ne);
   return (int)cudaGetLastError();
 }
 
-// Residency of the backward's pass 1 of one dtype on one SM of this card:
-// occ[] receives {blocks, warps a block}.  Returns 0 or the CUDA error.
+// Residency of the backward of one dtype on one SM of this card: occ[]
+// receives {blocks, warps a block}.  Returns 0 or the CUDA error.
 int edge_decoder_bwd_occupancy(int bf16, int* occ) {
   cudaError_t err;
   int blocks = 0;

@@ -25,22 +25,25 @@ cell ``[src[e], dst[e]]``, whatever the tiling, and fold f of a batched
 call draws those of a single-fold call with ``seed[f]``.  A pair listed
 twice draws one mask for both; the loader's candidate pairs are unique.
 
-The forward and the backward's first pass run their products on the
-tensor cores in bf16 (``edge_fwd_mma_kernel``, ``edge_bwd_mma_kernel``)
-and on the CUDA cores in fp32, where TF32 would round what the fp32 Pallas
-kernel does not.  The backward's gradient scatter
-into dPd and dPv runs without atomics: the first pass writes every edge's
-rnd(da1) row to an (F, E, 128) buffer, and the second sums each node's
-rows in list order over a CSR ordering of the edges by src and by dst
-(``EdgeCSR``).  The CSR is index preparation for a fixed
-edge list: ``edge_csr`` builds it with torch ops, and the trainer builds it
-once per fold (``ModelInputs.dec_csr``).
+The forward and the backward run their products on the tensor cores in
+bf16 (``edge_fwd_mma_kernel``, ``edge_bwd_mma_kernel``) and on the CUDA
+cores in fp32, where TF32 would round what the fp32 Pallas kernel does
+not.  The backward is one pass that sums the edges' rnd(da1) rows into dPd
+and dPv where it forms them, without atomics and without a per-edge
+buffer: it walks each fold's edges by 32-disease column block, and within
+one by drug (``EdgeOrder``), so that a block holds its column block's dPv
+rows and writes a drug's dPd row when the drug's run ends.  Its partials,
+(F, ceil(Nv / 32), Nd, 128) for dPd, a few (F, Nv, 128) for dPv and the
+weight slabs, are summed here in a fixed order.  The ordering is index
+preparation for a fixed edge list: ``edge_order`` builds it with torch
+ops, and the trainer builds it once per fold (``ModelInputs.dec_order``).
+Its sums follow that order, not list order: the node gradients match the
+plain version's list-order ``scatter_add_`` up to f32 rounding.
 
 Dispatch.  ``fused_decoder`` and ``fused_decoder_batched`` run the kernels
 for CUDA tensors and the plain version only for CPU tensors; there is no
 fallback from one to the other.  ``LAUNCHES`` counts kernel launches:
-``fwd``/``bwd`` single-fold, ``fwd_b``/``bwd_b`` batched (a backward
-launch is its two passes).
+``fwd``/``bwd`` single-fold, ``fwd_b``/``bwd_b`` batched.
 """
 
 from __future__ import annotations
@@ -63,38 +66,105 @@ _lib = None
 
 
 # ---------------------------------------------------------------------------
-# Index preparation: the edges of a list grouped by drug and by disease.
+# Index preparation: the edges of a list ordered by column block and drug.
+
+COL_BLOCK = 32      # diseases of a column block: the Pv rows a block stages
+TILE = 128          # edges of a backward tile
+BWD_SLOTS = 132     # backward blocks of a wave: one an SM (decoder_common.cuh)
+
+
+def wave_split(max_split: int, per_split: int, slots: int = BWD_SLOTS,
+               least: float = 15 / 16) -> int:
+    """The smallest split (at most ``max_split``) whose ``per_split *
+    split`` blocks fill their waves of ``slots`` to at least ``least``,
+    else the split that fills best: csrc/decoder_common.cuh's
+    ``wave_split``, there with ``least`` 15/16."""
+    best, best_fill = 1, 0.0
+    for s in range(1, max_split + 1):
+        blocks = per_split * s
+        fill = blocks / (-(-blocks // slots) * slots)
+        if fill >= least:
+            return s
+        if fill > best_fill:
+            best, best_fill = s, fill
+    return best
+
+
+def order_parts(ne: int, nv: int) -> int:
+    """Parts of each column block in the ordering of one list of ``ne``
+    edges over ``nv`` diseases: what one fold alone needs to fill a wave,
+    at most a column block's mean tile count.  A launch of F folds takes
+    the parts in groups (``bwd_split``)."""
+    n_cb = -(-nv // COL_BLOCK)
+    return wave_split(max(1, -(-ne // (TILE * n_cb))), n_cb)
+
+
+def bwd_split(nf: int, nv: int, n_part: int) -> int:
+    """Blocks of a backward launch per fold and column block, each taking
+    a contiguous group of its ``n_part`` parts: whole waves of one block an
+    SM, filled to 63/64 or more where the parts allow: a block holds a
+    column block's share of a fold, milliseconds at 100 folds, so the
+    empty slots of a last wave idle the card for that long.  One fold of
+    Gdataset's 167,168 edges takes 13 (130 blocks), 10 folds 13, 100
+    folds 3 (3,000 blocks)."""
+    return wave_split(n_part, nf * -(-nv // COL_BLOCK), least=63 / 64)
+
 
 @dataclasses.dataclass(frozen=True)
-class EdgeCSR:
-    """CSR orderings of an edge list (..., E) by src and by dst, with an
-    optional leading fold axis.  ``src_perm[..., src_off[..., n] :
-    src_off[..., n + 1]]`` are the ids of the edges with src n, in list
-    order; likewise for dst.  int32 throughout."""
+class EdgeOrder:
+    """An edge list (..., E), with an optional leading fold axis, in the
+    order of the per-edge backward: by column block dst // 32, then by src,
+    stable, so that a pair listed twice keeps its list order.
 
-    src_perm: torch.Tensor     # (..., E)
-    src_off: torch.Tensor      # (..., Nd + 1)
-    dst_perm: torch.Tensor     # (..., E)
-    dst_off: torch.Tensor      # (..., Nv + 1)
+    ``perm[..., p]`` is the id of the edge at position p.  Column block c
+    spans positions ``split_edge[..., c, 0] : split_edge[..., c, -1]`` and
+    falls into P parts at ``split_edge[..., c, :]`` (P + 1 points); part s
+    holds the whole runs of the drugs ``split_drug[..., c, s] ..
+    split_drug[..., c, s + 1] - 1``, so that a part starts only where a
+    drug's run starts and every (column block, drug) pair lies in one part.
+    ``split_drug[..., c, 0]`` is 0 and ``split_drug[..., c, P]`` the drug
+    count.  int32 throughout."""
+
+    perm: torch.Tensor          # (..., E)
+    split_edge: torch.Tensor    # (..., n_cb, P + 1)
+    split_drug: torch.Tensor    # (..., n_cb, P + 1)
+
+    @property
+    def col_off(self) -> torch.Tensor:
+        """(..., n_cb + 1): the first position of each column block, and E."""
+        return torch.cat([self.split_edge[..., 0],
+                          self.split_edge[..., -1:, -1]], dim=-1)
 
 
-def _csr_side(idx: torch.Tensor, n: int):
-    idx = idx.long()
-    perm = torch.argsort(idx, dim=-1, stable=True)
-    keys = torch.gather(idx, -1, perm).contiguous()
-    bounds = torch.arange(n + 1, device=idx.device).expand(
-        *idx.shape[:-1], n + 1).contiguous()
-    off = torch.searchsorted(keys, bounds)
-    return perm.int(), off.int()
+def edge_order(src: torch.Tensor, dst: torch.Tensor, nd: int,
+               nv: int) -> EdgeOrder:
+    """The ``EdgeOrder`` of edges (src, dst), shaped (E,) or (F, E), over
+    nd drugs and nv diseases, with torch ops on their device.  Part s of a
+    column block of n edges starts at the run of the drug at its position
+    s * n // P."""
+    src, dst = src.long(), dst.long()
+    lead, ne = src.shape[:-1], src.shape[-1]
+    n_cb, n_part = -(-nv // COL_BLOCK), order_parts(ne, nv)
+    key = (dst // COL_BLOCK) * nd + src
+    perm = torch.argsort(key, dim=-1, stable=True)
+    keys = torch.gather(key, -1, perm).contiguous()
 
+    def first_at(values):       # (..., n_cb, k) -> positions of the keys
+        flat = values.expand(*lead, *values.shape[-2:]).reshape(*lead, -1)
+        return torch.searchsorted(keys, flat.contiguous()).view(
+            *lead, *values.shape[-2:])
 
-def edge_csr(src: torch.Tensor, dst: torch.Tensor, nd: int,
-             nv: int) -> EdgeCSR:
-    """The CSR orderings of edges (src, dst), shaped (E,) or (F, E), over
-    nd drugs and nv diseases."""
-    src_perm, src_off = _csr_side(src, nd)
-    dst_perm, dst_off = _csr_side(dst, nv)
-    return EdgeCSR(src_perm, src_off, dst_perm, dst_off)
+    cb = torch.arange(n_cb, device=src.device)[:, None]
+    lo, hi = first_at(cb * nd)[..., 0], first_at((cb + 1) * nd)[..., 0]
+    s = torch.arange(1, n_part, device=src.device)
+    at = lo[..., None] + (hi - lo)[..., None] * s // n_part
+    drug = torch.gather(keys, -1, at.clamp(max=ne - 1).reshape(
+        *lead, -1)).view(at.shape) - cb * nd
+    drug = torch.where((hi > lo)[..., None], drug, 0)
+    split_drug = torch.cat([torch.zeros_like(lo)[..., None], drug,
+                            torch.full_like(lo, nd)[..., None]], dim=-1)
+    split_edge = first_at(cb * nd + split_drug)
+    return EdgeOrder(perm.int(), split_edge.int(), split_drug.int())
 
 
 # ---------------------------------------------------------------------------
@@ -198,10 +268,8 @@ def _load():
                       ctypes.c_float)
         lib.edge_decoder_fwd.argtypes = [p] * 9 + [i, i, i, i, u, f, i, i, p]
         lib.edge_decoder_fwd.restype = i
-        lib.edge_decoder_bwd.argtypes = [p] * 20 + [i, i, i, i, u, f, i, i, p]
+        lib.edge_decoder_bwd.argtypes = [p] * 18 + [i] * 6 + [u, f, i, i, p]
         lib.edge_decoder_bwd.restype = i
-        lib.edge_decoder_bwd_split.argtypes = [i, i]
-        lib.edge_decoder_bwd_split.restype = i
         for kind in ("fwd", "bwd"):
             getattr(lib, f"edge_decoder_{kind}_occupancy").argtypes = [i, p]
             getattr(lib, f"edge_decoder_{kind}_occupancy").restype = i
@@ -243,37 +311,45 @@ def _launch_fwd(pd, pv, b1, w2, b2, w3, edges, seed, rate, train, dtype,
     return out
 
 
+def _sum_parts(x: torch.Tensor, axis: int) -> torch.Tensor:
+    """``x`` summed over its partial axis in a fixed order; a single
+    partial is the sum itself."""
+    return x.select(axis, 0) if x.shape[axis] == 1 else x.sum(axis)
+
+
 def _launch_bwd(pd, pv, b1, w2, b2, w3, edges, seed, rate, train, dtype, g,
-                csr: Optional[EdgeCSR], folds):
+                order: Optional[EdgeOrder], folds):
     ne = _check(pd, pv, b1, w2, b2, w3, edges, seed, dtype, folds)
     nd, nv, dev = pd.shape[-2], pv.shape[-2], pd.device
     _check_edges(g, "g", (*folds, ne), torch.float32, dev)
-    if csr is None:
-        csr = edge_csr(edges[..., 0, :], edges[..., 1, :], nd, nv)
-    for name, n in (("src_perm", ne), ("src_off", nd + 1), ("dst_perm", ne),
-                    ("dst_off", nv + 1)):
-        _check_edges(getattr(csr, name), f"csr.{name}", (*folds, n),
-                     torch.int32, dev)
+    if order is None:
+        order = edge_order(edges[..., 0, :], edges[..., 1, :], nd, nv)
+    n_cb, n_part = -(-nv // COL_BLOCK), order.split_edge.shape[-1] - 1
+    _check_edges(order.perm, "order.perm", (*folds, ne), torch.int32, dev)
+    for name in ("split_edge", "split_drug"):
+        _check_edges(getattr(order, name), f"order.{name}",
+                     (*folds, n_cb, n_part + 1), torch.int32, dev)
+    if n_part < 1:
+        raise ValueError("edge decoder kernel: order.split_edge holds no part")
     lib = _load()
     nf = folds[0] if folds else 1
-    n_split = lib.edge_decoder_bwd_split(nf, ne)
+    n_split = bwd_split(nf, nv, n_part)
     kw = dict(dtype=torch.float32, device=dev)
-    da1 = torch.empty((nf, ne, H1), **kw)
-    parts = [torch.empty((*folds, n_split, *shape), **kw)
+    dpd = torch.empty((*folds, n_cb, nd, H1), **kw)
+    dpv = torch.empty((*folds, n_split, nv, H1), **kw)
+    slabs = [torch.empty((*folds, n_cb * n_split, *shape), **kw)
              for shape in ((H1,), (H1, H2), (H2,), (H2,))]
-    dpd, dpv = torch.empty_like(pd), torch.empty_like(pv)
     ptrs = [x.data_ptr() for x in (
-        pd, pv, b1, w2, b2, w3, edges, seed, g, csr.src_perm, csr.src_off,
-        csr.dst_perm, csr.dst_off, da1, *parts, dpd, dpv)]
+        pd, pv, b1, w2, b2, w3, edges, seed, g, order.perm, order.split_edge,
+        order.split_drug, dpd, dpv, *slabs)]
     err = lib.edge_decoder_bwd(
-        *ptrs, nf, nd, nv, ne, *drop_args(rate, train),
+        *ptrs, nf, nd, nv, ne, n_part, n_split, *drop_args(rate, train),
         int(dtype == torch.bfloat16), stream_ptr(dev))
     if err != 0:
         raise RuntimeError(f"edge_decoder_bwd launch failed: CUDA error {err}")
     LAUNCHES["bwd_b" if folds else "bwd"] += 1
-    # Sum each slab over its partial axis, in a fixed order.
-    db1, dw2, db2, dw3 = (x.sum(len(folds)) for x in parts)
-    return dpd, dpv, db1, dw2, db2, dw3
+    # Sum each partial over its block axis, in a fixed order.
+    return tuple(_sum_parts(x, len(folds)) for x in (dpd, dpv, *slabs))
 
 
 def fwd_occupancy(dtype) -> tuple:
@@ -283,8 +359,8 @@ def fwd_occupancy(dtype) -> tuple:
 
 
 def bwd_occupancy(dtype) -> tuple:
-    """(blocks, warps) of the ``dtype`` backward's pass-1 kernel resident on
-    one SM of the current card, by CUDA's occupancy API."""
+    """(blocks, warps) of the ``dtype`` backward kernel resident on one SM
+    of the current card, by CUDA's occupancy API."""
     return occupancy(_load(), "edge_decoder_bwd_occupancy", dtype)
 
 
@@ -295,11 +371,12 @@ def launch_fwd(pd, pv, b1, w2, b2, w3, edges, seed, rate, train, dtype):
 
 
 def launch_bwd(pd, pv, b1, w2, b2, w3, edges, seed, rate, train, dtype, g,
-               csr=None):
-    """One backward launch (both passes) plus the sums over its partial
-    slabs.  Returns (dpd, dpv, db1, dw2, db2, dw3)."""
+               order=None):
+    """One backward launch plus the sums over its partials; ``order`` the
+    edges' ``edge_order``, built here when not given.  Returns (dpd, dpv,
+    db1, dw2, db2, dw3)."""
     return _launch_bwd(pd, pv, b1, w2, b2, w3, edges, seed, rate, train,
-                       dtype, g, csr, ())
+                       dtype, g, order, ())
 
 
 def launch_fwd_batched(pd, pv, b1, w2, b2, w3, edges, seed, rate, train,
@@ -311,19 +388,20 @@ def launch_fwd_batched(pd, pv, b1, w2, b2, w3, edges, seed, rate, train,
 
 
 def launch_bwd_batched(pd, pv, b1, w2, b2, w3, edges, seed, rate, train,
-                       dtype, g, csr=None):
-    """One batched backward launch plus the sums over its partial slabs.
-    Returns (dpd, dpv, db1, dw2, db2, dw3), each with a leading F."""
+                       dtype, g, order=None):
+    """One batched backward launch plus the sums over its partials;
+    ``order`` with a leading F.  Returns (dpd, dpv, db1, dw2, db2, dw3),
+    each with a leading F."""
     return _launch_bwd(pd, pv, b1, w2, b2, w3, edges, seed, rate, train,
-                       dtype, g, csr, (pd.shape[0],))
+                       dtype, g, order, (pd.shape[0],))
 
 
 class _FusedDecoder(torch.autograd.Function):
     @staticmethod
     def forward(ctx, pd, pv, b1, w2, b2, w3, b3, edges, seed, rate, train,
-                dtype, csr, batched):
+                dtype, order, batched):
         ctx.save_for_backward(pd, pv, b1, w2, b2, w3, edges, seed)
-        ctx.cfg = (rate, train, dtype, csr, batched)
+        ctx.cfg = (rate, train, dtype, order, batched)
         if pd.is_cuda:
             launch = launch_fwd_batched if batched else launch_fwd
             out = launch(pd, pv, b1, w2, b2, w3, edges, seed, rate, train,
@@ -338,11 +416,11 @@ class _FusedDecoder(torch.autograd.Function):
     @staticmethod
     def backward(ctx, g):
         with span("decoder_bwd"):
-            rate, train, dtype, csr, batched = ctx.cfg
+            rate, train, dtype, order, batched = ctx.cfg
             args = (*ctx.saved_tensors, rate, train, dtype, g.contiguous())
             if g.is_cuda:
                 launch = launch_bwd_batched if batched else launch_bwd
-                grads = launch(*args, csr)
+                grads = launch(*args, order)
             else:
                 grads = (edge_decoder_batched_plain_bwd if batched
                          else edge_decoder_plain_bwd)(*args)
@@ -353,46 +431,46 @@ class _FusedDecoder(torch.autograd.Function):
 
 def fused_decoder(proj_drug, proj_dis, b1, w2, b2, w3, b3, edges, seed,
                   rate: float, train: bool, dtype=torch.bfloat16,
-                  csr: Optional[EdgeCSR] = None):
+                  order: Optional[EdgeOrder] = None):
     """Per-edge decoder MLP, the contract of the JAX ``fused_decoder``
     (pallas_decoder.py:202).
 
     proj_drug (Nd, 128) f32, proj_dis (Nv, 128) f32, b1 (128,),
     w2 (128, 64), b2 (64,), w3 (64,), b3 (1,), edges (2, E) int32
     [src; dst] with src < Nd and dst < Nv (the kernels assert it on the
-    device), seed (1,) int32 on the same device; ``csr`` the edges'
-    ``edge_csr``, built in the backward when not given.  Returns (E,) f32
+    device), seed (1,) int32 on the same device; ``order`` the edges'
+    ``edge_order``, built in the backward when not given.  Returns (E,) f32
     logits.  CUDA tensors run the kernels, CPU tensors the plain version.
     """
     return _FusedDecoder.apply(
         proj_drug.contiguous(), proj_dis.contiguous(), b1.contiguous(),
         w2.contiguous(), b2.contiguous(), w3.contiguous(), b3,
-        edges.contiguous(), seed, rate, train, dtype, csr, False)
+        edges.contiguous(), seed, rate, train, dtype, order, False)
 
 
 def fused_decoder_batched(proj_drug, proj_dis, b1, w2, b2, w3, b3, edges,
                           seed, rate: float, train: bool,
                           dtype=torch.bfloat16,
-                          csr: Optional[EdgeCSR] = None):
+                          order: Optional[EdgeOrder] = None):
     """Fold-batched per-edge decoder MLP, the contract of the JAX
     ``fused_decoder_batched`` (pallas_decoder_batched.py:158).
 
     proj_drug (F, Nd, 128), proj_dis (F, Nv, 128), b1 (F, 128),
     w2 (F, 128, 64), b2 (F, 64), w3 (F, 64), b3 (F, 1), all f32,
-    edges (F, 2, E) int32, seed (F,) int32, on one device; ``csr`` with a
+    edges (F, 2, E) int32, seed (F,) int32, on one device; ``order`` with a
     leading F.  Returns (F, E) f32 logits.  CUDA tensors run one launch of
     each kernel, CPU tensors the plain version.
     """
     return _FusedDecoder.apply(
         proj_drug.contiguous(), proj_dis.contiguous(), b1.contiguous(),
         w2.contiguous(), b2.contiguous(), w3.contiguous(), b3,
-        edges.contiguous(), seed, rate, train, dtype, csr, True)
+        edges.contiguous(), seed, rate, train, dtype, order, True)
 
 
 def decoder_apply_fused(params, edge_src, edge_dst, drug_feat, dis_feat, *,
                         dropout_rate: float, train: bool = False,
                         generator=None, dtype=torch.bfloat16,
-                        csr: Optional[EdgeCSR] = None):
+                        order: Optional[EdgeOrder] = None):
     """Fused counterpart of ``nn.decoder.decoder_apply``
     (pallas_decoder.py:290-324): node projections in PyTorch, the per-edge
     MLP in the kernel.  Any node count is taken: the kernel gathers rows.
@@ -402,20 +480,20 @@ def decoder_apply_fused(params, edge_src, edge_dst, drug_feat, dis_feat, *,
     seed = dropout_seeds(1, proj_drug.device, dropout_rate, train, generator)
     return fused_decoder(proj_drug, proj_dis, params["b1"], params["w2"],
                          params["b2"], params["w3"][:, 0], params["b3"],
-                         edges, seed, dropout_rate, train, dtype, csr)
+                         edges, seed, dropout_rate, train, dtype, order)
 
 
 def decoder_apply_fused_batched(params, edge_src, edge_dst, drug_feat,
                                 dis_feat, *, dropout_rate: float,
                                 train: bool = False, generator=None,
                                 dtype=torch.bfloat16,
-                                csr: Optional[EdgeCSR] = None, mesh=None,
+                                order: Optional[EdgeOrder] = None, mesh=None,
                                 shard=None):
     """Fold-batched fused edge decode, the counterpart of the JAX
     ``decoder_apply_fused_batched`` (pallas_decoder_batched.py:310-363).
     Params leaves, ``edge_src``/``edge_dst`` (F, E) and features (F, N, d)
     carry a leading fold axis; the F dropout seeds come from one draw of
-    ``generator``; ``csr`` is the list's ``EdgeCSR``.  With a ``mesh`` they
+    ``generator``; ``order`` is the list's ``EdgeOrder``.  With a ``mesh`` they
     are this rank's folds, and the kernels run on ``shard``, the rank's
     ``EdgeShard`` of the edges over ``mp`` (sharding/decoder_spmd.py,
     built once by ``shard_edges``).  Returns (F, E) logits."""
@@ -427,7 +505,7 @@ def decoder_apply_fused_batched(params, edge_src, edge_dst, drug_feat,
     if mesh is None:
         edges = torch.stack([edge_src.int(), edge_dst.int()], dim=1)
         return fused_decoder_batched(proj_drug, proj_dis, *weights, edges,
-                                     seed, dropout_rate, train, dtype, csr)
+                                     seed, dropout_rate, train, dtype, order)
     if shard is None:
         raise ValueError("the fused edge decoder on a mesh runs on the "
                          "rank's EdgeShard: shard the stack with "

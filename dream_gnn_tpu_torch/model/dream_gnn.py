@@ -54,7 +54,7 @@ import torch
 from dream_gnn_tpu_torch.augment.masks import PRF_LAYOUTS, prf_mask_graph
 from dream_gnn_tpu_torch.config import ModelConfig
 from dream_gnn_tpu_torch.kernels.edge_decoder import (
-    EdgeCSR, decoder_apply_fused, decoder_apply_fused_batched)
+    EdgeOrder, decoder_apply_fused, decoder_apply_fused_batched)
 from dream_gnn_tpu_torch.kernels.grid_decoder import (
     decoder_apply_grid_fused, decoder_apply_grid_fused_batched)
 from dream_gnn_tpu_torch.kernels.scale_decoder import (ScaleDecoderLayout,
@@ -98,13 +98,14 @@ class ModelInputs:
     dis_feat: torch.Tensor
     drug_feature_graph: Any = None
     dis_feature_graph: Any = None
-    # The edge list's CSR orderings for the fused edge decoder's backward,
-    # built once per list (train/loop.py:fold_inputs); the counterpart of
-    # the JAX package's dec_layout.  Built in each backward when None.
-    dec_csr: Optional[EdgeCSR] = None
+    # The edge list's ordering for the fused edge decoder's backward, built
+    # once per list (train/loop.py:fold_inputs); the counterpart of the JAX
+    # package's dec_layout.  Built in each backward when None.
+    dec_order: Optional[EdgeOrder] = None
     # On a dp x mp mesh, this rank's block of the edge list over mp and its
-    # CSR for the fused edge decoder (sharding/partition.py:shard_stacked),
-    # built once per list; None without a mesh and in grid mode.
+    # ordering for the fused edge decoder
+    # (sharding/partition.py:shard_stacked), built once per list; None
+    # without a mesh and in grid mode.
     dec_shard: Optional[EdgeShard] = None
     # The scale decoder's ScaleDecoderLayout of the candidate list
     # (kernels/scale_decoder.py), static per list like the reference's dec
@@ -335,7 +336,7 @@ def _forward(params, inputs, cfg, *, stacked, train, generator, edge_masks,
         else:
             if cfg.decoder_backend == "pallas":
                 if mesh is None:
-                    kw["csr"] = inputs.dec_csr
+                    kw["order"] = inputs.dec_order
                 else:
                     kw["shard"] = inputs.dec_shard
             pred = decode(params["decoder"], inputs.dec_src, inputs.dec_dst,

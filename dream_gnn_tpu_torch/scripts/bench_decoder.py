@@ -74,7 +74,7 @@ def _edges(ds, nf):
     rng = np.random.default_rng(1)
     g = torch.tensor(rng.normal(0, 1e-3, tuple(w.shape)).astype(np.float32),
                      device=ds.device) * w
-    return edges, inputs.dec_csr, g
+    return edges, inputs.dec_order, g
 
 
 def _time_ms(fn, reps: int = 20) -> float:
@@ -175,13 +175,13 @@ def main() -> int:
     ds = DreamDataset.load("Gdataset", device=dev)
     for nf in (None, NF):
         args, _ = _inputs(dev, nf)
-        edges, csr, g = _edges(ds, nf)
+        edges, order, g = _edges(ds, nf)
         args = args[:6] + [edges, args[6]]
         fwd, bwd = (ed.launch_fwd, ed.launch_bwd) if nf is None \
             else (ed.launch_fwd_batched, ed.launch_bwd_batched)
         _report(f"edge F={nf or 1} E={edges.shape[-1]}",
                 lambda d: fwd(*args, rate, True, d),
-                lambda d: bwd(*args, rate, True, d, g, csr),
+                lambda d: bwd(*args, rate, True, d, g, order),
                 (nf or 1) * edges.shape[-1])
     del ds
     torch.cuda.empty_cache()

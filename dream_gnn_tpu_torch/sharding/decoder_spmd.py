@@ -45,7 +45,7 @@ import dataclasses
 
 import torch
 
-from dream_gnn_tpu_torch.kernels.edge_decoder import (EdgeCSR, edge_csr,
+from dream_gnn_tpu_torch.kernels.edge_decoder import (EdgeOrder, edge_order,
                                                       fused_decoder_batched)
 from dream_gnn_tpu_torch.kernels.grid_decoder import (
     fused_grid_decoder, fused_grid_decoder_batched)
@@ -90,11 +90,11 @@ def fused_grid_decoder_batched_spmd(mesh, proj_drug, proj_dis, b1, w2, b2,
 class EdgeShard:
     """This rank's block of a fold stack's edge list over the mesh's
     ``mp`` axis: edges (F', 2, ceil(E / mp)) int32 [src; dst], padded with
-    (0, 0), and the block's CSR orderings, built once for the list
+    (0, 0), and the block's ordering, built once for the list
     (``shard_edges``)."""
 
     edges: torch.Tensor
-    csr: EdgeCSR
+    order: EdgeOrder
     n_edges: int
 
 
@@ -105,7 +105,8 @@ def shard_edges(mesh, edge_src: torch.Tensor, edge_dst: torch.Tensor,
     edges = torch.stack([rows.block(edge_src.int().T).T,
                          rows.block(edge_dst.int().T).T], dim=1).contiguous()
     return EdgeShard(edges=edges,
-                     csr=edge_csr(edges[:, 0], edges[:, 1], n_drug, n_dis),
+                     order=edge_order(edges[:, 0], edges[:, 1], n_drug,
+                                      n_dis),
                      n_edges=edge_src.shape[-1])
 
 
@@ -125,7 +126,7 @@ def fused_decoder_batched_spmd(mesh, proj_drug, proj_dis, b1, w2, b2, w3, b3,
     tables = (replicated_in(x, group)
               for x in (proj_drug, proj_dis, b1, w2, b2, w3, b3))
     logits = fused_decoder_batched(*tables, shard.edges, seed, rate, train,
-                                   dtype, shard.csr)
+                                   dtype, shard.order)
     return _gather(RowBlock(shard.n_edges, group), logits, -1)
 
 

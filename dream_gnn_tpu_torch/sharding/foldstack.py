@@ -18,7 +18,7 @@ from typing import Sequence
 import torch
 
 from dream_gnn_tpu_torch.data.loader import DreamDataset
-from dream_gnn_tpu_torch.kernels.edge_decoder import edge_csr
+from dream_gnn_tpu_torch.kernels.edge_decoder import edge_order
 from dream_gnn_tpu_torch.model.dream_gnn import ModelInputs
 from dream_gnn_tpu_torch.train.loop import fold_inputs
 
@@ -98,7 +98,7 @@ def stack_folds(dataset: DreamDataset, folds: Sequence[int],
         dst = _pad_1d(fold_in.dec_dst, e_pad)
         stacked_inputs.append(dataclasses.replace(
             fold_in, dec_src=src, dec_dst=dst,
-            dec_csr=edge_csr(src, dst, dataset.n_drug, dataset.n_dis)))
+            dec_order=edge_order(src, dst, dataset.n_drug, dataset.n_dis)))
         labels.append(_pad_1d(fold_lab, e_pad))
         w = torch.zeros((e_pad,), dtype=torch.float32,
                         device=fold_lab.device)

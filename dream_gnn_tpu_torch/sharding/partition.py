@@ -58,7 +58,7 @@ def shard_stacked(mesh, stacked: StackedFolds,
                   decode_mode: str = "edges") -> StackedFolds:
     """This rank's folds of the stacked inputs, labels and weights; in
     edges ``decode_mode`` with its ``EdgeShard`` of their decoder edges
-    over ``mp`` (and its CSR, built once here) as ``inputs.dec_shard``."""
+    over ``mp`` (and its ordering, built once here) as ``inputs.dec_shard``."""
     sl = _fold_slice(mesh, stacked.n_folds)
     local = tree_map(lambda a: a[sl], stacked)
     if decode_mode != "edges":

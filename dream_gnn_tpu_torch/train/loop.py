@@ -23,7 +23,7 @@ import torch
 
 from dream_gnn_tpu_torch.config import ModelConfig, TrainConfig
 from dream_gnn_tpu_torch.data.loader import DreamDataset
-from dream_gnn_tpu_torch.kernels.edge_decoder import edge_csr
+from dream_gnn_tpu_torch.kernels.edge_decoder import edge_order
 from dream_gnn_tpu_torch.model.dream_gnn import (ModelInputs, init_params,
                                                  map_params)
 from dream_gnn_tpu_torch.train.checkpoint import (load_train_state,
@@ -59,7 +59,7 @@ def fold_generator(seed: int, cv: int, device) -> torch.Generator:
 def fold_inputs(dataset: DreamDataset, cv: int):
     """(train_inputs, test_eval_inputs, train_labels, test_labels) of fold
     ``cv``, as the JAX package's; each side's inputs carry its edge list's
-    CSR orderings for the fused edge decoder."""
+    ordering for the fused edge decoder's backward."""
     fold = dataset.fold(cv)
     common = dict(
         drug_graph=dataset.drug_graph,
@@ -74,11 +74,11 @@ def fold_inputs(dataset: DreamDataset, cv: int):
     train_inputs = ModelInputs(
         enc_graph=fold.train_enc, dec_src=fold.train_src,
         dec_dst=fold.train_dst,
-        dec_csr=edge_csr(fold.train_src, fold.train_dst, *n), **common)
+        dec_order=edge_order(fold.train_src, fold.train_dst, *n), **common)
     test_inputs = ModelInputs(
         enc_graph=fold.test_enc, dec_src=fold.test_src,
         dec_dst=fold.test_dst,
-        dec_csr=edge_csr(fold.test_src, fold.test_dst, *n), **common)
+        dec_order=edge_order(fold.test_src, fold.test_dst, *n), **common)
     return train_inputs, test_inputs, fold.train_labels, fold.test_labels
 
 

@@ -313,29 +313,112 @@ def test_loader_candidate_pairs_are_unique(preset):
                 and not w[e:].any()
 
 
+def _order_case(kind, nf, seed):
+    """Edges (..., E) over 37 drugs and 75 diseases (three column blocks,
+    the last of 11): random pairs with repeats, unique pairs padded with
+    the loader's (0, 0) to a multiple of 256, or a sparse list (the first
+    column block empty, a third of the drugs absent from each other)."""
+    nd, nv = 37, 75
+    rng = np.random.default_rng(seed)
+    lists = []
+    for _ in range(nf or 1):
+        if kind == "repeats":
+            pairs = np.stack([rng.integers(0, nd, 3000),
+                              rng.integers(0, nv, 3000)])
+        else:
+            cells = rng.permutation(nd * nv)
+            if kind == "sparse":
+                d, j = cells // nv, cells % nv
+                cells = cells[(j >= 32) & ((d + j // 32) % 3 > 0)][:640]
+            else:
+                cells = cells[:2000]
+                cells = np.concatenate([cells, np.zeros(
+                    -len(cells) % 256, np.int64)])
+            pairs = np.stack([cells // nv, cells % nv])
+            if kind == "padded":
+                pairs[:, 2000:] = 0
+        lists.append(pairs)
+    edges = torch.tensor(np.stack(lists) if nf else lists[0])
+    return edges[..., 0, :], edges[..., 1, :], nd, nv
+
+
+@pytest.mark.parametrize("kind", ["repeats", "padded", "sparse"])
 @pytest.mark.parametrize("batched", [False, True])
-def test_edge_csr(batched):
-    """The CSR orderings list each node's edges in list order, and the
-    segmented sums they define are the index_add sums."""
-    x = _inputs(F if batched else None, seed=5)
-    edges = torch.tensor(x["edges"])
-    csr = ed.edge_csr(edges[..., 0, :], edges[..., 1, :], ND, NV)
+def test_edge_order(batched, kind):
+    """The ordering lists every edge once, by (dst // 32, src) and in list
+    order within a pair; its column-block offsets count the edges of the
+    lower blocks; each column block's parts start where a drug's run
+    starts and hold exactly the runs of their drugs; and the partial sums
+    the backward takes over it, for every grouping of the parts into
+    blocks, give the index_add sums, each (column block, drug) row and each
+    dPv row of a block written once."""
+    src, dst, nd, nv = _order_case(kind, F if batched else None, seed=5)
+    order = ed.edge_order(src, dst, nd, nv)
+    ne, n_cb = src.shape[-1], -(-nv // 32)
+    n_part = order.split_edge.shape[-1] - 1
+    assert n_part == ed.order_parts(ne, nv) > 1
+    assert order.perm.dtype == order.split_edge.dtype \
+        == order.split_drug.dtype == torch.int32
+    assert order.split_edge.shape == order.split_drug.shape \
+        == (*src.shape[:-1], n_cb, n_part + 1)
     rows = torch.tensor(np.random.default_rng(5).normal(
-        size=(*edges.shape[:-2], E, 4)).astype(np.float32))
-    for perm, off, idx, n in ((csr.src_perm, csr.src_off, edges[..., 0, :],
-                               ND),
-                              (csr.dst_perm, csr.dst_off, edges[..., 1, :],
-                               NV)):
-        assert perm.dtype == off.dtype == torch.int32
-        for f in range(F if batched else 1):
-            p, o, i, r = (t[f] if batched else t
-                          for t in (perm, off, idx, rows))
-            assert o[0] == 0 and o[-1] == E
-            ref = torch.zeros(n, 4).index_add_(0, i.long(), r)
-            for node in range(n):
-                ids = p[o[node]:o[node + 1]].long()
-                assert torch.equal(ids, torch.nonzero(i == node)[:, 0])
-                torch.testing.assert_close(r[ids].sum(0), ref[node])
+        size=(*src.shape, 4)).astype(np.float32))
+    for f in range(F if batched else 1):
+        p, se, sd, i, j, r = (x[f] if batched else x for x in (
+            order.perm.long(), order.split_edge.long(),
+            order.split_drug.long(), src.long(), dst.long(), rows))
+        assert torch.equal(torch.sort(p).values, torch.arange(ne))
+        key = (j // 32) * nd + i
+        ref = sorted(range(ne), key=lambda e: (int(key[e]), e))
+        assert p.tolist() == ref
+        col_off = (order.col_off[f] if batched else order.col_off).long()
+        assert col_off.tolist() == [int((j // 32 < c).sum())
+                                    for c in range(n_cb + 1)]
+        assert torch.equal(se[:, 0], col_off[:-1])
+        assert torch.equal(se[:, -1], col_off[1:])
+        assert bool((sd[:, 0] == 0).all()) and bool((sd[:, -1] == nd).all())
+        assert bool((se.diff() >= 0).all()) and bool((sd.diff() >= 0).all())
+        ps, pj = i[p], j[p]
+        for c in range(n_cb):
+            for s in range(n_part):
+                lo, hi = int(se[c, s]), int(se[c, s + 1])
+                # A part starts at its column block or where a run starts.
+                assert lo == int(se[c, 0]) or lo == int(se[c, -1]) \
+                    or ps[lo] != ps[lo - 1]
+                held = ps[lo:hi]
+                assert bool(((held >= sd[c, s]) & (held < sd[c, s + 1]))
+                            .all())
+                assert bool((pj[lo:hi] // 32 == c).all())
+        ref_pd = torch.zeros(nd, 4).index_add_(0, i, r)
+        ref_pv = torch.zeros(nv, 4).index_add_(0, j, r)
+        for n_split in sorted({1, 2, n_part}):
+            dpd = torch.full((n_cb, nd, 4), float("nan"))
+            dpv = torch.zeros(n_split, nv, 4)
+            for c in range(n_cb):
+                for b in range(n_split):
+                    g0, g1 = b * n_part // n_split, (b + 1) * n_part // n_split
+                    d_lo, d_hi = int(sd[c, g0]), int(sd[c, g1])
+                    assert bool(dpd[c, d_lo:d_hi].isnan().all())
+                    dpd[c, d_lo:d_hi] = 0.0
+                    for q in range(int(se[c, g0]), int(se[c, g1])):
+                        dpd[c, ps[q]] += r[p[q]]
+                        dpv[b, pj[q]] += r[p[q]]
+            assert not bool(dpd.isnan().any())
+            torch.testing.assert_close(dpd.sum(0), ref_pd)
+            torch.testing.assert_close(dpv.sum(0), ref_pv)
+
+
+@pytest.mark.parametrize("nf,n_split", [(1, 13), (10, 13), (100, 3)])
+def test_edge_order_parts_fill_waves(nf, n_split):
+    """At one fold's 167,168 training edges over 313 diseases the ordering
+    cuts each of the 10 column blocks into 13 parts, and a backward launch
+    of nf folds takes them in n_split groups: whole waves of one block on
+    each of 132 SMs, filled to 63/64 or more."""
+    n_part = ed.order_parts(167_168, 313)
+    assert n_part == 13
+    assert ed.bwd_split(nf, 313, n_part) == n_split
+    blocks = nf * 10 * n_split
+    assert blocks / (-(-blocks // 132) * 132) >= 63 / 64
 
 
 def test_seeds_drawn_once_per_call():

@@ -509,9 +509,14 @@ def test_edge_wrapper_counts_launches_and_checks_inputs(cuda):
     bad[6] = args[6].long()
     with pytest.raises(ValueError, match="edges"):
         ed.launch_fwd(*bad, 0.0, False, torch.bfloat16)
-    csr = ed.edge_csr(args[6][0], args[6][1], 8, 9)
-    with pytest.raises(ValueError, match="dst_off"):
-        ed.launch_bwd(*args, 0.0, False, torch.bfloat16, g, csr)
+    # An ordering over another disease count (two column blocks, not one),
+    # or of a shorter list.
+    order = ed.edge_order(args[6][0], args[6][1], 8, 40)
+    with pytest.raises(ValueError, match="order.split_edge"):
+        ed.launch_bwd(*args, 0.0, False, torch.bfloat16, g, order)
+    order = ed.edge_order(args[6][0, :40], args[6][1, :40], 8, 8)
+    with pytest.raises(ValueError, match="order.perm"):
+        ed.launch_bwd(*args, 0.0, False, torch.bfloat16, g, order)
 
 
 def _decoder_launches():
@@ -662,6 +667,87 @@ def test_edge_bf16_bwd_repeats_bit_for_bit(cuda, nf):
     b = launch(*args, 0.3, True, torch.bfloat16, g)
     for x, y in zip(a, b):
         assert torch.equal(x, y)
+
+
+def _unique_edges(args, g, case, seed):
+    """``args`` and ``g`` over unique random pairs of their tables: as the
+    loader lists a fold's candidates ("padded": all but the last 100 edges
+    real, then (0, 0) padding with g = 0), or "sparse": the first column
+    block empty and a third of the drugs absent from each other one."""
+    nd, nv = args[0].shape[-2], args[1].shape[-2]
+    edges, g = args[6].clone(), g.clone()
+    ne = edges.shape[-1]
+    n_real = ne - 100 if case == "padded" else ne
+    rng = np.random.default_rng(seed)
+    for e, gf in zip(edges.view(-1, 2, ne), g.view(-1, ne)):
+        cells = rng.permutation(nd * nv)
+        if case == "sparse":
+            d, j = cells // nv, cells % nv
+            cells = cells[(j >= 32) & ((d + j // 32) % 3 > 0)]
+        cells = torch.tensor(cells[:n_real], device=edges.device)
+        e.zero_()
+        e[0, :n_real], e[1, :n_real] = cells // nv, cells % nv
+        gf[n_real:] = 0.0
+    return args[:6] + [edges, args[7]], g
+
+
+@pytest.mark.parametrize("case", ["repeats", "padded", "sparse"])
+@pytest.mark.parametrize("nf", [None, 3])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_edge_bwd_sums_nodes_over_the_ordering(cuda, monkeypatch, dtype, nf,
+                                               case):
+    """The backward's node sums over the edges' ordering by column block
+    and drug, at Gdataset-sized tables (313 diseases, 10 column blocks,
+    the last of 25) with 20,000 edges: for one fold each column block's 13
+    parts go to 13 blocks, at F = 3 too.  Random pairs with repeats;
+    unique pairs padded with (0, 0) at g = 0 as the loader pads a fold; or
+    unique pairs leaving the first column block empty and a third of the
+    drugs without edges in each other one (zero dPd partial rows).
+    All six gradients are held to the plain version with its depth-64/128
+    products in unit order, within the tolerance: dPd and dPv sum the same
+    rnd(da1) rows as its list-order scatter_add_, in another f32 order (by
+    drug within a column block, then over the column blocks; by column
+    within a tile, then over the tiles and blocks).  Two launches give the
+    same bits, and so does the ordering built in the launch."""
+    args, g = _edge_args(cuda, nf, 593, 313, 20_000, seed=9)
+    if case != "repeats":
+        args, g = _unique_edges(args, g, case, seed=9)
+    edges = args[6]
+    order = ed.edge_order(edges[..., 0, :], edges[..., 1, :], 593, 313)
+    n_part = order.split_edge.shape[-1] - 1
+    assert n_part == 13 and ed.bwd_split(nf or 1, 313, n_part) == 13
+    launch, plain = (ed.launch_bwd, ed.edge_decoder_plain_bwd) if nf is None \
+        else (ed.launch_bwd_batched, ed.edge_decoder_batched_plain_bwd)
+    grads = launch(*args, 0.3, True, dtype, g, order)
+    again = launch(*args, 0.3, True, dtype, g)
+    monkeypatch.setattr(torch, "matmul", _unit_order_matmul)
+    refs = plain(*args, 0.3, True, dtype, g)
+    monkeypatch.undo()
+    torch.cuda.synchronize()
+    for a, b, c in zip(grads, again, refs):
+        assert a.shape == c.shape
+        assert torch.equal(a, b)
+        assert _rel(a, c) <= TOL[dtype]
+
+
+@pytest.mark.parametrize("nf", [None, 10])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_edge_bwd_allocates_no_per_edge_buffer(cuda, dtype, nf):
+    """A backward launch over 50,000 edges a fold, ordering given, adds
+    less to the peak allocation than an (F, E, 128) f32 buffer would take:
+    its partials and outputs are per node and per block."""
+    args, g = _edge_args(cuda, nf, 593, 313, 50_000, seed=4)
+    edges = args[6]
+    order = ed.edge_order(edges[..., 0, :], edges[..., 1, :], 593, 313)
+    launch = ed.launch_bwd if nf is None else ed.launch_bwd_batched
+    torch.cuda.synchronize()
+    base = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    grads = launch(*args, 0.3, True, dtype, g, order)
+    torch.cuda.synchronize()
+    added = torch.cuda.max_memory_allocated() - base
+    assert all(bool(torch.isfinite(x).all()) for x in grads)
+    assert added < (nf or 1) * 50_000 * 128 * 4
 
 
 @pytest.mark.parametrize("dtype,warps", [(torch.float32, 4),

@@ -49,7 +49,7 @@ from dream_gnn_tpu_torch.config import TrainConfig as TTrain
 from dream_gnn_tpu_torch.convert import params_from_jax
 from dream_gnn_tpu_torch.data.loader import DreamDataset as TDataset
 from dream_gnn_tpu_torch.data.synthetic import synthetic_raw_data as t_raw
-from dream_gnn_tpu_torch.kernels.edge_decoder import edge_csr
+from dream_gnn_tpu_torch.kernels.edge_decoder import edge_order
 from dream_gnn_tpu_torch.model.dream_gnn import forward, forward_stacked
 from dream_gnn_tpu_torch.model.dream_gnn import param_leaves
 from dream_gnn_tpu_torch.nn.dropout import dropout
@@ -110,7 +110,7 @@ def _j_stacked_params(jcfg):
 
 def _leaves_equal(port_tree, jax_tree, what):
     """Every tensor of a port dataclass tree equals the JAX array of the
-    same field: shape, dtype and values.  ``dec_csr`` and ``dec_shard``,
+    same field: shape, dtype and values.  ``dec_order`` and ``dec_shard``,
     the port's index preparation for its edge kernel without and with a
     mesh, have no JAX field."""
     if port_tree is None:
@@ -122,7 +122,7 @@ def _leaves_equal(port_tree, jax_tree, what):
         np.testing.assert_array_equal(a, b, err_msg=what)
         return
     for f in dataclasses.fields(port_tree):
-        if f.name not in ("dec_csr", "dec_shard"):
+        if f.name not in ("dec_order", "dec_shard"):
             _leaves_equal(getattr(port_tree, f.name),
                           getattr(jax_tree, f.name), f"{what}.{f.name}")
 
@@ -140,11 +140,11 @@ def test_stack_folds_equal_jax(preset, side):
     ref = j_stack_folds(jds, FOLDS, side=side)
     assert ours.n_folds == F
     _leaves_equal(ours, ref, f"{preset}/{side}")
-    csr = edge_csr(ours.inputs.dec_src, ours.inputs.dec_dst, tds.n_drug,
-                   tds.n_dis)
-    for name in ("src_perm", "src_off", "dst_perm", "dst_off"):
-        assert torch.equal(getattr(ours.inputs.dec_csr, name),
-                           getattr(csr, name)), name
+    order = edge_order(ours.inputs.dec_src, ours.inputs.dec_dst,
+                       tds.n_drug, tds.n_dis)
+    for name in ("perm", "split_edge", "split_drug"):
+        assert torch.equal(getattr(ours.inputs.dec_order, name),
+                           getattr(order, name)), name
     if side == "test":
         train = stack_folds(tds, FOLDS, side="train")
         for i, cv in enumerate(FOLDS):
