@@ -175,12 +175,26 @@ Phases, each of which fails the run if it fails:
     bases) held against its plain version, its gathered logits bit for bit
     one unsharded launch's.
 
+32. GCMC's bilinear decoder, a kernel of the port alone, at the
+    ``gcmc-ml10m-train`` cell's size (the cell's made ratings,
+    ``gnnbench/inputs/movielens.py``: ~8.1M train ratings of 69,878 users
+    and 10,677 movies, D = 75, 4 basis matrices, 10 levels, float32):
+    ``launch_fwd`` and ``launch_bwd`` against ``bilinear_fwd_plain`` and
+    ``bilinear_bwd_plain`` (the cotangent the softmax cross-entropy's of
+    random tables) within 1e-5 of the plain output's largest value, two
+    launches the same bits; then each one's time beside its
+    bound (``gnnbench/counts_gcmc.py:bilinear_work``, each input read once,
+    each output written once, or its operations at the float32 peak, the
+    longer) and the plain version's, and a profile of the backward's
+    kernels; then ``train.scale --model gcmc-ml10m`` at full size, 20 steps
+    with an eval every 10 (valid and test), with its launch counts.
+
 Each trainer phase sets every launch count to 0 just before it drives its
 entry point and reads the counts just after.
 
 The line before the last is the JSON kernel table (each row's
 ``launches`` on its main path, and ``mesh_launches``, a rank's on phase
-31's 2 x 2 mesh); the last line is ``{"ok": true, "device": {...}}``.
+31's 2 x 2 mesh; under ``port_only`` phase 32's row); the last line is ``{"ok": true, "device": {...}}``.
 Without a CUDA device the script exits non-zero before printing any
 result.
 """
@@ -836,6 +850,7 @@ def phase_model():
 
 
 def _counters():
+    from dream_gnn_tpu_torch.kernels import bilinear_decoder as bl
     from dream_gnn_tpu_torch.kernels import edge_decoder as ed
     from dream_gnn_tpu_torch.kernels import grid_decoder as gd
     from dream_gnn_tpu_torch.kernels import scale_decoder as sd
@@ -846,7 +861,7 @@ def _counters():
 
     return {"grid": gd.LAUNCHES, "edge": ed.LAUNCHES, "spmm": sp.LAUNCHES,
             "seq": sq.LAUNCHES, "scale": sd.LAUNCHES, "gather": sg.LAUNCHES,
-            "blocked": sb.LAUNCHES}
+            "blocked": sb.LAUNCHES, "bilinear": bl.LAUNCHES}
 
 
 def _launches():
@@ -3199,6 +3214,145 @@ def phase_mesh(gpu: str) -> dict:
     return dict(launches, spmd2d=res["ranks"][0]["spmd2d"]["launches"])
 
 
+# ---------------------------------------------------------------------------
+# GCMC alone on MovieLens-10M (train.scale --model gcmc-ml10m).
+
+BILINEAR_TOL = 1e-5   # of the plain output's largest value, float32 sums
+
+
+def _bilinear_profile(fwd, bwd, n_calls: int = 5):
+    """Device ms a call of each kernel the forward and backward launch."""
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(n_calls):
+            fwd()
+            bwd()
+        torch.cuda.synchronize()
+    return {ev.key: ev.device_time_total / n_calls / 1e3
+            for ev in prof.key_averages()
+            if "_kernel" in ev.key and ev.device_time_total > 0}
+
+
+def phase_bilinear():
+    """Phase 32: the bilinear decoder at the gcmc-ml10m cell's size, then
+    the GCMC trainer's launches; returns the kernel's row."""
+    from dream_gnn_tpu_torch.kernels import bilinear_decoder as bd
+    from dream_gnn_tpu_torch.train import scale
+    from gnnbench import counts_gcmc
+    from gnnbench.inputs.movielens import ratings
+
+    dev = torch.device("cuda", 0)
+    cfg = json.loads(Path(__file__).with_name("gnnbench").joinpath(
+        "configs", "gcmc-ml10m.json").read_text())
+    nu, nm, r = cfg["n_users"], cfg["n_movies"], cfg["num_ratings"]
+    b, d = cfg["gen_r_num_basis_func"], cfg["gcn_out_units"]
+    raw = ratings(cfg, 2_200_032_001, dev)
+    tr = raw["train"]
+    t0 = time.perf_counter()
+    lay = bd.build_bilinear_layout(raw["users"][tr], raw["movies"][tr], nu,
+                                   nm, device=dev)
+    torch.cuda.synchronize()
+    build_s = time.perf_counter() - t0
+    e = lay.n_edges
+    print(f"== bilinear decoder at gcmc-ml10m's size: {e} train ratings, "
+          f"the most rated movie "
+          f"{int(torch.bincount(lay.dst.long(), minlength=nm).max())}, the "
+          f"heaviest user "
+          f"{int(torch.bincount(lay.src.long(), minlength=nu).max())}; "
+          f"layout {build_s:.3f} s")
+    lab = lay.slot_labels(raw["levels"][tr])
+    del raw, tr
+    gen = torch.Generator(device=dev).manual_seed(32)
+    u = torch.randn(nu, d, device=dev, generator=gen)
+    v = torch.randn(nm, d, device=dev, generator=gen)
+    p = torch.randn(b, d, d, device=dev, generator=gen) * d ** -0.5
+    a = torch.randn(r, b, device=dev, generator=gen)
+    up = (u @ bd.basis_cat(p)).reshape(nu, b, d)
+    # The cotangent of the cell's loss: the softmax cross-entropy's.
+    logits = bd.bilinear_fwd_plain(up, v, a, lay).requires_grad_(True)
+    torch.nn.functional.cross_entropy(logits.T, lab).backward()
+    g = logits.grad
+    del logits, lab
+
+    def fwd():
+        return bd.launch_fwd(up, v, a, lay)
+
+    def bwd():
+        return bd.launch_bwd(g, up, u, v, a, lay)
+
+    def plain_fwd():
+        return bd.bilinear_fwd_plain(up, v, a, lay)
+
+    def plain_bwd():
+        return bd.bilinear_bwd_plain(g, up, u, v, a, lay)
+
+    _zero_launches()
+    out, grads = fwd(), bwd()
+    err = max(_hold("bilinear fwd", [("logits", out, plain_fwd())],
+                    BILINEAR_TOL),
+              _hold("bilinear bwd", list(zip(("dUP", "da", "W"), grads,
+                                             plain_bwd())), BILINEAR_TOL))
+    if not (torch.equal(fwd(), out)
+            and all(torch.equal(x, y) for x, y in zip(bwd(), grads))):
+        raise AssertionError("two bilinear launches differ in their bits")
+    if _launches()["bilinear"] != {"fwd": 2, "bwd": 2}:
+        raise AssertionError(f"bilinear launches {_launches()['bilinear']}"
+                             f" where 2 and 2 were made")
+    print("  two launches of each: the same bits")
+    del out, grads
+    ms = (_time_ms(fwd), _time_ms(bwd))
+    plain_ms = (_time_ms(plain_fwd, reps=3), _time_ms(plain_bwd, reps=3))
+    bounds = [bound_ms(nbytes, ops["float32"], torch.float32)
+              for ops, nbytes in counts_gcmc.bilinear_work(e, nu, nm, r, b,
+                                                           d)]
+    bound = sum(t for t, _ in bounds)
+    for name, t, (least, by), t_plain in zip(("forward", "backward"), ms,
+                                             bounds, plain_ms):
+        print(f"  {name}: {t:.4f} ms, bound {least:.4f} ms ({by}), plain "
+              f"{t_plain:.2f} ms")
+    print(f"  forward + backward {sum(ms):.4f} ms, bound {bound:.4f} ms: "
+          f"{100 * bound / sum(ms):.2f}% of the roofline")
+    for name, t in _bilinear_profile(fwd, bwd).items():
+        print(f"  {name[:60]:60s} {t:.4f} ms a call")
+
+    argv = ["--model", "gcmc-ml10m", "--iters", "21", "--valid_interval",
+            "10"]
+    print(f"== GCMC trainer: python -m dream_gnn_tpu_torch.train.scale "
+          f"{' '.join(argv)} (full size)")
+    with tempfile.TemporaryDirectory() as save_dir:
+        _zero_launches()
+        rc = scale.main([*argv, "--save_dir", save_dir])
+        torch.cuda.synchronize()
+        launches = _launches()
+        summary = json.loads(Path(save_dir, "summary.json").read_text())
+        csv = Path(save_dir, "test_metric0.csv").read_text().split()
+    if rc != 0 or len(csv) != 3:
+        raise AssertionError(f"GCMC trainer: rc {rc}, rows {csv}")
+    # Each forward sums 10 levels in two directions; an eval is a forward
+    # of the valid and one of the test side.
+    steps, evals = 20, 2 * 2
+    want = {mod: {k: 0 for k in counts} for mod, counts in launches.items()}
+    want.update(spmm={"fwd": 2 * r * (steps + evals), "bwd": 2 * r * steps},
+                bilinear={"fwd": steps + evals, "bwd": steps})
+    print(f"  launches on this path: {launches}")
+    if launches != want:
+        raise AssertionError(f"GCMC trainer launches {launches}, the path "
+                             f"implies {want}")
+    print(f"  {summary['ms_per_step']:.3f} ms/step (mean of the 20 steps, "
+          f"CUDA events); peak device memory "
+          f"{summary['peak_memory_bytes'] / 2 ** 30:.2f} GiB; layout build "
+          f"{summary['layout_build_s']:.3f} s; best valid RMSE "
+          f"{summary['best_valid_rmse']:.4f}")
+    return dict(name="bilinear_decoder", route="cuda",
+                source="dream_gnn_tpu_torch/kernels/csrc/bilinear_decoder.cu",
+                replaces=None, launches=launches["bilinear"],
+                max_abs_err=err, ms=ms, plain_ms=plain_ms,
+                bound_ms=[t for t, _ in bounds],
+                bound_by=[by for _, by in bounds], library_ms=None)
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
@@ -3247,6 +3401,7 @@ def main() -> int:
     phase_six_augment_methods(gpu, {"grid": ms_grid, "edges": ms_edges})
     phase_sharded(gpu)
     mesh = phase_mesh(gpu)
+    bilinear = phase_bilinear()
     print("  launches of rows 1, 3, 4 and 5 on the tooling paths: "
           + "; ".join(f"{k}: row 1 {v['grid']['fwd']}, row 3 "
                       f"{v['grid']['fwd_b']}, row 4 {v['grid']['bwd_b']}, "
@@ -3281,7 +3436,7 @@ def main() -> int:
     if len(rows) != 15:
         raise AssertionError(f"the kernel table has {len(rows)} rows, not 15")
     print(gpu)
-    print(json.dumps({"kernels": rows}))
+    print(json.dumps({"kernels": rows, "port_only": [bilinear]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}))

@@ -18,7 +18,8 @@ from pathlib import Path
 
 CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[2] / "build"
-SOURCES = ("grid_decoder", "edge_decoder", "spmm", "scale_decoder")
+SOURCES = ("grid_decoder", "edge_decoder", "spmm", "scale_decoder",
+           "bilinear_decoder")
 
 _libs = {}
 

@@ -7,6 +7,15 @@ Port of ``dream_gnn_tpu/nn/gcmc.py`` (reference ``GCMCLayer`` +
 Outputs are summed over relations ('sum' accumulation), activated, dropped
 out and projected by a shared Linear (layers.py:133-141).
 
+GCMC alone (DGL's ``examples/pytorch/gcmc``, ``GCMCLayer``): 'stack'
+accumulation concatenates the relations' messages of gcn_agg_units / R
+units in relation order before the activation, the dropout and the
+Linear(gcn_agg_units, out); ``gcmc_stack_layer_init`` gives each side its
+own per-relation weights, of the side's input width (``share_param``
+off), and with one-hot inputs (``drug_feat``/``dis_feat`` None) a
+relation's messages are its weight's rows: nothing is multiplied by an
+identity matrix.
+
 Aggregation by layout:
 - dense (``BipartiteGraph``): one matrix product over the adjacency mask,
   times the per-etype edge keep masks of augmentation, in union with its
@@ -94,8 +103,30 @@ def gcmc_layer_init(gen, *, in_units: int, msg_units: int, out_units: int,
     return params
 
 
+def gcmc_stack_layer_init(gen, *, drug_in: int, dis_in: int,
+                          msg_units: int, out_units: int, num_ratings: int):
+    """Params of GCMC alone's layer (DGL's ``GCMCLayer`` with share_param
+    off): per-relation weights of each side, ``w_drug`` (R, drug_in, msg)
+    and ``w_dis`` (R, dis_in, msg), each relation's xavier as DGL's
+    ``GCMCGraphConv``; ``ifc`` projects the drugs (users), ``fc`` the
+    diseases (items), from the R * msg stacked units."""
+    stacked = num_ratings * msg_units
+    return {
+        "w_drug": init_lib.uniform(gen, (num_ratings, drug_in, msg_units),
+                                   (6.0 / (drug_in + msg_units)) ** 0.5),
+        "w_dis": init_lib.uniform(gen, (num_ratings, dis_in, msg_units),
+                                  (6.0 / (dis_in + msg_units)) ** 0.5),
+        "ifc_w": init_lib.xavier_linear(gen, stacked, out_units),
+        "ifc_b": init_lib.torch_linear(gen, stacked, out_units)[1],
+        "fc_w": init_lib.xavier_linear(gen, stacked, out_units),
+        "fc_b": init_lib.torch_linear(gen, stacked, out_units)[1],
+    }
+
+
 def _relation_weights(params, num_ratings: int, share_param: bool):
     """(W_fwd, W_rev), each (..., R, in, msg)."""
+    if "w_drug" in params:
+        return params["w_drug"], params["w_dis"]
     if share_param:
         basis = params["basis"]
         *lead, b, in_units, msg_units = basis.shape
@@ -106,9 +137,11 @@ def _relation_weights(params, num_ratings: int, share_param: bool):
     return conv_w[..., 0, :, :], conv_w[..., 1, :, :]
 
 
-def _aggregator(graph, edge_masks):
+def _aggregator(graph, edge_masks, msg_dtype=None):
     """``aggregate(r, hd, hv)`` -> (messages into diseases, into drugs) of
-    rating r over ``graph``'s layout, with the augmentation's edge masks."""
+    rating r over ``graph``'s layout, with the augmentation's edge masks;
+    ``msg_dtype`` is the slabbed and grouped SpMMs' message type (None:
+    their bf16 default)."""
     if isinstance(graph, BipartiteGraph):
         adjs = [graph.a0(), graph.a1]  # rating order = rating_vals [0, 1]
 
@@ -170,8 +203,10 @@ def _aggregator(graph, edge_masks):
     if spmm is None:
         raise ValueError(f"no GCMC aggregation over a {type(graph).__name__}")
 
+    kw = {} if msg_dtype is None else {"dtype": msg_dtype}
+
     def aggregate(r, hd, hv):
-        return spmm(graph.fwd[r], hd), spmm(graph.rev[r], hv)
+        return spmm(graph.fwd[r], hd, **kw), spmm(graph.rev[r], hv, **kw)
     return aggregate
 
 
@@ -180,7 +215,7 @@ def gcmc_layer_apply(params, graph,
                      dropout_rate: float, agg_act: str = "leaky",
                      share_param: bool = True, train: bool = False,
                      generator: Optional[torch.Generator] = None,
-                     edge_masks=None):
+                     edge_masks=None, accum: str = "sum", msg_dtype=None):
     """One GCMC layer forward.
 
     Args:
@@ -197,10 +232,15 @@ def gcmc_layer_apply(params, graph,
         or grouped graph, sharded or not, which arrives already masked.
         The graph's ci/cj stay *stale* by construction (parity trap,
         SURVEY.md §7.3.3).
+      drug_feat, dis_feat: the input features, or None for one-hot inputs
+        (the relation weights' rows are then the messages).
+      accum: 'sum' over the relations or 'stack' (concatenated in relation
+        order); msg_dtype: the slabbed SpMM's message type (None: bf16).
     Returns (drug_out, dis_out), each (..., N, out_units).
     """
-    aggregate = _aggregator(graph, edge_masks)
-    num_ratings = params["att"].shape[-2]
+    aggregate = _aggregator(graph, edge_masks, msg_dtype)
+    num_ratings = (params["att"].shape[-2] if "att" in params
+                   else params["w_drug"].shape[-3])
     act = get_activation(agg_act)
     ci_d, cj_d0, ci_v, cj_v0 = (graph.ci_drug, graph.cj_drug, graph.ci_dis,
                                 graph.cj_dis)
@@ -216,6 +256,7 @@ def gcmc_layer_apply(params, graph,
 
     msg_dis = 0.0
     msg_drug = 0.0
+    stack_dis, stack_drug = [], []
     for r in range(num_ratings):
         # drug -> disease (etype str(r)): node-dropout on the src norm cj
         # (layers.py:224-225), fresh mask per (rating, direction).
@@ -223,12 +264,21 @@ def gcmc_layer_apply(params, graph,
         if train:
             cj_d = drop_d(generator, cj_d, dropout_rate, train)
             cj_v = drop_v(generator, cj_v, dropout_rate, train)
-        hd = torch.matmul(drug_feat, w_fwd[..., r, :, :])
+        hd = w_fwd[..., r, :, :] if drug_feat is None \
+            else torch.matmul(drug_feat, w_fwd[..., r, :, :])
         # disease -> drug (etype rev-r) reuses W[r] (layers.py:126-127)
-        hv = torch.matmul(dis_feat, w_rev[..., r, :, :])
+        hv = w_rev[..., r, :, :] if dis_feat is None \
+            else torch.matmul(dis_feat, w_rev[..., r, :, :])
         m_dis, m_drug = aggregate(r, hd * cj_d, hv * cj_v)
-        msg_dis = msg_dis + m_dis
-        msg_drug = msg_drug + m_drug
+        if accum == "stack":
+            stack_dis.append(m_dis)
+            stack_drug.append(m_drug)
+        else:
+            msg_dis = msg_dis + m_dis
+            msg_drug = msg_drug + m_drug
+    if accum == "stack":
+        msg_dis = torch.cat(stack_dis, dim=-1)
+        msg_drug = torch.cat(stack_drug, dim=-1)
 
     drug_h = act(msg_drug * ci_d)
     dis_h = act(msg_dis * ci_v)

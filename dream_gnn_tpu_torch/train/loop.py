@@ -101,9 +101,15 @@ def train_on_inputs(model_cfg: ModelConfig, cfg: TrainConfig,
                     train_labels, test_labels, train_w, test_w,
                     generator: torch.Generator, *,
                     save_dir: Optional[str] = None, save_id: int = 0,
-                    verbose: bool = True, resume_from: Optional[str] = None):
+                    verbose: bool = True, resume_from: Optional[str] = None,
+                    valid=None):
     """The fold-training core on explicit inputs: interval loops, plateau
     LR, best-by-test-AUPR, the CSV contract, checkpoints and resume.
+    GCMC alone (``model_kind='gcmc'``, train/scale.py's ``--model
+    gcmc-ml10m``) evaluates the RMSE of ``valid`` = (inputs, labels,
+    weights) and of the test side instead, takes the plateau LR and the best
+    iteration by the lowest valid RMSE, as DGL's example does, and writes
+    ``iter, loss, valid_rmse, test_rmse``; it keeps no checkpoints.
     ``train_w``/``test_w`` (1/0 per edge) weight the edges mode's loss and
     masked metrics with ``train_labels``/``test_labels``; grid mode scores
     the grid's cells.
@@ -114,6 +120,27 @@ def train_on_inputs(model_cfg: ModelConfig, cfg: TrainConfig,
     state, the generator, the lr, the plateau scheduler and the best-by-AUPR
     bookkeeping (best params included) of a ``checkpoint_every`` file, and
     the CSV keeps its rows up to the checkpoint's step."""
+    gcmc = model_cfg.model_kind == "gcmc"
+    if gcmc and (valid is None or resume_from or cfg.checkpoint_every):
+        raise ValueError("GCMC alone trains with a valid side and without "
+                         "checkpoints")
+    # The sides evaluated at each interval and their metrics (the CSV's
+    # columns); ``score`` picks the best iteration and drives the plateau
+    # LR, the larger ``sign * score`` the better.  ``best`` names DREAM's
+    # test metrics plainly, as its checkpoints do (``BEST_KEYS``).
+    test_side = ("test", test_inputs, test_labels, test_w)
+    if gcmc:
+        sides, names = (("valid", *valid), test_side), ("rmse",)
+        score, sign = "valid_rmse", -1.0
+        best = dict(valid_rmse=float("inf"), test_rmse=float("inf"), iter=0)
+    else:
+        sides = (("train", train_inputs, train_labels, train_w), test_side)
+        names, score, sign = ("auroc", "aupr"), "test_aupr", 1.0
+        best = dict(aupr=-1.0, auroc=0.0, iter=0, train_aupr=0.0,
+                    train_auroc=0.0)
+    cols = [f"{side}_{n}" for side, *_ in sides for n in names]
+    keep = {c: c[len("test_"):] if not gcmc and c.startswith("test_")
+            else c for c in cols}
     # Every encoder layout has the norms; only the dense one has a1.
     device = train_inputs.enc_graph.ci_drug.device
     params = init_params(generator, model_cfg)
@@ -121,8 +148,6 @@ def train_on_inputs(model_cfg: ModelConfig, cfg: TrainConfig,
     one_step = make_one_step(model_cfg, cfg)
     plateau = PlateauScheduler(cfg.train_lr, patience=cfg.plateau_patience,
                                factor=cfg.plateau_factor)
-    best = dict(aupr=-1.0, auroc=0.0, iter=0, train_aupr=0.0,
-                train_auroc=0.0)
     best_params = None
     start_iter = 0
     if resume_from:
@@ -134,9 +159,7 @@ def train_on_inputs(model_cfg: ModelConfig, cfg: TrainConfig,
     if save_dir:
         os.makedirs(save_dir, exist_ok=True)
         logger = MetricLogger(
-            ["iter", "loss", "train_auroc", "train_aupr",
-             "test_auroc", "test_aupr"],
-            ["%d", "%.4f", "%.4f", "%.4f", "%.4f", "%.4f"],
+            ["iter", "loss", *cols], ["%d"] + ["%.4f"] * (1 + len(cols)),
             os.path.join(save_dir, f"test_metric{save_id}.csv"),
             resume_iter=start_iter if resume_from else None)
 
@@ -154,30 +177,28 @@ def train_on_inputs(model_cfg: ModelConfig, cfg: TrainConfig,
         done += chunk
         if chunk != cfg.train_valid_interval:
             break   # trailing partial chunk: the reference never evals there
-        loss, tr_auroc, tr_aupr, te_auroc, te_aupr = [float(x) for x in (
-            losses[-1],
-            *evaluate(state.params, train_inputs, model_cfg, train_labels,
-                      train_w),
-            *evaluate(state.params, test_inputs, model_cfg, test_labels,
-                      test_w))]
+        outs = [(side, evaluate(state.params, x, model_cfg, y, w))
+                for side, x, y, w in sides]
+        loss = float(losses[-1])
+        m = {f"{side}_{n}": float(v) for side, vals in outs
+             for n, v in zip(names, vals)}
 
-        new_lr = plateau.step(te_aupr)
+        new_lr = plateau.step(sign * m[score])
         for group in state.opt.param_groups:
             group["lr"] = new_lr
 
         if logger:
-            logger.log(iter=done, loss=loss, train_auroc=tr_auroc,
-                       train_aupr=tr_aupr, test_auroc=te_auroc,
-                       test_aupr=te_aupr)
+            logger.log(iter=done, loss=loss, **m)
         if verbose:
-            print(f"Iter={done:5d}, Loss={loss:.4f}, "
-                  f"Train: AUROC={tr_auroc:.4f}, AUPR={tr_aupr:.4f}, "
-                  f"Test: AUROC={te_auroc:.4f}, AUPR={te_aupr:.4f}, "
+            text = ", ".join(
+                f"{side.capitalize()}: " + ", ".join(
+                    f"{n.upper()}={m[f'{side}_{n}']:.4f}" for n in names)
+                for side, *_ in sides)
+            print(f"Iter={done:5d}, Loss={loss:.4f}, {text}, "
                   f"{ms:.3f} ms/step")
 
-        if te_aupr > best["aupr"]:
-            best = dict(aupr=te_aupr, auroc=te_auroc, iter=done,
-                        train_aupr=tr_aupr, train_auroc=tr_auroc)
+        if sign * m[score] > sign * best[keep[score]]:
+            best = dict({keep[c]: m[c] for c in cols}, iter=done)
             if cfg.save_model:
                 best_params = map_params(lambda t: t.detach().cpu().clone(),
                                          state.params)
@@ -195,10 +216,10 @@ def train_on_inputs(model_cfg: ModelConfig, cfg: TrainConfig,
     if save_dir:
         with open(os.path.join(save_dir, f"best_metric{save_id}.csv"),
                   "w") as f:
-            f.write("iter,train_auroc,train_aupr,test_auroc,test_aupr\n")
-            f.write(f"{best['iter']},{best['train_auroc']:.4f},"
-                    f"{best['train_aupr']:.4f},{best['auroc']:.4f},"
-                    f"{best['aupr']:.4f}\n")
+            f.write(",".join(["iter", *cols]) + "\n")
+            f.write(",".join([str(best["iter"])]
+                             + [f"{best[keep[c]]:.4f}" for c in cols])
+                    + "\n")
         if cfg.save_model and best_params is not None:
             save_params(os.path.join(save_dir,
                                       f"best_model_fold{save_id}.npz"),
@@ -209,7 +230,7 @@ def train_on_inputs(model_cfg: ModelConfig, cfg: TrainConfig,
               f"({'CUDA events' if timer.cuda else 'host clock'}, "
               f"{timer.total_steps} steps)")
 
-    return dict(best_auroc=best["auroc"], best_aupr=best["aupr"],
-                best_iter=best["iter"], elapsed_s=elapsed,
+    return dict(best_iter=best["iter"], elapsed_s=elapsed,
                 final_state=state, best_params=best_params,
-                model_cfg=model_cfg, ms_per_step=timer.ms_per_step)
+                model_cfg=model_cfg, ms_per_step=timer.ms_per_step,
+                **{f"best_{k}": v for k, v in best.items() if k != "iter"})

@@ -34,6 +34,19 @@ def bce_with_logits(logits: torch.Tensor, targets: torch.Tensor,
     return num / den
 
 
+def softmax_cross_entropy(logits: torch.Tensor, labels: torch.Tensor,
+                          weight=None) -> torch.Tensor:
+    """GCMC's loss (DGL's ``nn.CrossEntropyLoss``): the mean softmax
+    cross-entropy of class-major ``logits`` (R, E) against the level index
+    ``labels`` (E,) of each rating; with ``weight`` (E,) the mean runs over
+    weight mass."""
+    loss = torch.logsumexp(logits, dim=0) \
+        - torch.gather(logits, 0, labels.long()[None])[0]
+    if weight is None:
+        return loss.mean()
+    return torch.sum(loss * weight) / torch.sum(weight)
+
+
 def common_loss(emb1: torch.Tensor, emb2: torch.Tensor) -> torch.Tensor:
     """Covariance-alignment loss between the two routes (utils.py:87-95):
     MSE between the N x N Gram matrices of centred, row-L2-normalised

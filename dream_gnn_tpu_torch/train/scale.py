@@ -2,6 +2,22 @@
 
     python -m dream_gnn_tpu_torch.train.scale [--iters N] [--quick]
         [--device -1] [--save_dir DIR] [--checkpoint_every N] [--resume]
+    python -m dream_gnn_tpu_torch.train.scale --model gcmc-ml10m
+        [--ratings ratings.dat] [--iters N] [--quick] [--device -1]
+        [--save_dir DIR]
+
+``--model gcmc-ml10m`` trains GCMC alone on MovieLens-10M as DGL's
+``examples/pytorch/gcmc`` README runs it (``--gcn_agg_accum=stack
+--gcn_dropout=0.3 --train_lr=0.001 --use_one_hot_fea
+--gen_r_num_basis_func=4``, the other settings train.py's defaults): one
+'stack' GCMC layer over the 10 rating levels' relations, one-hot inputs,
+500 -> 75 units, the bilinear decoder with 4 basis matrices and a 10-way
+softmax, full-batch Adam steps over every train rating; the valid and the
+test RMSE every ``--valid_interval`` steps (``gcmc_model_config``,
+``build_gcmc_inputs``).  ``--ratings`` reads MovieLens' ``ratings.dat``;
+without it the ratings are made from ``--data_seed`` at the dataset's
+shapes (data/movielens.py), or with ``--quick`` at a tiny size
+(``QUICK_MOVIELENS``: 60 users, 40 movies, 600 ratings).
 
 Port of ``scripts/train_scale.py`` of the JAX package: a 100k x 100k
 synthetic problem through the slabbed SpMM encoder (kernels/spmm_slab.py),
@@ -56,6 +72,7 @@ POS_RATE = 0.10
 SEED = 1234
 ITERS = 4001
 QUICK_ITERS = 501
+QUICK_MOVIELENS = (60, 40, 600)    # users, movies, ratings of --quick
 VALID_INTERVAL = 100
 CHECKPOINT_EVERY = 1000
 
@@ -164,12 +181,84 @@ def build_inputs(prob, n_drug: int, n_dis: int, device):
     return out[0], out[1], lab_tr, lab_te, w_tr, w_te, layout_s
 
 
+def gcmc_model_config(n_users: int, n_movies: int):
+    """GCMC alone at the published ml-10m run's widths: one-hot inputs of
+    ``n_users`` and ``n_movies``, 10 levels, one 'stack' layer of 500 units
+    (50 a level) to 75, leaky, dropout 0.3, share_param off, 4 basis
+    matrices, float32."""
+    from dream_gnn_tpu_torch.config import ModelConfig
+    from dream_gnn_tpu_torch.data.movielens import LEVELS
+
+    return ModelConfig(
+        model_kind="gcmc", src_in_units=n_users,
+        dst_in_units=n_movies, num_ratings=len(LEVELS), layers=1,
+        gcn_agg_units=500, gcn_agg_accum="stack", gcn_out_units=75,
+        share_param=False, model_activation="leaky", dropout=0.3,
+        gen_r_num_basis_func=4, compute_dtype="float32",
+        rating_values=LEVELS)
+
+
+def build_gcmc_inputs(users, movies, levels, parts, n_users: int,
+                      n_movies: int, device, num_ratings: int = 10):
+    """GCMC alone's inputs from ratings (users, movies, level indices) and
+    the (train, valid, test) index arrays ``parts``, as DGL's data.py
+    builds them: the train and valid ratings are decoded over the encoder
+    graph of the train ratings, the test ratings over that of the train and
+    valid ones; each graph has a relation a level and direction (the
+    slabbed layouts), each side the bilinear decoder's layout.  Returns
+    ([ModelInputs], [labels], [weights]) of the three sides, the labels the
+    level indices in slot order, and the seconds of the layout builds."""
+    from dream_gnn_tpu_torch.graph.slabbed import build_enc_graph_slabbed
+    from dream_gnn_tpu_torch.kernels.bilinear_decoder import \
+        build_bilinear_layout
+    from dream_gnn_tpu_torch.model.dream_gnn import ModelInputs
+    from dream_gnn_tpu_torch.utils.device import as_tensor
+
+    device = torch.device(device)
+    users, movies, levels = (as_tensor(x, torch.int64, device)
+                             for x in (users, movies, levels))
+    parts = [as_tensor(p, torch.int64, device) for p in parts]
+    _sync(device)
+    t0 = time.perf_counter()
+
+    def graph(idx):
+        return build_enc_graph_slabbed(
+            torch.stack([users[idx], movies[idx]]), levels[idx], n_users,
+            n_movies, ratings=range(num_ratings), device=device)
+
+    train_graph = graph(parts[0])
+    graphs = (train_graph, train_graph, graph(torch.cat(parts[:2])))
+    inputs, labels, weights = [], [], []
+    for idx, g in zip(parts, graphs):
+        layout = build_bilinear_layout(users[idx], movies[idx], n_users,
+                                       n_movies, device=device)
+        inputs.append(ModelInputs(
+            enc_graph=g, dec_src=layout.src, dec_dst=layout.dst,
+            drug_graph=None, drug_sim_feat=None, drug_feat=None,
+            dis_graph=None, dis_sim_feat=None, dis_feat=None,
+            dec_layout=layout))
+        labels.append(layout.slot_labels(levels[idx]))
+        weights.append(torch.ones(idx.shape[0], dtype=torch.float32,
+                                  device=device))
+    _sync(device)
+    return inputs, labels, weights, time.perf_counter() - t0
+
+
 def build_parser():
     p = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
+    p.add_argument("--model", choices=("dream", "gcmc-ml10m"),
+                   default="dream",
+                   help="DREAM-GNN on the planted problem, or GCMC alone "
+                        "on MovieLens-10M")
+    p.add_argument("--ratings", type=str, default=None,
+                   help="gcmc-ml10m: MovieLens' ratings.dat")
+    p.add_argument("--data_seed", type=int, default=SEED,
+                   help="gcmc-ml10m: seed of the made ratings and the split")
     p.add_argument("--iters", type=int, default=ITERS,
                    help="train_max_iter: iters - 1 training steps")
     p.add_argument("--quick", action="store_true",
-                   help=f"at most {QUICK_ITERS} iterations")
+                   help=f"at most {QUICK_ITERS} iterations; gcmc-ml10m: "
+                        f"made ratings at a tiny size")
     p.add_argument("--device", type=int, default=0,
                    help="CUDA device index; -1 runs on the CPU")
     p.add_argument("--save_dir", type=str, default=SAVE_DIR)
@@ -196,6 +285,8 @@ def main(argv=None) -> int:
     device = resolve_device("cpu" if args.device < 0
                             else f"cuda:{args.device}")
     set_numerics()
+    if args.model == "gcmc-ml10m":
+        return main_gcmc(args, iters, device)
     n = args.n_nodes
 
     rng = np.random.default_rng(SEED)
@@ -255,6 +346,57 @@ def main(argv=None) -> int:
           f"{res['best_auroc']:.4f}, AUPR {res['best_aupr']:.4f} "
           f"(base rate {POS_RATE})", flush=True)
     return 0 if ok else 1
+
+
+def main_gcmc(args, iters: int, device) -> int:
+    """``--model gcmc-ml10m``: GCMC alone on MovieLens-10M; prints the best
+    valid RMSE's iteration and its test RMSE and writes summary.json."""
+    from dream_gnn_tpu_torch.config import AugmentConfig, TrainConfig
+    from dream_gnn_tpu_torch.data import movielens
+    from dream_gnn_tpu_torch.train.loop import train_on_inputs
+
+    if args.ratings:
+        users, movies, levels, n_users, n_movies = movielens.read_ratings(
+            args.ratings)
+    else:
+        n_users, n_movies, n_ratings = QUICK_MOVIELENS if args.quick else (
+            movielens.N_USERS, movielens.N_MOVIES, movielens.N_RATINGS)
+        users, movies, levels = movielens.synthetic_ratings(
+            args.data_seed, n_users, n_movies, n_ratings)
+    parts = movielens.split(users.shape[0], args.data_seed)
+    inputs, labels, weights, layout_s = build_gcmc_inputs(
+        users, movies, levels, parts, n_users, n_movies, device)
+    print(f"{users.shape[0]} ratings of {n_users} users and {n_movies} "
+          f"movies; layout build {layout_s:.3f} s on {device}", flush=True)
+    model = gcmc_model_config(n_users, n_movies)
+    cfg = TrainConfig(model=model, augment=AugmentConfig(methods=()),
+                      train_lr=0.001, weight_decay=0.0, train_grad_clip=1.0,
+                      beta=0.0, train_max_iter=iters,
+                      train_valid_interval=args.valid_interval,
+                      save_dir=args.save_dir)
+    os.makedirs(args.save_dir, exist_ok=True)
+    if device.type == "cuda":
+        torch.cuda.reset_peak_memory_stats(device)
+    gen = torch.Generator(device=device).manual_seed(SEED)
+    res = train_on_inputs(model, cfg, inputs[0], inputs[2], labels[0],
+                          labels[2], weights[0], weights[2], gen,
+                          save_dir=args.save_dir,
+                          valid=(inputs[1], labels[1], weights[1]))
+    summary = dict(
+        iters=iters - 1, ms_per_step=res["ms_per_step"],
+        best_valid_rmse=res["best_valid_rmse"],
+        best_test_rmse=res["best_test_rmse"], best_iter=res["best_iter"],
+        ratings=int(users.shape[0]), users=n_users, movies=n_movies,
+        data=args.ratings or f"made from seed {args.data_seed}",
+        layout_build_s=layout_s,
+        peak_memory_bytes=(torch.cuda.max_memory_allocated(device)
+                           if device.type == "cuda" else None),
+        device=(torch.cuda.get_device_name(device) if device.type == "cuda"
+                else "cpu"))
+    with open(os.path.join(args.save_dir, "summary.json"), "w") as f:
+        json.dump(summary, f, indent=2)
+    print("GCMC_SUMMARY " + json.dumps(summary), flush=True)
+    return 0
 
 
 if __name__ == "__main__":

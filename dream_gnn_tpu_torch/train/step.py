@@ -14,7 +14,10 @@ association grid (``enc_graph.a1``) weighted by the in-fold cell mask
 (``enc_graph.mask``) — the same cells and the same mean as the candidate
 edge list.  On the scale path (a ``dec_layout``) pred is in the layout's
 slot order, and the labels and weights passed in are the slot-order ones of
-``ScaleDecoderLayout.slot_labels``.
+``ScaleDecoderLayout.slot_labels``.  GCMC alone (``model_kind='gcmc'``):
+pred is the (R, E) class-major logits of the ratings in the bilinear
+layout's slot order, the labels their level indices in that order, and the
+loss the softmax cross-entropy; its eval is the expected rating's RMSE.
 
 Ranks.  Over a process group (a rank-sharded encoder graph or a
 candidate-sharded decoder layout, model/dream_gnn.py) every rank runs this
@@ -61,9 +64,11 @@ from dream_gnn_tpu_torch.nn.gcmc import SHARDED_LAYOUTS
 from dream_gnn_tpu_torch.sharding.collectives import broadcast_first_
 from dream_gnn_tpu_torch.sharding.scale_decoder_spmd import \
     ShardedScaleDecoderLayout
-from dream_gnn_tpu_torch.train.losses import total_loss
+from dream_gnn_tpu_torch.train.losses import (softmax_cross_entropy,
+                                              total_loss)
 from dream_gnn_tpu_torch.train.optim import clip_by_global_norm_
-from dream_gnn_tpu_torch.utils.metrics import aupr_masked, auroc_masked
+from dream_gnn_tpu_torch.utils.metrics import (aupr_masked, auroc_masked,
+                                               rmse_expected)
 from dream_gnn_tpu_torch.utils.profiling import span
 
 
@@ -141,11 +146,14 @@ def make_one_step(model_cfg: ModelConfig, train_cfg: TrainConfig):
             pred, labels, weight = decoder_targets(pred, aug_inputs,
                                                    model_cfg, labels, weight)
             with span("loss"):
-                loss, _ = total_loss(
-                    pred, labels, drug_out, drug_sim_out, dis_out,
-                    dis_sim_out, beta=train_cfg.beta,
-                    smoothing=train_cfg.label_smoothing, weight=weight,
-                    group=_candidate_group(aug_inputs))
+                if model_cfg.model_kind == "gcmc":
+                    loss = softmax_cross_entropy(pred, labels, weight)
+                else:
+                    loss, _ = total_loss(
+                        pred, labels, drug_out, drug_sim_out, dis_out,
+                        dis_sim_out, beta=train_cfg.beta,
+                        smoothing=train_cfg.label_smoothing, weight=weight,
+                        group=_candidate_group(aug_inputs))
         state.opt.zero_grad()
         with span("backward"):
             loss.backward()
@@ -172,11 +180,15 @@ def evaluate(params, inputs: ModelInputs, model_cfg: ModelConfig,
     (grid mode).  Parity trap §7.3.1: the caller passes the *test* encoder
     graph for test-set evaluation.  With a candidate-sharded decoder the
     labels and weights are this rank's slot-order ones, and the metrics run
-    over every rank's candidates."""
+    over every rank's candidates.  GCMC alone gives (RMSE,) of the
+    expected rating."""
     with span("eval"):
         pred, *_ = forward(params, inputs, model_cfg, train=False)
         pred, labels, weight = decoder_targets(pred, inputs, model_cfg,
                                                labels, weight)
+        if model_cfg.model_kind == "gcmc":
+            return (rmse_expected(pred, labels, weight,
+                                  model_cfg.rating_values),)
         if _candidate_group(inputs) is not None:
             # Every rank's slots, in candidate order, on every rank.
             pred, labels, weight = (inputs.dec_layout.gather(x)

@@ -158,3 +158,16 @@ def roc_aupr_host(y_true, y_score):
     recall = tps / tps[-1] if tps[-1] != 0 else np.ones_like(tps)
     pr = _trapezoid(np.r_[precision[::-1], 1.0], np.r_[recall[::-1], 0.0])
     return roc, pr
+
+
+def rmse_expected(logits: torch.Tensor, labels: torch.Tensor, weight,
+                  values) -> torch.Tensor:
+    """GCMC's RMSE (DGL's ``evaluate``): the prediction of a rating is the
+    softmax over its class-major logits (R, E) times the level ``values``
+    (R,), against the value of its level index ``labels`` (E,); weighted by
+    ``weight`` (E,), on the device."""
+    values = torch.as_tensor(values, dtype=torch.float32,
+                             device=logits.device)
+    pred = torch.softmax(logits, dim=0).T @ values
+    err = (pred - values[labels.long()]) ** 2
+    return torch.sqrt(torch.sum(err * weight) / torch.sum(weight))

@@ -6,7 +6,10 @@ and mirror) and the scale benchmark's (the same segmented sum behind
 spmm_gather and spmm_blocked) against their plain versions at ragged
 shapes (for the segmented sum: every rounding, f32 and bf16 x, null src and
 val, every width path of d, rows of 0 to 1,000 entries), their input
-checks, and the entry points' use of them.  Every test
+checks, and the entry points' use of them; and GCMC's bilinear decoder
+(its forward, user pass and movie pass at a skewed size, bit-for-bit
+repeats, autograd against the CPU's plain version), within 1e-5 of the
+largest value (float32 sums in other orders).  Every test
 carries the ``gpu`` marker and skips without a CUDA device.  The file
 imports no JAX, so that it runs where the card is:
 
@@ -2031,3 +2034,117 @@ def test_sharded_step_on_the_card_matches_one_rank(cuda, tmp_path):
         a, b = r0[k], r0[k.replace("/S/", "/1/")]
         err = float(np.abs(a - b).max()) / max(float(np.abs(b).max()), 1e-30)
         assert err <= 1e-4, k
+
+
+# ---------------------------------------------------------------------------
+# GCMC's bilinear decoder (kernels/bilinear_decoder.py).
+
+def _bilinear_case(dev, n_users, n_movies, n_edges, r, b, d, seed=0,
+                   heavy=10_000):
+    """Ratings with one movie of ``heavy`` ratings and one level of under 1%
+    of them, a unit-scale table pair, the basis, and the softmax
+    cross-entropy's cotangent of random levels."""
+    from dream_gnn_tpu_torch.kernels.bilinear_decoder import \
+        build_bilinear_layout
+
+    rng = np.random.default_rng(seed)
+    heavy = min(heavy, n_users)
+    users = np.concatenate([rng.permutation(n_users)[:heavy],
+                            rng.integers(0, n_users, n_edges)])
+    movies = np.concatenate([np.zeros(heavy, np.int64),
+                             rng.integers(1, n_movies, n_edges)])
+    key = np.unique(users * n_movies + movies)
+    users, movies = key // n_movies, key % n_movies
+    p = np.full(r, 1.0)
+    p[0] = 0.005 * r
+    levels = rng.choice(r, users.shape[0], p=p / p.sum())
+    layout = build_bilinear_layout(users, movies, n_users, n_movies,
+                                   device=dev)
+
+    def t(x):
+        return torch.tensor(np.asarray(x, np.float32), device=dev)
+
+    u = t(rng.normal(0, 1, (n_users, d)))
+    v = t(rng.normal(0, 1, (n_movies, d)))
+    pb = t(rng.normal(0, d ** -0.5, (b, d, d)))
+    a = t(rng.normal(0, 1, (r, b)))
+    lab = layout.slot_labels(torch.tensor(levels, device=dev))
+    return layout, u, v, pb, a, lab
+
+
+def _rel(x, y):
+    return float((x - y).abs().max()) / max(float(y.abs().max()), 1e-30)
+
+
+@pytest.mark.parametrize("r,b,d", [(10, 4, 75), (10, 4, 128), (10, 4, 20)])
+def test_bilinear_kernels_match_plain(cuda, r, b, d):
+    """Forward and both backward passes at a skewed size (a movie of 10k
+    ratings, a level of under 1%): within 1e-5 of the largest value, the
+    f32 sums run in other orders."""
+    from dream_gnn_tpu_torch.kernels import bilinear_decoder as bd
+
+    layout, u, v, pb, a, lab = _bilinear_case(cuda, 3000, 700, 60_000, r, b,
+                                              d)
+    assert int((layout.dst == 0).sum()) >= 3000
+    up = (u @ bd.basis_cat(pb)).reshape(-1, b, d)
+    out = bd.launch_fwd(up, v, a, layout)
+    ref = bd.bilinear_fwd_plain(up, v, a, layout)
+    assert out.shape == (r, layout.n_edges)
+    assert _rel(out, ref) <= 1e-5
+    logits = ref.clone().requires_grad_(True)
+    torch.nn.functional.cross_entropy(logits.T, lab).backward()
+    g = logits.grad
+    got = bd.launch_bwd(g, up, u, v, a, layout)
+    want = bd.bilinear_bwd_plain(g, up, u, v, a, layout)
+    for x, y in zip(got, want):
+        assert x.shape == y.shape
+        assert _rel(x, y) <= 1e-5
+
+
+def test_bilinear_kernels_repeat_bit_for_bit(cuda):
+    """Two launches of the forward and of the backward give the same
+    bits: every sum runs in a fixed order."""
+    from dream_gnn_tpu_torch.kernels import bilinear_decoder as bd
+
+    layout, u, v, pb, a, _ = _bilinear_case(cuda, 2000, 500, 40_000, 10, 4,
+                                            75, seed=3)
+    up = (u @ bd.basis_cat(pb)).reshape(-1, 4, 75)
+    g = torch.randn(10, layout.n_edges, device=cuda)
+    f1, f2 = (bd.launch_fwd(up, v, a, layout) for _ in range(2))
+    b1, b2 = (bd.launch_bwd(g, up, u, v, a, layout) for _ in range(2))
+    assert torch.equal(f1, f2)
+    for x, y in zip(b1, b2):
+        assert torch.equal(x, y)
+
+
+def test_bilinear_decoder_autograd_matches_cpu(cuda):
+    """The differentiable decoder on the card (the kernels) against the same
+    call on the CPU (the plain version): logits and every input's
+    gradient."""
+    from dream_gnn_tpu_torch.kernels.bilinear_decoder import (
+        bilinear_decoder, build_bilinear_layout)
+
+    layout, u, v, pb, a, lab = _bilinear_case(cuda, 500, 300, 20_000, 10, 4,
+                                              75, seed=5, heavy=500)
+    cpu = build_bilinear_layout(layout.src.cpu(), layout.dst.cpu(), 500, 300,
+                                device="cpu")
+    outs = []
+    for dev, lay in ((cuda, layout), (torch.device("cpu"), cpu)):
+        xs = [x.detach().to(dev).requires_grad_(True) for x in (u, v, pb, a)]
+        logits = bilinear_decoder(*xs, lay)
+        torch.nn.functional.cross_entropy(logits.T, lab.to(dev)).backward()
+        outs.append([logits.detach().cpu()] + [x.grad.cpu() for x in xs])
+    for x, y in zip(*outs):
+        assert _rel(x, y) <= 1e-5
+
+
+def test_bilinear_kernel_refuses_other_shapes(cuda):
+    from dream_gnn_tpu_torch.kernels import bilinear_decoder as bd
+
+    layout, u, v, pb, a, _ = _bilinear_case(cuda, 50, 40, 300, 10, 4, 16,
+                                            heavy=20)
+    up = (u @ bd.basis_cat(pb)).reshape(-1, 4, 16)
+    with pytest.raises(ValueError):
+        bd.launch_fwd(up, v, a[:3], layout)
+    with pytest.raises(ValueError):
+        bd.launch_fwd(up.double(), v, a, layout)
