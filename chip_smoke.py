@@ -189,12 +189,29 @@ Phases, each of which fails the run if it fails:
     kernels; then ``train.scale --model gcmc-ml10m`` at full size, 20 steps
     with an eval every 10 (valid and test), with its launch counts.
 
+    Its split counter (``kernels/spmm_slab.py:NARROW``) must count every
+    segment sum of the run on the narrow path, some of them split.
+
+33. GCMC's float32 segment sums at the same size (phase 32's ratings, the
+    encoder graph of the train ratings): what the 40 launches of a
+    training step (10 levels, each level's two layout pairs forward and
+    transposed, rows of 50) add to the split counter, then each one held
+    against ``segment_sum_plain`` within 1e-4 of its largest value and
+    launched twice for the same bits; each one's time beside its
+    layout's longest row and nnz, its bound
+    (``gnnbench/counts_gcmc.py:segment_sum_bytes``), the plain version's
+    time and ``torch.sparse.mm``'s; the times' correlation with the
+    longest row; a digest of the rows of at most 128 entries and one of
+    two wide launches at d = 128; a profile of the launches' kernels.
+
 Each trainer phase sets every launch count to 0 just before it drives its
 entry point and reads the counts just after.
 
 The line before the last is the JSON kernel table (each row's
 ``launches`` on its main path, and ``mesh_launches``, a rank's on phase
-31's 2 x 2 mesh; under ``port_only`` phase 32's row); the last line is ``{"ok": true, "device": {...}}``.
+31's 2 x 2 mesh; under ``port_only`` phase 32's row, under
+``narrow_segment_sum`` phase 33's, with phase 32's launches); the last
+line is ``{"ok": true, "device": {...}}``.
 Without a CUDA device the script exits non-zero before printing any
 result.
 """
@@ -861,7 +878,8 @@ def _counters():
 
     return {"grid": gd.LAUNCHES, "edge": ed.LAUNCHES, "spmm": sp.LAUNCHES,
             "seq": sq.LAUNCHES, "scale": sd.LAUNCHES, "gather": sg.LAUNCHES,
-            "blocked": sb.LAUNCHES, "bilinear": bl.LAUNCHES}
+            "blocked": sb.LAUNCHES, "bilinear": bl.LAUNCHES,
+            "narrow": sp.NARROW}
 
 
 def _launches():
@@ -3237,7 +3255,8 @@ def _bilinear_profile(fwd, bwd, n_calls: int = 5):
 
 def phase_bilinear():
     """Phase 32: the bilinear decoder at the gcmc-ml10m cell's size, then
-    the GCMC trainer's launches; returns the kernel's row."""
+    the GCMC trainer's launches; returns the kernel's row and the
+    trainer's split counter (``kernels/spmm_slab.py:NARROW``)."""
     from dream_gnn_tpu_torch.kernels import bilinear_decoder as bd
     from dream_gnn_tpu_torch.train import scale
     from gnnbench import counts_gcmc
@@ -3333,6 +3352,7 @@ def phase_bilinear():
     # Each forward sums 10 levels in two directions; an eval is a forward
     # of the valid and one of the test side.
     steps, evals = 20, 2 * 2
+    narrow = launches.pop("narrow")
     want = {mod: {k: 0 for k in counts} for mod, counts in launches.items()}
     want.update(spmm={"fwd": 2 * r * (steps + evals), "bwd": 2 * r * steps},
                 bilinear={"fwd": steps + evals, "bwd": steps})
@@ -3340,6 +3360,14 @@ def phase_bilinear():
     if launches != want:
         raise AssertionError(f"GCMC trainer launches {launches}, the path "
                              f"implies {want}")
+    # Every segment sum of the path is on the narrow path (rows of 50),
+    # and the movies' long rows are split.
+    print(f"  split counter (kernels/spmm_slab.py:NARROW): {narrow}")
+    if narrow["launches"] != sum(want["spmm"].values()) \
+            or narrow["split_launches"] == 0:
+        raise AssertionError(f"GCMC trainer: {narrow['launches']} narrow "
+                             f"launches of {sum(want['spmm'].values())}, "
+                             f"{narrow['split_launches']} of them split")
     print(f"  {summary['ms_per_step']:.3f} ms/step (mean of the 20 steps, "
           f"CUDA events); peak device memory "
           f"{summary['peak_memory_bytes'] / 2 ** 30:.2f} GiB; layout build "
@@ -3350,7 +3378,149 @@ def phase_bilinear():
                 replaces=None, launches=launches["bilinear"],
                 max_abs_err=err, ms=ms, plain_ms=plain_ms,
                 bound_ms=[t for t, _ in bounds],
-                bound_by=[by for _, by in bounds], library_ms=None)
+                bound_by=[by for _, by in bounds], library_ms=None), narrow
+
+
+def _segment_sum_profile(calls) -> dict:
+    """Device ms of each kernel over one run of ``calls``."""
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for fn in calls:
+            fn()
+        torch.cuda.synchronize()
+    return {ev.key: ev.device_time_total / 1e3 for ev in prof.key_averages()
+            if "segment_sum" in ev.key and ev.device_time_total > 0}
+
+
+def _corr(a, b) -> float:
+    return float(np.corrcoef(np.asarray(a, float), np.asarray(b, float))[0, 1])
+
+
+def phase_gcmc_segment_sums(narrow: dict):
+    """Phase 33: the GCMC layer's float32 segment sums of one training step
+    at the gcmc-ml10m cell's size, launch by launch; returns the narrow
+    path's row, whose launches and split counts are those of phase 32's
+    trainer run (``narrow``)."""
+    import hashlib
+
+    from dream_gnn_tpu_torch.graph.slabbed import build_enc_graph_slabbed
+    from dream_gnn_tpu_torch.kernels import spmm_slab as sp
+    from gnnbench import counts_gcmc
+    from gnnbench.inputs.movielens import ratings
+
+    dev = torch.device("cuda", 0)
+    cfg = json.loads(Path(__file__).with_name("gnnbench").joinpath(
+        "configs", "gcmc-ml10m.json").read_text())
+    nu, nm, r = cfg["n_users"], cfg["n_movies"], cfg["num_ratings"]
+    d = cfg["gcn_agg_units"] // r
+    raw = ratings(cfg, 2_200_032_001, dev)
+    tr = raw["train"]
+    t0 = time.perf_counter()
+    graph = build_enc_graph_slabbed(
+        torch.stack([raw["users"][tr], raw["movies"][tr]]), raw["levels"][tr],
+        nu, nm, ratings=range(r), device=dev)
+    torch.cuda.synchronize()
+    build_s = time.perf_counter() - t0
+    del raw, tr
+    # The step's 40 launches: each relation's two layout pairs, forward
+    # (pair.fwd) and the transposed backward (pair.bwd).
+    layouts = [(f"{side}[{i}].{k}", getattr(pair, k))
+               for i in range(r)
+               for side, pair in (("fwd", graph.fwd[i]), ("rev", graph.rev[i]))
+               for k in ("fwd", "bwd")]
+    print(f"== GCMC segment sums at gcmc-ml10m's size: {len(layouts)} "
+          f"launches, float32 rows of {d}, "
+          f"{sum(g.n_live for _, g in layouts) // 4} train ratings; graph "
+          f"{build_s:.3f} s")
+    # What the step's launches add to the split counter, from the sizes
+    # the layouts' pieces carry (phase 32's trainer draws its ratings
+    # uniformly, and splits few rows).
+    pcs = [g.pieces for _, g in layouts]
+    step_split = dict(launches=len(pcs),
+                      split_launches=sum(pc.n_split > 0 for pc in pcs),
+                      split_rows=sum(pc.n_split for pc in pcs),
+                      split_pieces=sum(pc.n_split + pc.n_extra for pc in pcs))
+    print(f"  split counter over one step's launches: {step_split}")
+    if step_split["split_launches"] == 0:
+        raise AssertionError("no launch of the step splits a row")
+    gen = torch.Generator(device=dev).manual_seed(33)
+    rows, calls, libs, short = [], [], [], hashlib.sha256()
+    worst = lib_worst = 0.0
+    for name, g in layouts:
+        x = torch.randn(g.n_src, d, device=dev, generator=gen)
+
+        def fn(g=g, x=x):
+            return sp.launch_segment_sum(g.row_ptr, g.src, g.val, x, False,
+                                         pieces=g.pieces)
+
+        out = fn()
+        ref = sp.segment_sum_plain(g.row_ptr, g.src, g.val, x, False)
+        worst = max(worst, _hold(name, [("out", out, ref)]))
+        if not torch.equal(out, fn()):
+            raise AssertionError(f"{name}: two launches differ in their bits")
+        lens = (g.row_ptr[1:] - g.row_ptr[:-1]).long()
+        # Rows of at most 128 entries sum in one piece: their bits are the
+        # one-warp-a-row kernel's.
+        short.update(out[lens <= 128].cpu().numpy().tobytes())
+        # The library's f32 CSR product of the same sum.
+        a = torch.sparse_csr_tensor(g.row_ptr, g.src, g.val,
+                                    size=(g.n_dst, g.n_src))
+        lib_worst = max(lib_worst, _rel(torch.sparse.mm(a, x), out))
+        ms = _time_ms(fn)
+        lib_ms = _time_ms(lambda a=a, x=x: torch.sparse.mm(a, x))
+        plain_ms = _time_ms(lambda: sp.segment_sum_plain(
+            g.row_ptr, g.src, g.val, x, False), reps=3)
+        bound = counts_gcmc.segment_sum_bytes(
+            g.n_src, g.n_dst, g.n_live, d) / PEAK_BYTES_S * 1e3
+        rows.append(dict(name=name, movies=g.n_dst == nm, nnz=g.n_live,
+                         longest=int(lens.max()), ms=ms, plain_ms=plain_ms,
+                         lib_ms=lib_ms, bound=bound))
+        calls.append(fn)
+        libs.append(lib_ms)
+        print(f"  {name:10s} into {'movies' if g.n_dst == nm else 'users '} "
+              f"nnz {g.n_live:8d} longest row {int(lens.max()):6d}: "
+              f"{ms:.4f} ms, bound {bound:.4f} ms "
+              f"({100 * bound / ms:.2f}%), plain {plain_ms:.3f} ms, "
+              f"torch.sparse.mm {lib_ms:.4f} ms")
+    print(f"  every launch: two launches the same bits; torch.sparse.mm "
+          f"within {lib_worst:.3e} of the largest value")
+    total = sum(x["ms"] for x in rows)
+    bound = sum(x["bound"] for x in rows)
+    print(f"  one step's {len(rows)} launches: {total:.4f} ms, bound "
+          f"{bound:.4f} ms ({100 * bound / total:.2f}%), plain "
+          f"{sum(x['plain_ms'] for x in rows):.2f} ms, torch.sparse.mm "
+          f"{sum(libs):.4f} ms")
+    for dst in (True, False):
+        sel = [x for x in rows if x["movies"] == dst]
+        print(f"  into {'movies' if dst else 'users'}: {len(sel)} launches, "
+              f"{sum(x['ms'] for x in sel):.4f} ms; correlation of the time "
+              f"with the longest row "
+              f"{_corr([x['ms'] for x in sel], [x['longest'] for x in sel]):.3f}"
+              f", with nnz "
+              f"{_corr([x['ms'] for x in sel], [x['nnz'] for x in sel]):.3f}")
+    print(f"  digest of the rows of at most 128 entries: "
+          f"{short.hexdigest()[:16]}")
+    for name, t in _segment_sum_profile(calls).items():
+        print(f"  {name[:90]:90s} {t:.4f} ms over the {len(calls)} launches")
+    # The wide path (d % 8 == 0) at the scale cell's width: its bits.
+    g = graph.fwd[r - 1].fwd
+    wide = hashlib.sha256()
+    for x_dtype, rounded in ((torch.bfloat16, True), (torch.float32, False)):
+        x = torch.randn(g.n_src, 128, device=dev, generator=gen).to(x_dtype)
+        wide.update(sp.launch_segment_sum(g.row_ptr, g.src, g.val, x, rounded)
+                    .cpu().numpy().tobytes())
+    print(f"  digest of two wide launches at d = 128 (bf16 and f32 x): "
+          f"{wide.hexdigest()[:16]}")
+    return dict(name="segment_sum narrow path (GCMC, f32, d = 50)",
+                route="cuda", source="dream_gnn_tpu_torch/kernels/csrc/spmm.cu",
+                launches=narrow["launches"],
+                split_launches=narrow["split_launches"], step_split=step_split,
+                max_abs_err=worst, ms=total,
+                plain_ms=sum(x["plain_ms"] for x in rows), bound_ms=bound,
+                bound_by="bytes", library_ms=sum(libs),
+                library="torch.sparse.mm on the CSR in f32")
 
 
 def main() -> int:
@@ -3401,7 +3571,8 @@ def main() -> int:
     phase_six_augment_methods(gpu, {"grid": ms_grid, "edges": ms_edges})
     phase_sharded(gpu)
     mesh = phase_mesh(gpu)
-    bilinear = phase_bilinear()
+    bilinear, narrow = phase_bilinear()
+    narrow = phase_gcmc_segment_sums(narrow)
     print("  launches of rows 1, 3, 4 and 5 on the tooling paths: "
           + "; ".join(f"{k}: row 1 {v['grid']['fwd']}, row 3 "
                       f"{v['grid']['fwd_b']}, row 4 {v['grid']['bwd_b']}, "
@@ -3436,7 +3607,8 @@ def main() -> int:
     if len(rows) != 15:
         raise AssertionError(f"the kernel table has {len(rows)} rows, not 15")
     print(gpu)
-    print(json.dumps({"kernels": rows, "port_only": [bilinear]}))
+    print(json.dumps({"kernels": rows, "port_only": [bilinear],
+                      "narrow_segment_sum": narrow}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}))

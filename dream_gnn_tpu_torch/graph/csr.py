@@ -19,6 +19,11 @@ forward layout and its transposed partner carry the same ids, and the PRF
 edge dropout (augment/masks.py:prf_mask_pair) drops the same edges in both.
 There are no padding slots.
 
+Each layout also carries its rows cut into pieces (``SegmentPieces``), which
+the segment sum of kernels/spmm_slab.py reads at a width that is not a
+multiple of 8: one warp a piece, so that a row of thousands of entries is
+summed by many warps.
+
 Everything is built with torch ops on the target device: stable sorts and
 a bincount, no host loop over edges.
 """
@@ -26,6 +31,7 @@ a bincount, no host loop over edges.
 from __future__ import annotations
 
 import dataclasses
+import functools
 
 import torch
 
@@ -33,10 +39,74 @@ from dream_gnn_tpu_torch.graph.norms import inv_sqrt_norm
 from dream_gnn_tpu_torch.utils.device import as_tensor
 
 
+PIECE = 128         # entries of a row a piece at most
+
+
+@dataclasses.dataclass(frozen=True)
+class SegmentPieces:
+    """The rows of a CSR cut into pieces of at most ``k`` consecutive
+    entries.  Each row's first piece, the whole of a row of at most k
+    entries (an empty one too), writes the row's output; a longer (split)
+    row's further pieces each write a partial row, and the row's partial
+    rows are then added to its output in piece order.  Only the further
+    pieces are listed, in row order.  Index tensors are int32."""
+
+    extra_beg: torch.Tensor   # (n_extra,) first entry of each further piece
+    extra_row: torch.Tensor   # (n_extra,) its row
+    split_row: torch.Tensor   # (n_split,) the split rows, ascending
+    split_ptr: torch.Tensor   # (n_split + 1,) each split row's further pieces
+    k: int
+    n_rows: int
+    nnz: int
+    n_split: int              # rows split
+    n_extra: int              # further pieces: the partial rows
+
+    @functools.cached_property
+    def c_args(self) -> tuple:
+        """The segment sum entry point's piece arguments (csrc/spmm.cu:
+        struct Pieces) but the partial rows: extra_beg, extra_row, n_extra,
+        split_row, split_ptr, n_split and k."""
+        return (self.extra_beg.data_ptr(), self.extra_row.data_ptr(),
+                self.n_extra, self.split_row.data_ptr(),
+                self.split_ptr.data_ptr(), self.n_split, self.k)
+
+
+def cut_runs(ptr: torch.Tensor, k: int):
+    """(run, beg, tptr) int64 of the runs ``ptr[n] .. ptr[n+1]-1`` each cut
+    into ceil(len / k) pieces of at most ``k`` consecutive positions: each
+    piece's run, its first position (then ``ptr[-1]``), and each run's
+    pieces."""
+    ptr = ptr.long()
+    n, dev = ptr.shape[0] - 1, ptr.device
+    per = (ptr[1:] - ptr[:-1] + k - 1) // k
+    tptr = torch.zeros(n + 1, dtype=torch.int64, device=dev)
+    torch.cumsum(per, 0, out=tptr[1:])
+    run = torch.repeat_interleave(torch.arange(n, device=dev), per)
+    j = torch.arange(run.shape[0], device=dev) - tptr[run]
+    return run, torch.cat([ptr[run] + j * k, ptr[-1:]]), tptr
+
+
+def segment_pieces(row_ptr: torch.Tensor, k: int = PIECE) -> SegmentPieces:
+    """The pieces of the rows of ``row_ptr`` (see ``SegmentPieces``)."""
+    run, beg, tptr = cut_runs(row_ptr, k)
+    extra = beg[:-1] != row_ptr.long()[run]
+    per = tptr[1:] - tptr[:-1]
+    split_row = torch.nonzero(per > 1).flatten()
+    split_ptr = torch.zeros(split_row.shape[0] + 1, dtype=torch.int64,
+                            device=run.device)
+    torch.cumsum(per[split_row] - 1, 0, out=split_ptr[1:])
+    extra_beg = beg[:-1][extra].int()
+    return SegmentPieces(extra_beg=extra_beg, extra_row=run[extra].int(),
+                         split_row=split_row.int(), split_ptr=split_ptr.int(),
+                         k=k, n_rows=row_ptr.shape[0] - 1,
+                         nnz=int(row_ptr[-1]), n_split=split_row.shape[0],
+                         n_extra=extra_beg.shape[0])
+
+
 @dataclasses.dataclass(frozen=True)
 class CsrLayout:
     """One direction of one relation: a dst-sorted CSR (see the module
-    doc).  Indices are int32."""
+    doc) and its rows' pieces.  Indices are int32."""
 
     row_ptr: torch.Tensor
     src: torch.Tensor
@@ -44,6 +114,7 @@ class CsrLayout:
     edge_id: torch.Tensor
     n_src: int
     n_dst: int
+    pieces: SegmentPieces
 
     @property
     def n_live(self) -> int:
@@ -57,7 +128,7 @@ def _check_ids(ids: torch.Tensor, n: int, name: str) -> None:
 
 def csr_fields(src, dst, val, n_src: int, n_dst: int, device=None) -> dict:
     """The fields of ``CsrLayout`` for edges (src, dst, val): the dst-sorted
-    CSR of the edges whose weight is not zero."""
+    CSR of the edges whose weight is not zero, and its pieces."""
     val = as_tensor(val, torch.float32, device)
     src = as_tensor(src, torch.int64, val.device)
     dst = as_tensor(dst, torch.int64, val.device)
@@ -71,7 +142,7 @@ def csr_fields(src, dst, val, n_src: int, n_dst: int, device=None) -> dict:
     torch.cumsum(counts, 0, out=row_ptr[1:])
     return dict(row_ptr=row_ptr.int(), src=src[order].int(),
                 val=val[order].contiguous(), edge_id=order.int(),
-                n_src=n_src, n_dst=n_dst)
+                n_src=n_src, n_dst=n_dst, pieces=segment_pieces(row_ptr))
 
 
 def bipartite_relations(pairs, values, n_drug: int, n_dis: int,

@@ -50,7 +50,7 @@ import dataclasses
 
 import torch
 
-from dream_gnn_tpu_torch.graph.csr import as_tensor
+from dream_gnn_tpu_torch.graph.csr import as_tensor, cut_runs
 from dream_gnn_tpu_torch.kernels import cuda_build
 from dream_gnn_tpu_torch.kernels.grid_decoder import stream_ptr
 from dream_gnn_tpu_torch.utils.profiling import span
@@ -95,17 +95,11 @@ class BilinearLayout:
 def _tasks(node_of_pos: torch.Tensor, n_nodes: int, task: int):
     """(task_node, task_beg, tptr) of positions sorted by node: each node's
     run cut into pieces of at most ``task`` positions."""
-    dev = node_of_pos.device
     counts = torch.bincount(node_of_pos.long(), minlength=n_nodes)
-    ptr = torch.zeros(n_nodes + 1, dtype=torch.int64, device=dev)
+    ptr = torch.zeros(n_nodes + 1, dtype=torch.int64,
+                      device=node_of_pos.device)
     torch.cumsum(counts, 0, out=ptr[1:])
-    per = (counts + task - 1) // task
-    tptr = torch.zeros(n_nodes + 1, dtype=torch.int64, device=dev)
-    torch.cumsum(per, 0, out=tptr[1:])
-    node = torch.repeat_interleave(torch.arange(n_nodes, device=dev), per)
-    k = torch.arange(node.shape[0], device=dev) - tptr[node]
-    beg = torch.cat([ptr[node] + k * task,
-                     torch.full((1,), node_of_pos.shape[0], device=dev)])
+    node, beg, tptr = cut_runs(ptr, task)
     return node.int(), beg.int(), tptr.int()
 
 

@@ -32,6 +32,7 @@ from typing import Optional
 
 import torch
 
+from dream_gnn_tpu_torch.graph.csr import SegmentPieces, segment_pieces
 from dream_gnn_tpu_torch.kernels.grid_decoder import round_to
 from dream_gnn_tpu_torch.kernels.spmm_slab import (launch_segment_sum,
                                                     segment_sum_plain)
@@ -44,12 +45,14 @@ LAUNCHES = {"seq_scatter": 0}
 class SeqScatter:
     """The slots of node n are ``offsets[n] .. offsets[n+1]-1`` of the
     stream (int32); ``val`` is each slot's weight, 0 on padding slots, or
-    None when every slot weighs 1."""
+    None when every slot weighs 1; ``pieces`` cut the nodes' runs for the
+    kernel at a width that is not a multiple of 8."""
 
     offsets: torch.Tensor             # (n_dst + 1,) int32
     val: Optional[torch.Tensor]       # (n_slots,) f32, or None
     n_dst: int
     n_slots: int
+    pieces: SegmentPieces
 
 
 def build_seq_scatter(node_of_slot, live, val, n_dst: int,
@@ -76,9 +79,10 @@ def build_seq_scatter(node_of_slot, live, val, n_dst: int,
                          f"ascend and lie in [0, {n_dst})")
     offsets = torch.searchsorted(
         filled, torch.arange(n_dst + 1, device=node.device))
-    return SeqScatter(offsets=offsets.int(),
+    offsets = offsets.int()
+    return SeqScatter(offsets=offsets,
                       val=None if val is None else val.float().contiguous(),
-                      n_dst=n_dst, n_slots=n)
+                      n_dst=n_dst, n_slots=n, pieces=segment_pieces(offsets))
 
 
 def seq_scatter(g: SeqScatter, x: torch.Tensor,
@@ -95,7 +99,8 @@ def seq_scatter(g: SeqScatter, x: torch.Tensor,
     val = None if g.val is None else round_to(g.val, dtype).contiguous()
     x = x.contiguous()
     if x.is_cuda:
-        out = launch_segment_sum(g.offsets, None, val, x, rounded)
+        out = launch_segment_sum(g.offsets, None, val, x, rounded,
+                                 pieces=g.pieces)
         LAUNCHES["seq_scatter"] += 1
         return out
     return segment_sum_plain(g.offsets, None, val, x, rounded)

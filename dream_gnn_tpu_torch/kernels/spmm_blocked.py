@@ -61,7 +61,7 @@ def _blocked(g: BlockedCoo, x: torch.Tensor, dtype, kind: str):
         return spmm_blocked_plain(g, x, dtype)
     rounded = dtype == torch.bfloat16
     out = launch_segment_sum(g.row_ptr, g.src, g.val, _prepare(g, x, dtype),
-                             rounded, round_val=rounded)
+                             rounded, round_val=rounded, pieces=g.pieces)
     LAUNCHES[kind] += 1
     return out
 

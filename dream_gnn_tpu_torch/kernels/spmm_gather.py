@@ -94,7 +94,7 @@ def _gather(g: GroupedCoo, x: torch.Tensor, dtype, group_batch, packed,
         return spmm_gather_plain(g, x, dtype, group_batch, packed)
     xk, rounded, packed = _prepare(g, x, dtype, group_batch, packed)
     out = launch_segment_sum(g.row_ptr, g.src, g.val, xk, rounded,
-                             round_x=packed)
+                             round_x=packed, pieces=g.pieces)
     LAUNCHES[kind] += 1
     return out
 

@@ -20,16 +20,28 @@ gathers.  ``dtype=float32`` keeps everything in f32.
 
 The kernel (``csrc/spmm.cu``, shared with kernels/seq_scatter.py,
 kernels/spmm_gather.py and kernels/spmm_blocked.py) is a segmented row
-sum: one warp per dst row, whose lane groups sum the row's edges in a
-fixed interleaved order and combine their partial sums by shuffles,
-without atomics, so two runs give the same bits.  The f32 sum runs in
-another order than the plain version's ``index_add_``; the tolerance of
-the tests (1e-4 relative) covers that.
+sum in two paths chosen by the width d.  When d % 8 == 0 one warp sums a
+dst row: its lane groups sum the row's edges in a fixed interleaved order
+and combine their partial sums by shuffles.  Otherwise (GCMC's float32
+rows of 50) one warp sums a piece of a row, at most ``graph/csr.py:PIECE``
+consecutive entries, in list order and in one pass over them: a row's
+first piece writes its output, and each further piece of a longer row a
+partial row, which a second launch adds to the output in piece order.
+The pieces come with the layout (``CsrLayout.pieces``,
+``SeqScatter.pieces``), built once with torch ops on the device, so that a
+launch does no host work for them.  Neither path uses atomics, so two runs
+give the same bits.
+The f32 sum runs in another order than the plain version's
+``index_add_``; the tolerance of the tests (1e-4 relative) covers that.
 
 Dispatch.  ``spmm_slab`` launches the kernel for CUDA tensors and runs the
 plain version only for CPU tensors; there is no fallback from one to the
 other.  ``LAUNCHES`` counts the kernel's launches: ``fwd`` over
-``pair.fwd``, ``bwd`` over ``pair.bwd``.
+``pair.fwd``, ``bwd`` over ``pair.bwd``.  ``NARROW`` counts every launch of
+the narrow path (``launches``), those with a split row
+(``split_launches``), and the rows split and their pieces summed over the
+launches (``split_rows``, ``split_pieces``), from the sizes the pieces
+carry: reading it costs no sync.
 """
 
 from __future__ import annotations
@@ -39,12 +51,15 @@ from typing import Optional
 
 import torch
 
+from dream_gnn_tpu_torch.graph.csr import SegmentPieces
 from dream_gnn_tpu_torch.graph.slabbed import SlabbedCoo, SlabbedCooPair
 from dream_gnn_tpu_torch.kernels import cuda_build
 from dream_gnn_tpu_torch.kernels.grid_decoder import round_to, stream_ptr
 from dream_gnn_tpu_torch.utils.profiling import span
 
 LAUNCHES = {"fwd": 0, "bwd": 0}
+NARROW = {"launches": 0, "split_launches": 0, "split_rows": 0,
+          "split_pieces": 0}
 
 _lib = None
 
@@ -97,7 +112,8 @@ def _load():
     if _lib is None:
         lib = cuda_build.load("spmm")
         p, i = ctypes.c_void_p, ctypes.c_int
-        lib.segment_sum.argtypes = [p] * 5 + [i] * 4 + [p]
+        lib.segment_sum.argtypes = [p] * 5 + [i] * 4 + [p, p, i, p, p, i, i,
+                                                        p, p]
         lib.segment_sum.restype = i
         _lib = lib
     return _lib
@@ -115,14 +131,17 @@ def _check(x, name, dtypes, shape, dev):
 def launch_segment_sum(ptr: torch.Tensor, src: Optional[torch.Tensor],
                        val: Optional[torch.Tensor], x: torch.Tensor,
                        rounded: bool, round_x: bool = True,
-                       round_val: bool = False) -> torch.Tensor:
+                       round_val: bool = False,
+                       pieces: Optional[SegmentPieces] = None) -> torch.Tensor:
     """One launch of the kernel of ``csrc/spmm.cu`` on CUDA tensors: ptr
     (n_rows + 1,) int32, src (nnz,) int32 or None, val (nnz,) f32 or None
     (weight 1), x (rows, d) bf16 or f32; the rounding as in
     ``segment_sum_plain``.  Returns (n_rows, d) f32.  The callers count
     it.  When d % 8 == 0 the kernel reads x in 16-byte loads, so an x that
     does not start 16-byte aligned (a view at an odd offset) is copied
-    first: how a row is split and summed depends on d only."""
+    first: how a row is split and summed depends on d only.  Otherwise it
+    sums ``pieces``, those of ptr's rows (``graph/csr.py:segment_pieces``
+    of ptr), which it then needs, and counts the launch in ``NARROW``."""
     with span("segment_sum"):
         mode = rounding_mode(rounded, round_x, round_val)
         dev = x.device
@@ -138,8 +157,26 @@ def launch_segment_sum(ptr: torch.Tensor, src: Optional[torch.Tensor],
             raise ValueError("segment sum kernel: x has fewer rows than "
                              "entries")
         _check(x, "x", (torch.float32, torch.bfloat16), (x.shape[0], d), dev)
-        if d % 8 == 0 and x.data_ptr() % 16 != 0:
-            x = x.clone()
+        pc, args = None, _NO_PIECES
+        if d % 8 == 0:
+            if x.data_ptr() % 16 != 0:
+                x = x.clone()
+        else:
+            pc = pieces
+            # Without src and val, nnz is x's rows: the entries at most.
+            off = pc is not None and (
+                pc.nnz > nnz if src is None and val is None else
+                pc.nnz != nnz)
+            if pc is None or pc.n_rows != n_rows or off:
+                raise ValueError(
+                    f"segment sum kernel: a width of {d} needs the pieces of "
+                    f"ptr's {n_rows} rows and {nnz} entries "
+                    f"(graph/csr.py:segment_pieces), got "
+                    f"{None if pc is None else (pc.n_rows, pc.nnz)}")
+            # The split rows' partial rows, (n_extra, d) f32.
+            part = torch.empty((pc.n_extra, d), dtype=torch.float32,
+                               device=dev) if pc.n_extra else None
+            args = pc.c_args + (None if part is None else part.data_ptr(),)
         lib = _load()
         out = torch.empty((n_rows, d), dtype=torch.float32, device=dev)
         err = lib.segment_sum(ptr.data_ptr(),
@@ -147,10 +184,19 @@ def launch_segment_sum(ptr: torch.Tensor, src: Optional[torch.Tensor],
                               val.data_ptr() if val is not None else None,
                               x.data_ptr(), out.data_ptr(),
                               n_rows, d, int(x.dtype == torch.bfloat16), mode,
-                              stream_ptr(dev))
+                              *args, stream_ptr(dev))
         if err != 0:
             raise RuntimeError(f"segment_sum launch failed: CUDA error {err}")
+        if pc is not None:
+            NARROW["launches"] += 1
+            NARROW["split_launches"] += pc.n_split > 0
+            NARROW["split_rows"] += pc.n_split
+            NARROW["split_pieces"] += pc.n_split + pc.n_extra
         return out
+
+
+# The entry point's piece arguments of a launch on the wide path.
+_NO_PIECES = (None, None, 0, None, None, 0, 0, None)
 
 
 def spmm_csr(g: SlabbedCoo, x: torch.Tensor, dtype=torch.bfloat16,
@@ -166,7 +212,8 @@ def spmm_csr(g: SlabbedCoo, x: torch.Tensor, dtype=torch.bfloat16,
     rounded = dtype == torch.bfloat16
     x = x.to(dtype).contiguous()
     if x.is_cuda:
-        out = launch_segment_sum(g.row_ptr, g.src, g.val, x, rounded)
+        out = launch_segment_sum(g.row_ptr, g.src, g.val, x, rounded,
+                                 pieces=g.pieces)
         LAUNCHES[kind] += 1
         return out
     return segment_sum_plain(g.row_ptr, g.src, g.val, x, rounded)

@@ -924,13 +924,14 @@ def test_spmm_kernel_matches_plain(cuda, dtype, shape):
     rounded = dtype == torch.bfloat16
     for g in (pair.fwd, pair.bwd):
         xr = torch.randn(g.n_src, x.shape[1], device=cuda).to(dtype)
-        out = sp.launch_segment_sum(g.row_ptr, g.src, g.val, xr, rounded)
+        out = sp.launch_segment_sum(g.row_ptr, g.src, g.val, xr, rounded,
+                                    pieces=g.pieces)
         ref = sp.segment_sum_plain(g.row_ptr, g.src, g.val, xr, rounded)
         torch.cuda.synchronize()
         assert out.shape == ref.shape == (g.n_dst, x.shape[1])
         assert _rel(out, ref) <= TOL[dtype]
-        assert torch.equal(out, sp.launch_segment_sum(g.row_ptr, g.src,
-                                                      g.val, xr, rounded))
+        assert torch.equal(out, sp.launch_segment_sum(
+            g.row_ptr, g.src, g.val, xr, rounded, pieces=g.pieces))
 
 
 def test_spmm_slab_autograd_matches_cpu(cuda):
@@ -958,6 +959,16 @@ MODES = {"f32": (False, True, False), "rx": (True, True, False),
 # Rows of 0, 1, 31, 33 and 1,000 entries among others: one lane group
 # short of and one entry past a warp's batch of indices, and many batches.
 ROW_LENGTHS = [0, 1, 31, 33, 1000, 0, 2, 17, 64, 3]
+
+
+def _launch(ptr, src, val, x, *mode):
+    """launch_segment_sum with the pieces of ptr's rows, which its narrow
+    path (d % 8 != 0) reads and its wide path ignores."""
+    from dream_gnn_tpu_torch.graph.csr import segment_pieces
+    from dream_gnn_tpu_torch.kernels import spmm_slab as sp
+
+    return sp.launch_segment_sum(ptr, src, val, x, *mode,
+                                 pieces=segment_pieces(ptr))
 
 
 def _segment_case(dev, d, n_src=700, seed=0):
@@ -991,13 +1002,13 @@ def test_segment_sum_kernel_matches_plain(cuda, d, mode, x_dtype, gather,
     ptr, src, val, x = _segment_case(cuda, d)
     args = (ptr, src if gather else None, val if with_val else None,
             x.to(x_dtype), *MODES[mode])
-    out = sp.launch_segment_sum(*args)
+    out = _launch(*args)
     ref = sp.segment_sum_plain(*args)
     torch.cuda.synchronize()
     assert out.shape == ref.shape == (len(ROW_LENGTHS), d)
     assert _rel(out, ref) <= TOL[torch.bfloat16]
     assert not out[torch.tensor(ROW_LENGTHS, device=cuda) == 0].any()
-    assert torch.equal(out, sp.launch_segment_sum(*args))
+    assert torch.equal(out, _launch(*args))
 
 
 @pytest.mark.parametrize("gather", [True, False])
@@ -1011,12 +1022,12 @@ def test_segment_sum_kernel_empty_matrix(cuda, d, gather):
     val = torch.zeros(0, device=cuda)
     for n_rows in (5, 0):
         ptr = torch.zeros(n_rows + 1, dtype=torch.int32, device=cuda)
-        out = sp.launch_segment_sum(ptr, src, val, x, True)
+        out = _launch(ptr, src, val, x, True)
         torch.cuda.synchronize()
         assert out.shape == (n_rows, d) and not out.any()
 
 
-@pytest.mark.parametrize("d", [12, 16, 64, 128, 384])
+@pytest.mark.parametrize("d", [12, 16, 64, 128, 384, 50, 75])
 def test_segment_sum_split_ignores_gather_and_x_dtype(cuda, d):
     """A row is split and summed alike whatever reads x: an identity src
     gives the bits of a null src, and an f32 x of bf16 values the bits of
@@ -1029,17 +1040,18 @@ def test_segment_sum_split_ignores_gather_and_x_dtype(cuda, d):
     ident = torch.arange(nnz, dtype=torch.int32, device=cuda)
     xb = x[:nnz].bfloat16()
     for mode in MODES.values():
-        a = sp.launch_segment_sum(ptr, ident, val, xb, *mode)
-        b = sp.launch_segment_sum(ptr, None, val, xb, *mode)
-        c = sp.launch_segment_sum(ptr, None, val, xb.float(), *mode)
+        a = _launch(ptr, ident, val, xb, *mode)
+        b = _launch(ptr, None, val, xb, *mode)
+        c = _launch(ptr, None, val, xb.float(), *mode)
         assert torch.equal(a, b) and torch.equal(b, c), mode
 
 
 @pytest.mark.parametrize("x_dtype", [torch.float32, torch.bfloat16])
-@pytest.mark.parametrize("d", [16, 128])
+@pytest.mark.parametrize("d", [16, 128, 50, 75])
 def test_segment_sum_split_ignores_x_address(cuda, d, x_dtype):
     """An x that starts one element past a 16-byte boundary gives the bits
-    of the same values in fresh storage, in every rounding."""
+    of the same values in fresh storage, in every rounding (at d = 50 the
+    narrow path then reads one value a lane where it read two)."""
     from dream_gnn_tpu_torch.kernels import spmm_slab as sp
 
     ptr, src, val, x = _segment_case(cuda, d)
@@ -1049,8 +1061,135 @@ def test_segment_sum_split_ignores_x_address(cuda, d, x_dtype):
     shifted.copy_(x)
     assert shifted.data_ptr() % 16 != 0 and shifted.is_contiguous()
     for mode in MODES.values():
-        assert torch.equal(sp.launch_segment_sum(ptr, src, val, shifted, *mode),
-                           sp.launch_segment_sum(ptr, src, val, x, *mode)), mode
+        assert torch.equal(_launch(ptr, src, val, shifted, *mode),
+                           _launch(ptr, src, val, x, *mode)), mode
+
+
+# The narrow path (d % 8 != 0) sums pieces of at most PIECE entries of a
+# row: rows at, under and over a piece, and the long rows of a skewed
+# layout (GCMC's movies); "short" has no row over a piece.
+SKEWED_ROWS = {"skewed": [0, 1, 127, 128, 129, 1000, 5000, 20_000,
+                          *[(7 * i) % 90 for i in range(300)]],
+               "short": [0, 1, 127, 128, 0, *[(7 * i) % 90 for i in range(300)]]}
+
+
+def _skewed_case(dev, d, rows="skewed", n_src=3000, seed=0, pow2=False):
+    """(ptr, src, val, x) over SKEWED_ROWS[rows]; with ``pow2`` the weights
+    are powers of two (or 0), so that every message is exact in f32."""
+    rng = np.random.default_rng(seed)
+    counts = np.asarray(SKEWED_ROWS[rows])
+    nnz = int(counts.sum())
+    ptr = torch.tensor(np.concatenate([[0], np.cumsum(counts)]),
+                       dtype=torch.int32, device=dev)
+    src = torch.tensor(rng.integers(0, n_src, nnz), dtype=torch.int32,
+                       device=dev)
+    val = (2.0 ** rng.integers(-2, 3, nnz) if pow2
+           else rng.random(nnz) + 0.5).astype(np.float32)
+    val[rng.random(nnz) < 0.1] = 0.0
+    x = rng.normal(size=(max(n_src, nnz), d)).astype(np.float32)
+    return ptr, src, torch.tensor(val, device=dev), torch.tensor(x, device=dev)
+
+
+@pytest.mark.parametrize("mode", list(MODES))
+@pytest.mark.parametrize("x_dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("d", [1, 3, 50, 75])
+def test_narrow_segment_sum_matches_plain(cuda, d, x_dtype, mode):
+    """Skewed rows of up to 20,000 entries, every rounding, f32 and bf16
+    x: the kernel against segment_sum_plain, empty rows exactly 0, twice
+    the same bits; NARROW counts each launch with its split rows and
+    their pieces."""
+    from dream_gnn_tpu_torch.graph.csr import segment_pieces
+    from dream_gnn_tpu_torch.kernels import spmm_slab as sp
+
+    ptr, src, val, x = _skewed_case(cuda, d)
+    pc = segment_pieces(ptr)
+    args = (ptr, src, val, x.to(x_dtype), *MODES[mode])
+    before = dict(sp.NARROW)
+    out = sp.launch_segment_sum(*args, pieces=pc)
+    ref = sp.segment_sum_plain(*args)
+    torch.cuda.synchronize()
+    assert out.shape == ref.shape == (len(SKEWED_ROWS["skewed"]), d)
+    assert _rel(out, ref) <= TOL[torch.bfloat16]
+    lens = torch.tensor(SKEWED_ROWS["skewed"], device=cuda)
+    assert not out[lens == 0].any()
+    assert torch.equal(out, sp.launch_segment_sum(*args, pieces=pc))
+    assert pc.n_split == int((lens > 128).sum()) == 4
+    assert sp.NARROW == {"launches": before["launches"] + 2,
+                         "split_launches": before["split_launches"] + 2,
+                         "split_rows": before["split_rows"] + 2 * 4,
+                         "split_pieces": before["split_pieces"] + 2 * (
+                             2 + 8 + 40 + 157)}
+
+
+@pytest.mark.parametrize("rows", list(SKEWED_ROWS))
+@pytest.mark.parametrize("gather", [True, False])
+@pytest.mark.parametrize("x_dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("d", [3, 50])
+def test_narrow_segment_sum_is_the_piece_order_sum(cuda, d, x_dtype, gather,
+                                                   rows):
+    """With exact messages (weights of powers of two) the kernel gives the
+    bits of the emulated piece order in every rounding: each piece in list
+    order, then each split row's partial rows in piece order.  On "short"
+    rows that is the in-order f32 sum of each row, the bits of the
+    one-warp-a-row kernel the pieces replaced."""
+    from dream_gnn_tpu_torch.kernels import spmm_slab as sp
+    from _segment_pieces import messages, piece_order_sum, run_sums
+
+    ptr, src, val, x = _skewed_case(cuda, d, rows, pow2=True)
+    x = x.to(x_dtype)
+    src = src if gather else None
+    for mode in MODES.values():
+        out = _launch(ptr, src, val, x, *mode)
+        assert torch.equal(out, piece_order_sum(ptr, src, val, x, *mode)), mode
+        if rows == "short":
+            p = ptr.long()
+            assert torch.equal(out, run_sums(p[:-1], p[1:] - p[:-1],
+                                             messages(src, val, x, *mode)))
+
+
+@pytest.mark.parametrize("x_dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("d,groups", [(16, 4), (64, 4), (128, 2), (384, 1)])
+def test_wide_segment_sum_keeps_its_order(cuda, d, groups, x_dtype):
+    """The wide path (d % 8 == 0) is untouched by the pieces: with exact
+    messages it gives the bits of its own emulated order in every
+    rounding, G lane groups each adding every G-th entry of a row, their
+    sums added pairwise."""
+    from dream_gnn_tpu_torch.kernels import spmm_slab as sp
+    from _segment_pieces import wide_order_sum
+
+    ptr, src, val, x = _segment_case(cuda, d)
+    val = torch.where(val != 0, 2.0 ** torch.round(val * 4 - 4), val)
+    x = x.to(x_dtype)
+    before = dict(sp.NARROW)
+    for mode in MODES.values():
+        out = sp.launch_segment_sum(ptr, src, val, x, *mode)
+        assert torch.equal(out, wide_order_sum(ptr, src, val, x, *mode,
+                                               groups=groups)), mode
+    assert sp.NARROW == before
+
+
+def test_spmm_slab_narrow_reads_the_layouts_pieces(cuda):
+    """spmm_slab at GCMC's width, float32, forward and backward: the kernel
+    reads the pieces built with each layout, and matches the same call on
+    the CPU; a narrow launch without pieces is refused."""
+    from dream_gnn_tpu_torch.kernels import spmm_slab as sp
+
+    pairs, _ = _csr_case(cuda, 300, 250, 30_000, 50, seed=6)
+    assert pairs[0].fwd.pieces.n_split > 0
+    x = torch.randn(300, 50, device=cuda)
+    res = []
+    for p, xx in zip(pairs, (x, x.cpu())):
+        xx = xx.clone().requires_grad_(True)
+        before = dict(sp.NARROW)
+        out = sp.spmm_slab(p, xx, torch.float32)
+        (out * out).sum().backward()
+        res.append((out.detach().cpu(), xx.grad.cpu()))
+        assert sp.NARROW["launches"] == before["launches"] + 2 * xx.is_cuda
+    for a, b in zip(*res):
+        assert _rel(a, b) <= 1e-4
+    g = pairs[0].fwd
+    with pytest.raises(ValueError, match="pieces"):
+        sp.launch_segment_sum(g.row_ptr, g.src, g.val, x, False)
 
 
 @pytest.mark.parametrize("x_dtype", [torch.float32, torch.bfloat16])

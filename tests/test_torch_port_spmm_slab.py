@@ -37,11 +37,14 @@ from dream_gnn_tpu.nn.gcmc import gcmc_layer_init as j_gcmc_init
 from dream_gnn_tpu_torch.augment.masks import (edge_dropout_masks_grouped,
                                                prf_keep_mask, prf_mask_graph,
                                                prf_mask_pair)
+from dream_gnn_tpu_torch.graph import csr
 from dream_gnn_tpu_torch.graph.slabbed import (build_enc_graph_slabbed,
                                                slabbed_pair_from_arrays)
+from dream_gnn_tpu_torch.kernels import bilinear_decoder as bd
 from dream_gnn_tpu_torch.kernels import spmm_slab as sp
 from dream_gnn_tpu_torch.kernels.spmm_slab import spmm_slab
 from dream_gnn_tpu_torch.nn.gcmc import gcmc_layer_apply
+from tests import _segment_pieces as pieces_ref
 from tests._torch_port_setup import numpy_tree
 
 N_SRC, N_DST, E = 700, 650, 6000
@@ -235,3 +238,171 @@ def test_grouped_salts_are_drawn_per_relation():
     with pytest.raises(ValueError, match="prf_mask_graph"):
         gcmc_layer_apply(params, tg, torch.zeros(nd, 4), torch.zeros(nv, 4),
                          dropout_rate=0.0, edge_masks=m)
+
+
+# The narrow segment sum's pieces (graph/csr.py:segment_pieces): rows of
+# 0 to 20,000 entries, at, under and over a piece's size.
+def _skewed_lengths(n=400, seed=3):
+    """Popularity-skewed row lengths, as GCMC's movies: a few long rows."""
+    rank = np.random.default_rng(seed).permutation(n)
+    return [int(6000 / (r + 3)) for r in rank]
+
+
+PIECE_ROWS = {
+    "short": [0, 1, 5, csr.PIECE, 0, 17],
+    "boundaries": [0, csr.PIECE - 1, csr.PIECE, csr.PIECE + 1,
+                   2 * csr.PIECE, 2 * csr.PIECE + 1, 0],
+    "long": [3, 20_000, 0, 1],
+    "skewed": _skewed_lengths(),
+    "empty": [0, 0, 0],
+}
+
+
+def _ptr(lengths):
+    return torch.tensor(np.concatenate([[0], np.cumsum(lengths)]),
+                        dtype=torch.int32)
+
+
+@pytest.mark.parametrize("k", [csr.PIECE, 7])
+@pytest.mark.parametrize("rows", list(PIECE_ROWS))
+def test_segment_pieces_cover_each_row_in_order(rows, k):
+    """A row's first piece is its first min(len, k) entries; the further
+    pieces of a longer row follow in order, at most k entries each, each
+    listed once with its row, so that every entry is in exactly one piece;
+    split_ptr gives each split row its further pieces; the sizes the
+    counter reads are the counts of split rows and of their pieces."""
+    lengths = PIECE_ROWS[rows]
+    pc = csr.segment_pieces(_ptr(lengths), k)
+    beg, row, split, start = [], [], [], 0
+    for r, n in enumerate(lengths):
+        if n > k:
+            split.append((r, len(beg)))
+            beg += [start + i * k for i in range(1, -(-n // k))]
+            row += [r] * (-(-n // k) - 1)
+        start += n
+    assert pc.extra_beg.tolist() == beg
+    assert pc.extra_row.tolist() == row
+    assert pc.split_row.tolist() == [r for r, _ in split]
+    assert pc.split_ptr.tolist() == [e for _, e in split] + [len(beg)]
+    assert (pc.k, pc.n_rows, pc.nnz) == (k, len(lengths), start)
+    assert pc.n_split == sum(n > k for n in lengths)
+    assert pc.n_split + pc.n_extra == sum(-(-n // k) for n in lengths
+                                          if n > k)
+    covered = torch.zeros(start, dtype=torch.int64)
+    ptr = _ptr(lengths).long()
+    for b, n in zip(ptr[:-1].tolist(), lengths):
+        covered[b:b + min(n, k)] += 1
+    for b, r in zip(beg, row):
+        covered[b:min(b + k, int(ptr[r + 1]))] += 1
+    assert bool((covered == 1).all())
+    assert all(t.dtype == torch.int32 for t in
+               (pc.extra_beg, pc.extra_row, pc.split_row, pc.split_ptr))
+
+
+@pytest.mark.parametrize("d", [3, 50])
+@pytest.mark.parametrize("mode", [(False, True, False), (True, True, False),
+                                  (True, False, False), (True, True, True)],
+                         ids=["f32", "rx", "msg", "rx_rv"])
+def test_piece_order_sum_matches_plain(mode, d):
+    """The narrow kernel's order of additions, emulated: pieces in list
+    order, then each split row's partial rows in piece order, agrees with
+    segment_sum_plain within the kernel tests' 1e-4 of the largest value,
+    and is exactly it on rows of one piece (f32 sums of the same messages
+    in the same order)."""
+    lengths = PIECE_ROWS["skewed"] + PIECE_ROWS["boundaries"]
+    ptr = _ptr(lengths)
+    rng = np.random.default_rng(7)
+    nnz = int(ptr[-1])
+    src = torch.tensor(rng.integers(0, 900, nnz), dtype=torch.int32)
+    val = torch.tensor((rng.random(nnz) + 0.5).astype(np.float32))
+    x = torch.tensor(rng.normal(size=(900, d)).astype(np.float32))
+    out = pieces_ref.piece_order_sum(ptr, src, val, x, *mode)
+    ref = sp.segment_sum_plain(ptr, src, val, x, *mode)
+    err = float((out - ref).abs().max()) / float(ref.abs().max())
+    assert err <= 1e-4
+    one = torch.tensor(lengths) <= csr.PIECE
+    plain = pieces_ref.run_sums(ptr[:-1].long(), ptr[1:].long() - ptr[:-1],
+                                pieces_ref.messages(src, val, x, *mode))
+    assert torch.equal(out[one], plain[one])
+
+
+def _layouts():
+    from dream_gnn_tpu_torch.graph.blocked import blocked_pair_from_arrays
+    from dream_gnn_tpu_torch.graph.grouped import grouped_pair_from_arrays
+
+    args = (*_edges(), N_SRC, N_DST)
+    yield "slabbed", slabbed_pair_from_arrays(*args, device="cpu").fwd
+    yield "grouped", grouped_pair_from_arrays(*args, device="cpu").bwd
+    yield "blocked", blocked_pair_from_arrays(*args, device="cpu").fwd
+
+
+@pytest.mark.parametrize("kind", ["slabbed", "grouped", "blocked"])
+def test_layouts_carry_their_pieces(kind):
+    """Each CSR layout (graph/csr.py) is built with its rows' pieces, which
+    the PRF edge dropout's masked copies keep."""
+    g = dict(_layouts())[kind]
+    want = csr.segment_pieces(g.row_ptr)
+    for f in ("extra_beg", "extra_row", "split_row", "split_ptr"):
+        assert torch.equal(getattr(g.pieces, f), getattr(want, f)), f
+    assert (g.pieces.k, g.pieces.n_rows, g.pieces.nnz) == \
+        (want.k, want.n_rows, want.nnz)
+    if kind == "slabbed":
+        pair = slabbed_pair_from_arrays(*_edges(), N_SRC, N_DST,
+                                        device="cpu")
+        masked = prf_mask_pair(pair, 5, 0.3)
+        assert masked.fwd.pieces is pair.fwd.pieces
+
+
+def test_seq_scatter_layout_carries_its_pieces():
+    """build_seq_scatter cuts its nodes' runs once, as the CSR layouts do,
+    so that the scatter's launches build none."""
+    from dream_gnn_tpu_torch.kernels.seq_scatter import build_seq_scatter
+
+    lengths = PIECE_ROWS["skewed"]
+    node = torch.repeat_interleave(torch.arange(len(lengths)),
+                                   torch.tensor(lengths))
+    g = build_seq_scatter(node, None, None, len(lengths), device="cpu")
+    want = csr.segment_pieces(_ptr(lengths))
+    assert torch.equal(g.offsets, _ptr(lengths))
+    for f in ("extra_beg", "extra_row", "split_row", "split_ptr"):
+        assert torch.equal(getattr(g.pieces, f), getattr(want, f)), f
+    assert (g.pieces.n_rows, g.pieces.nnz, g.pieces.n_split) == \
+        (want.n_rows, want.nnz, want.n_split) and want.n_split > 0
+
+
+@pytest.mark.parametrize("pieces", ["none", "other rows"])
+def test_narrow_launch_needs_its_rows_pieces(pieces):
+    """A launch at a width that is not a multiple of 8 is refused without
+    the pieces of its ptr's rows, before any kernel is loaded: the launch
+    builds none itself."""
+    lengths = PIECE_ROWS["boundaries"]
+    ptr = _ptr(lengths)
+    nnz = int(ptr[-1])
+    src = torch.zeros(nnz, dtype=torch.int32)
+    x = torch.ones(4, 50)
+    pc = None if pieces == "none" else csr.segment_pieces(_ptr(lengths[1:]))
+    with pytest.raises(ValueError, match="pieces"):
+        sp.launch_segment_sum(ptr, src, None, x, False, pieces=pc)
+
+
+@pytest.mark.parametrize("task", [bd.TASK, 7])
+def test_bilinear_tasks_are_the_shared_cut(task):
+    """The bilinear decoder's tasks, cut by graph/csr.py:cut_runs, are each
+    node's run cut into pieces of at most ``task`` positions, nodes
+    without positions having none: the same as before the cut was
+    shared."""
+    counts = [0, 3, task, task + 1, 0, 5 * task - 2, 1]
+    node_of_pos = torch.repeat_interleave(torch.arange(len(counts)),
+                                          torch.tensor(counts))
+    node, beg, tptr = bd._tasks(node_of_pos.int(), len(counts), task)
+    want_node, want_beg, want_tptr, start = [], [], [0], 0
+    for n, c in enumerate(counts):
+        for i in range(-(-c // task)):
+            want_node.append(n)
+            want_beg.append(start + i * task)
+        want_tptr.append(len(want_node))
+        start += c
+    assert node.tolist() == want_node
+    assert beg.tolist() == want_beg + [start]
+    assert tptr.tolist() == want_tptr
+    assert node.dtype == beg.dtype == tptr.dtype == torch.int32
