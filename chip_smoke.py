@@ -2004,7 +2004,7 @@ def phase_resume():
     at step 40, and that run resumed with --resume, which must write the
     uninterrupted run's CSVs; then one stacked checkpoint's write and load
     times.  Returns the resumed run's launch counts."""
-    import dream_gnn_tpu_torch.train.stacked as stacked
+    import dream_gnn_tpu_torch.train.loop as loop
     from dream_gnn_tpu_torch.train.cli import main
 
     flags = ["--data_name", "Gdataset", "--seeds", "77", "--fold_parallel",
@@ -2012,7 +2012,7 @@ def phase_resume():
              "--checkpoint_every", "20"]
     print(f"== cut and resume: python -m dream_gnn_tpu_torch.train.cli "
           f"{' '.join(flags)}")
-    real_save = stacked.save_train_state
+    real_save = loop.save_train_state
     times = []
 
     def cut_after_40(path, state, step, *args, **kw):
@@ -2025,14 +2025,14 @@ def phase_resume():
     with tempfile.TemporaryDirectory() as work:
         full, cut = Path(work, "full"), Path(work, "cut")
         main([*flags, "--save_dir", str(full)])
-        stacked.save_train_state = cut_after_40
+        loop.save_train_state = cut_after_40
         try:
             main([*flags, "--save_dir", str(cut)])
             raise AssertionError("the run went past its checkpoint at 40")
         except _Cut:
             pass
         finally:
-            stacked.save_train_state = real_save
+            loop.save_train_state = real_save
         ckpt = cut / "seed_77" / "ckpt_stacked.npz"
         print(f"  cut after the checkpoint at step 40: {ckpt.name} "
               f"{ckpt.stat().st_size / 1e6:.1f} MB, written in "

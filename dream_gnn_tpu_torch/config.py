@@ -70,12 +70,13 @@ class ModelConfig:
     # reference-scale datasets where candidates cover ~90% of the grid.
     decode_mode: str = "edges"
 
-    # The model: 'dream' (DREAM-GNN's dual route) or 'gcmc' (GCMC alone, as
-    # DGL's examples/pytorch/gcmc trains it with --use_one_hot_fea: one
-    # 'stack' GCMC layer on one-hot inputs, src_in_units and dst_in_units
-    # being the user and item counts, then the bilinear decoder with
-    # gen_r_num_basis_func basis matrices and a softmax over the
-    # num_ratings levels; no FGCN, no attention, no common loss).
+    # The model kind (model/kinds.py): 'dream' (DREAM-GNN's dual route,
+    # model/dream_gnn.py) or 'gcmc' (GCMC alone, as DGL's
+    # examples/pytorch/gcmc trains it with --use_one_hot_fea,
+    # model/gcmc_alone.py: one 'stack' GCMC layer on one-hot inputs,
+    # src_in_units and dst_in_units being the user and item counts, then
+    # the bilinear decoder with gen_r_num_basis_func basis matrices and a
+    # softmax over the num_ratings levels).
     model_kind: str = "dream"
     gen_r_num_basis_func: int = 2
     # The value of each rating level, for GCMC's expected-rating RMSE.
@@ -85,9 +86,8 @@ class ModelConfig:
         """Message dim of GCMC layer ``layer_idx``.
 
         Mirrors reference layers.py:50-57: under 'stack' the agg units
-        are divided by the number of ratings; in DREAM-GNN the first layer
-        further divides by 3 (1024 -> 341 under defaults), which GCMC
-        alone does not (DGL's GCMCLayer).
+        are divided by the number of ratings; the first layer further
+        divides by 3 (1024 -> 341 under defaults).
         """
         msg = self.gcn_agg_units if layer_idx == 0 else (
             self.gcn_out_units * self.num_ratings
@@ -95,7 +95,7 @@ class ModelConfig:
         if self.gcn_agg_accum == "stack":
             assert msg % self.num_ratings == 0
             msg //= self.num_ratings
-        if layer_idx == 0 and self.model_kind == "dream":
+        if layer_idx == 0:
             # ini=True only for the first layer (model.py:10,39)
             msg //= 3
         return msg

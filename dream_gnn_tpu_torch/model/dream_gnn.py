@@ -33,13 +33,9 @@ are gathered; the FGCN route, the attention and the node projections run
 replicated, the same on every rank; and the decoder scores this rank's
 candidates only (train/step.py says where each gradient is summed).
 
-With ``model_kind='gcmc'`` the model is GCMC alone, as DGL's
-``examples/pytorch/gcmc`` trains it (``_forward_gcmc``): one GCMC layer
-('stack' over the relations, one-hot inputs, each side with its own
-weights, messages in the compute dtype), then the bilinear
-decoder with a basis (kernels/bilinear_decoder.py), whose logits (R, E)
-over the rating levels come in ``dec_layout``'s slot order.  No FGCN, no
-attention, no common loss, no decoder dropout.
+This module is the model kind 'dream'; GCMC alone, the kind 'gcmc', is
+model/gcmc_alone.py, and model/kinds.py maps ``ModelConfig.model_kind`` to
+either.
 
 Parameters are plain dicts of tensors with the JAX package's keys
 (``tgcn[i]``, ``fgcn``, ``attention``, ``decoder``) and its (in, out)
@@ -61,7 +57,6 @@ import torch
 
 from dream_gnn_tpu_torch.augment.masks import PRF_LAYOUTS, prf_mask_graph
 from dream_gnn_tpu_torch.config import ModelConfig
-from dream_gnn_tpu_torch.kernels.bilinear_decoder import bilinear_decoder
 from dream_gnn_tpu_torch.kernels.edge_decoder import (
     EdgeOrder, decoder_apply_fused, decoder_apply_fused_batched)
 from dream_gnn_tpu_torch.kernels.grid_decoder import (
@@ -72,16 +67,14 @@ from dream_gnn_tpu_torch.nn.attention import attention_apply, attention_init
 from dream_gnn_tpu_torch.nn.decoder import (decoder_apply, decoder_apply_grid,
                                             decoder_init)
 from dream_gnn_tpu_torch.nn.fgcn import fgcn_apply, fgcn_init
-from dream_gnn_tpu_torch.nn import init as init_lib
 from dream_gnn_tpu_torch.nn.gcmc import (SHARDED_LAYOUTS, gcmc_layer_apply,
-                                         gcmc_layer_init,
-                                         gcmc_stack_layer_init)
+                                         gcmc_layer_init)
 from dream_gnn_tpu_torch.sharding.decoder_spmd import EdgeShard
 from dream_gnn_tpu_torch.sharding.scale_decoder_spmd import (
     ShardedScaleDecoderLayout, decoder_apply_scale_spmd)
 from dream_gnn_tpu_torch.utils.profiling import span
 
-_DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16}
+DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16}
 
 # (decode_mode, decoder_backend) -> (decoder of one fold, of a fold stack).
 _DECODERS = {
@@ -124,28 +117,8 @@ class ModelInputs:
     dec_layout: Any = None
 
 
-def init_gcmc_params(gen: torch.Generator, cfg: ModelConfig):
-    """GCMC alone's params (``model_kind='gcmc'``): one layer
-    (``tgcn[0]``, nn/gcmc.py:gcmc_stack_layer_init) and the bilinear
-    decoder's basis ``P`` (B, D, D) and combination ``a`` (R, B), each
-    xavier as DGL's ``BiDecoder`` initialises them."""
-    if cfg.layers != 1 or cfg.share_param or cfg.gcn_agg_accum != "stack":
-        raise NotImplementedError("model_kind='gcmc' runs DGL's one 'stack' "
-                                  "layer with share_param off")
-    b, d, r = cfg.gen_r_num_basis_func, cfg.gcn_out_units, cfg.num_ratings
-    layer = gcmc_stack_layer_init(
-        gen, drug_in=cfg.src_in_units, dis_in=cfg.dst_in_units,
-        msg_units=cfg.effective_msg_units(0), out_units=d, num_ratings=r)
-    return {"tgcn": [layer],
-            "decoder": {"P": init_lib.uniform(gen, (b, d, d),
-                                              (3.0 / d) ** 0.5),
-                        "a": init_lib.xavier_uniform(gen, (r, b))}}
-
-
 def init_params(gen: torch.Generator, cfg: ModelConfig):
     """Random params drawn from ``gen``, on the generator's device."""
-    if cfg.model_kind == "gcmc":
-        return init_gcmc_params(gen, cfg)
     if cfg.gcn_agg_accum != "sum":
         # 'stack' is incoherent in the reference itself (its (N, R, eff)
         # stack cannot feed Linear(eff, out)) and the default is 'sum'.
@@ -316,23 +289,6 @@ def forward_stacked(params, inputs: ModelInputs, cfg: ModelConfig, *,
                     generator=generator, edge_masks=edge_masks, mesh=mesh)
 
 
-def _forward_gcmc(params, inputs: ModelInputs, cfg: ModelConfig, *,
-                  train: bool, generator):
-    """GCMC alone: (logits (R, E) in ``inputs.dec_layout``'s slot order,
-    user out, None, item out, None)."""
-    with span("gcmc"):
-        drug_out, dis_out = gcmc_layer_apply(
-            params["tgcn"][0], inputs.enc_graph, None, None,
-            dropout_rate=cfg.dropout, agg_act=cfg.model_activation,
-            share_param=False, train=train, generator=generator,
-            accum="stack", msg_dtype=_DTYPES[cfg.compute_dtype])
-    with span("decoder"):
-        dec = params["decoder"]
-        pred = bilinear_decoder(drug_out, dis_out, dec["P"], dec["a"],
-                                inputs.dec_layout)
-    return pred, drug_out, None, dis_out, None
-
-
 def _forward(params, inputs, cfg, *, stacked, train, generator, edge_masks,
              mesh=None):
     decoders = _DECODERS.get((cfg.decode_mode, cfg.decoder_backend))
@@ -343,17 +299,11 @@ def _forward(params, inputs, cfg, *, stacked, train, generator, edge_masks,
             f"backends 'pallas' and 'xla'")
     if train and generator is None:
         raise ValueError("a training forward needs a generator")
-    if cfg.model_kind == "gcmc":
-        if stacked or mesh is not None or edge_masks is not None:
-            raise ValueError("model_kind='gcmc' runs one model on one rank, "
-                             "without augmentation")
-        return _forward_gcmc(params, inputs, cfg, train=train,
-                             generator=generator)
     (drug_feats, dis_feats, drug_out, drug_sim_out, dis_out,
      dis_sim_out) = _encode(params, inputs, cfg, train=train,
                             generator=generator, edge_masks=edge_masks)
     kw = dict(dropout_rate=cfg.dropout, train=train, generator=generator,
-              dtype=_DTYPES[cfg.compute_dtype])
+              dtype=DTYPES[cfg.compute_dtype])
     decode = decoders[stacked]
     if mesh is not None and cfg.decoder_backend == "pallas":
         kw["mesh"] = mesh

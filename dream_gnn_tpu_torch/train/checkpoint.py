@@ -147,7 +147,7 @@ def _set_moments(opt, mu, nu, count, lr) -> None:
     opt.lr.copy_(lr)
 
 
-def _item_params(state, i: int):
+def item_params(state, i: int):
     """Item ``i``'s params on the CPU: the tree itself for a sequential
     state, its slice of the leaves for a stack (``StackedAdam``)."""
     stacked = not isinstance(state.opt, torch.optim.Adam)
@@ -168,7 +168,7 @@ def _state_tree(state, step: int, schedulers, best, best_params):
     }
     if best_params is not None:
         tree["best_params"] = [bp if bp is not None
-                               else _item_params(state, i)
+                               else item_params(state, i)
                                for i, bp in enumerate(best_params)]
         tree["has_best_params"] = np.asarray(
             [bp is not None for bp in best_params])

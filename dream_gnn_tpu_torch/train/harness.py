@@ -123,8 +123,6 @@ def run_experiments(dataset: DreamDataset, cfg: TrainConfig, *,
                     cand = os.path.join(exp_dir, f"ckpt_fold{cv + 1}.npz")
                     if os.path.exists(cand):
                         resume_from = cand
-                        if verbose:
-                            print(f"Resuming fold {cv + 1} from {cand}")
                 with trace(profile_dir if first else None):
                     res = train_fold(
                         dataset, cv, cfg,

@@ -9,7 +9,8 @@ every that many steps (after an eval) to ``ckpt_fold{save_id}.npz``, and
 ``resume_from`` restores it (train/checkpoint.py): the reference can only
 save final params, never resume (train.py:342-351).  Each interval's
 training steps (not its evals) are timed with CUDA events on the card,
-with the host clock on the CPU.
+with the host clock on the CPU.  ``run_intervals`` is the port's one
+interval loop, for one model and for train/stacked.py's fold stacks.
 """
 
 from __future__ import annotations
@@ -24,9 +25,10 @@ import torch
 from dream_gnn_tpu_torch.config import ModelConfig, TrainConfig
 from dream_gnn_tpu_torch.data.loader import DreamDataset
 from dream_gnn_tpu_torch.kernels.edge_decoder import edge_order
-from dream_gnn_tpu_torch.model.dream_gnn import (ModelInputs, init_params,
-                                                 map_params)
-from dream_gnn_tpu_torch.train.checkpoint import (load_train_state,
+from dream_gnn_tpu_torch.model.dream_gnn import ModelInputs
+from dream_gnn_tpu_torch.model.kinds import ModelKind, kind_of
+from dream_gnn_tpu_torch.train.checkpoint import (BEST_KEYS, item_params,
+                                                  load_train_state,
                                                   save_params,
                                                   save_train_state)
 from dream_gnn_tpu_torch.train.optim import PlateauScheduler
@@ -103,134 +105,140 @@ def train_on_inputs(model_cfg: ModelConfig, cfg: TrainConfig,
                     save_dir: Optional[str] = None, save_id: int = 0,
                     verbose: bool = True, resume_from: Optional[str] = None,
                     valid=None):
-    """The fold-training core on explicit inputs: interval loops, plateau
-    LR, best-by-test-AUPR, the CSV contract, checkpoints and resume.
-    GCMC alone (``model_kind='gcmc'``, train/scale.py's ``--model
-    gcmc-ml10m``) evaluates the RMSE of ``valid`` = (inputs, labels,
-    weights) and of the test side instead, takes the plateau LR and the best
-    iteration by the lowest valid RMSE, as DGL's example does, and writes
-    ``iter, loss, valid_rmse, test_rmse``; it keeps no checkpoints.
-    ``train_w``/``test_w`` (1/0 per edge) weight the edges mode's loss and
-    masked metrics with ``train_labels``/``test_labels``; grid mode scores
-    the grid's cells.
-    The scale path (train/scale.py) passes its layouts' slot-order labels
-    and weights (dream_gnn_tpu/train/loop.py:90-104).
-    ``generator`` (on the inputs' device) draws the params and every
-    training random number.  ``resume_from`` restores the params, the Adam
-    state, the generator, the lr, the plateau scheduler and the best-by-AUPR
-    bookkeeping (best params included) of a ``checkpoint_every`` file, and
-    the CSV keeps its rows up to the checkpoint's step."""
-    gcmc = model_cfg.model_kind == "gcmc"
-    if gcmc and (valid is None or resume_from or cfg.checkpoint_every):
-        raise ValueError("GCMC alone trains with a valid side and without "
-                         "checkpoints")
-    # The sides evaluated at each interval and their metrics (the CSV's
-    # columns); ``score`` picks the best iteration and drives the plateau
-    # LR, the larger ``sign * score`` the better.  ``best`` names DREAM's
-    # test metrics plainly, as its checkpoints do (``BEST_KEYS``).
-    test_side = ("test", test_inputs, test_labels, test_w)
-    if gcmc:
-        sides, names = (("valid", *valid), test_side), ("rmse",)
-        score, sign = "valid_rmse", -1.0
-        best = dict(valid_rmse=float("inf"), test_rmse=float("inf"), iter=0)
-    else:
-        sides = (("train", train_inputs, train_labels, train_w), test_side)
-        names, score, sign = ("auroc", "aupr"), "test_aupr", 1.0
-        best = dict(aupr=-1.0, auroc=0.0, iter=0, train_aupr=0.0,
-                    train_auroc=0.0)
-    cols = [f"{side}_{n}" for side, *_ in sides for n in names]
-    keep = {c: c[len("test_"):] if not gcmc and c.startswith("test_")
-            else c for c in cols}
-    # Every encoder layout has the norms; only the dense one has a1.
-    device = train_inputs.enc_graph.ci_drug.device
-    params = init_params(generator, model_cfg)
-    state = init_state(params, generator, cfg)
-    one_step = make_one_step(model_cfg, cfg)
-    plateau = PlateauScheduler(cfg.train_lr, patience=cfg.plateau_patience,
-                               factor=cfg.plateau_factor)
-    best_params = None
-    start_iter = 0
-    if resume_from:
-        start_iter, (best,), kept = load_train_state(
-            resume_from, state, [plateau], with_best_params=cfg.save_model)
-        best_params = kept[0] if kept else None
+    """One model through ``run_intervals``: a fold of the sequential
+    protocol, the scale path or GCMC alone.  The model kind's sides are
+    evaluated: DREAM-GNN's train and test sides, GCMC alone's ``valid`` =
+    (inputs, labels, weights) and test side.  ``train_w``/``test_w`` (1/0
+    per edge) weight the edges mode's loss and masked metrics with
+    ``train_labels``/``test_labels``; grid mode scores the grid's cells.
+    The scale path passes its layouts' slot-order labels and weights
+    (dream_gnn_tpu/train/loop.py:90-104).  ``generator`` (on the inputs'
+    device) draws the params and every training random number."""
+    kind = kind_of(model_cfg)
+    data = {"train": (train_inputs, train_labels, train_w), "valid": valid,
+            "test": (test_inputs, test_labels, test_w)}
+    sides = [data[side] for side in kind.sides]
+    if None in sides:
+        raise ValueError(f"model kind {kind.name!r} evaluates the sides "
+                         f"{kind.sides}: pass valid=(inputs, labels, "
+                         f"weights)")
+    state = init_state(kind.init(generator, model_cfg), generator, cfg)
 
-    logger = None
-    if save_dir:
-        os.makedirs(save_dir, exist_ok=True)
-        logger = MetricLogger(
-            ["iter", "loss", *cols], ["%d"] + ["%.4f"] * (1 + len(cols)),
-            os.path.join(save_dir, f"test_metric{save_id}.csv"),
-            resume_iter=start_iter if resume_from else None)
+    def evaluate_sides():
+        return torch.stack([v for x, y, w in sides for v in evaluate(
+            state.params, x, model_cfg, y, w)])[None]
 
-    total_iters = cfg.train_max_iter - 1      # range(1, max_iter)
-    done = start_iter
-    t0 = time.perf_counter()
-    timer = StepTimer(device)
-
-    while done < total_iters:
-        chunk = min(cfg.train_valid_interval, total_iters - done)
-        timer.start()
-        losses = run_steps(one_step, state, chunk, train_inputs,
-                           train_labels, train_w)
-        ms = timer.stop(chunk)
-        done += chunk
-        if chunk != cfg.train_valid_interval:
-            break   # trailing partial chunk: the reference never evals there
-        outs = [(side, evaluate(state.params, x, model_cfg, y, w))
-                for side, x, y, w in sides]
-        loss = float(losses[-1])
-        m = {f"{side}_{n}": float(v) for side, vals in outs
-             for n, v in zip(names, vals)}
-
-        new_lr = plateau.step(sign * m[score])
-        for group in state.opt.param_groups:
-            group["lr"] = new_lr
-
-        if logger:
-            logger.log(iter=done, loss=loss, **m)
-        if verbose:
-            text = ", ".join(
-                f"{side.capitalize()}: " + ", ".join(
-                    f"{n.upper()}={m[f'{side}_{n}']:.4f}" for n in names)
-                for side, *_ in sides)
-            print(f"Iter={done:5d}, Loss={loss:.4f}, {text}, "
-                  f"{ms:.3f} ms/step")
-
-        if sign * m[score] > sign * best[keep[score]]:
-            best = dict({keep[c]: m[c] for c in cols}, iter=done)
-            if cfg.save_model:
-                best_params = map_params(lambda t: t.detach().cpu().clone(),
-                                         state.params)
-
-        if cfg.checkpoint_every and save_dir \
-                and done % cfg.checkpoint_every == 0:
-            save_train_state(
-                os.path.join(save_dir, f"ckpt_fold{save_id}.npz"), state,
-                done, [plateau], [best],
-                [best_params] if cfg.save_model else None)
-
-    elapsed = time.perf_counter() - t0
-    if logger:
-        logger.close()
-    if save_dir:
-        with open(os.path.join(save_dir, f"best_metric{save_id}.csv"),
-                  "w") as f:
-            f.write(",".join(["iter", *cols]) + "\n")
-            f.write(",".join([str(best["iter"])]
-                             + [f"{best[keep[c]]:.4f}" for c in cols])
-                    + "\n")
-        if cfg.save_model and best_params is not None:
-            save_params(os.path.join(save_dir,
-                                      f"best_model_fold{save_id}.npz"),
-                         best_params)
-
+    (result,), timer = run_intervals(
+        cfg, kind, state, make_one_step(model_cfg, cfg),
+        (train_inputs, train_labels, train_w), evaluate_sides,
+        lambda lrs: state.opt.param_groups[0].update(lr=lrs[0]),
+        [(save_dir, save_id) if save_dir else None],
+        ckpt_path=save_dir and os.path.join(save_dir,
+                                            f"ckpt_fold{save_id}.npz"),
+        resume_from=resume_from, verbose=verbose,
+        line_tail=lambda ms: f", {ms:.3f} ms/step")
     if verbose and timer.ms_per_step is not None:
         print(f"Fold timing: {timer.ms_per_step:.3f} ms/step "
               f"({'CUDA events' if timer.cuda else 'host clock'}, "
               f"{timer.total_steps} steps)")
+    return dict(result, final_state=state, model_cfg=model_cfg)
 
-    return dict(best_iter=best["iter"], elapsed_s=elapsed,
-                final_state=state, best_params=best_params,
-                model_cfg=model_cfg, ms_per_step=timer.ms_per_step,
-                **{f"best_{k}": v for k, v in best.items() if k != "iter"})
+
+def _plain(col: str) -> str:
+    """A CSV column's best-metric name (``checkpoint.BEST_KEYS``)."""
+    return col[len("test_"):] if col.startswith("test_") else col
+
+
+def run_intervals(cfg: TrainConfig, kind: ModelKind, state, one_step,
+                  step_args, evaluate, set_lrs, outputs, *, line_tail,
+                  ckpt_path=None, resume_from=None, verbose=True):
+    """The interval loop over a state of N items (one model, or a fold
+    stack): ``one_step(state, inputs, labels, weight)``, ``step_args`` the
+    last three, in chunks of ``cfg.train_valid_interval`` steps, no eval
+    after a trailing partial chunk.  Each eval's ``evaluate()`` is (N, C):
+    ``kind.metric_names`` of each of ``kind.sides``.  Per item: a plateau
+    LR on ``kind.score`` (``set_lrs`` writes the N rates), the best
+    iteration (and params, under ``cfg.save_model``), and the CSVs and
+    best params in ``outputs[i]`` = (directory, id), or none if None.
+    ``ckpt_path`` gets the state every ``cfg.checkpoint_every`` steps;
+    ``resume_from`` restores one.  Each interval prints the items' mean,
+    then ``line_tail(ms per step)``.  Returns (results, timer)."""
+    n = len(outputs)
+    cols = [f"{side}_{m}" for side in kind.sides for m in kind.metric_names]
+    score, sign = kind.score, 1.0 if kind.higher_is_better else -1.0
+    plateaus = [PlateauScheduler(cfg.train_lr, patience=cfg.plateau_patience,
+                                 factor=cfg.plateau_factor)
+                for _ in range(n)]
+    best = [dict(kind.unscored, iter=0) for _ in range(n)]
+    best_params = [None] * n
+    if (resume_from or cfg.checkpoint_every) and \
+            set(best[0]) != set(BEST_KEYS):
+        raise ValueError(f"a checkpoint keeps the bookkeeping {BEST_KEYS}, "
+                         f"which model kind {kind.name!r} has not")
+    start_iter = 0
+    if resume_from:
+        start_iter, best, kept = load_train_state(
+            resume_from, state, plateaus, with_best_params=cfg.save_model)
+        best_params = kept or best_params
+        if verbose:
+            print(f"Resumed from {resume_from} at iter {start_iter}")
+    for out in filter(None, outputs):
+        os.makedirs(out[0], exist_ok=True)
+    loggers = [out and MetricLogger(
+        ["iter", "loss", *cols], ["%d"] + ["%.4f"] * (1 + len(cols)),
+        os.path.join(out[0], f"test_metric{out[1]}.csv"),
+        resume_iter=start_iter or None) for out in outputs]
+
+    total_iters = cfg.train_max_iter - 1      # range(1, max_iter)
+    done = start_iter
+    t0 = time.perf_counter()
+    # Every encoder layout has the norms; only the dense one has a1.
+    timer = StepTimer(step_args[0].enc_graph.ci_drug.device)
+    while done < total_iters:
+        chunk = min(cfg.train_valid_interval, total_iters - done)
+        timer.start()
+        losses = run_steps(one_step, state, chunk, *step_args)
+        ms = timer.stop(chunk)
+        done += chunk
+        if chunk != cfg.train_valid_interval:
+            break   # trailing partial chunk: the reference never evals there
+        table = torch.cat([losses[-1].reshape(n, 1), evaluate()],
+                          dim=1).cpu().numpy()          # (N, 1 + C)
+        rows = [dict(zip(["loss", *cols], r)) for r in table.tolist()]
+        set_lrs([p.step(sign * m[score]) for p, m in zip(plateaus, rows)])
+        for i, m in enumerate(rows):
+            if loggers[i]:
+                loggers[i].log(iter=done, **m)
+            if sign * m[score] > sign * best[i][_plain(score)]:
+                best[i] = dict({_plain(c): m[c] for c in cols}, iter=done)
+                if cfg.save_model:
+                    best_params[i] = item_params(state, i)
+        if verbose:
+            mean = dict(zip(["loss", *cols], table.mean(axis=0)))
+            text = ", ".join(f"{side.capitalize()}: " + ", ".join(
+                f"{m.upper()}={mean[f'{side}_{m}']:.4f}"
+                for m in kind.metric_names) for side in kind.sides)
+            print(f"Iter={done:5d}, Loss={mean['loss']:.4f}, {text}"
+                  f"{line_tail(ms)}")
+        if cfg.checkpoint_every and ckpt_path \
+                and done % cfg.checkpoint_every == 0:
+            save_train_state(ckpt_path, state, done, plateaus, best,
+                             best_params if cfg.save_model else None)
+
+    elapsed = time.perf_counter() - t0
+    for lg, out, b, bp in zip(loggers, outputs, best, best_params):
+        if out is None:
+            continue
+        lg.close()
+        with open(os.path.join(out[0], f"best_metric{out[1]}.csv"),
+                  "w") as f:
+            f.write(",".join(["iter", *cols]) + "\n")
+            f.write(",".join([str(b["iter"])]
+                             + [f"{b[_plain(c)]:.4f}" for c in cols]) + "\n")
+        if cfg.save_model and bp is not None:
+            save_params(os.path.join(out[0], f"best_model_fold{out[1]}.npz"),
+                        bp)
+    return [dict(best_iter=b["iter"], elapsed_s=elapsed, best_params=bp,
+                 ms_per_step=timer.ms_per_step,
+                 **{f"best_{k}": v for k, v in b.items() if k != "iter"})
+            for b, bp in zip(best, best_params)], timer

@@ -316,8 +316,6 @@ def main(argv=None) -> int:
     gen = torch.Generator(device=device).manual_seed(SEED)
     ckpt = os.path.join(args.save_dir, "ckpt_fold0.npz")
     resume_from = ckpt if args.resume and os.path.exists(ckpt) else None
-    if resume_from:
-        print(f"resuming from {ckpt}", flush=True)
     t0 = time.perf_counter()
     res = train_on_inputs(model, cfg, train_inputs, test_inputs, lab_tr,
                           lab_te, w_tr, w_te, gen, save_dir=args.save_dir,
@@ -385,7 +383,7 @@ def main_gcmc(args, iters: int, device) -> int:
     summary = dict(
         iters=iters - 1, ms_per_step=res["ms_per_step"],
         best_valid_rmse=res["best_valid_rmse"],
-        best_test_rmse=res["best_test_rmse"], best_iter=res["best_iter"],
+        best_test_rmse=res["best_rmse"], best_iter=res["best_iter"],
         ratings=int(users.shape[0]), users=n_users, movies=n_movies,
         data=args.ratings or f"made from seed {args.data_seed}",
         layout_build_s=layout_s,

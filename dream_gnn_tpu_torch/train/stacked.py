@@ -20,11 +20,10 @@ float reassociation; with it on, the two are equally distributed but not
 sample for sample, as for the JAX package's default ``rbg`` run
 (stacked.py:17-23 there).
 
-Parity traps kept: test evaluation runs the encoder on the *test*
-encoder graph (SURVEY §7.3.1), the plateau LR is per fold on the host,
-best-by-test-AUPR selection is per fold, and the trailing partial chunk
-of steps is not evaluated.  Each interval's steps (not its evals) are
-timed with CUDA events on the card.
+Parity traps kept (train/loop.py:run_intervals): test evaluation runs
+the encoder on the *test* encoder graph (SURVEY §7.3.1), the plateau LR
+and best-by-test-AUPR selection are per fold, and the trailing partial
+chunk of steps is not evaluated.  The stack trains DREAM-GNN only.
 
 Failure recovery: with ``checkpoint_every`` the whole stack's train state
 (params, Adam moments, lrs, the generator) with every item's plateau
@@ -38,7 +37,6 @@ from __future__ import annotations
 import contextlib
 import dataclasses
 import os
-import time
 from typing import Optional, Sequence
 
 import torch
@@ -47,24 +45,20 @@ from dream_gnn_tpu_torch.augment.masks import augment_inputs
 from dream_gnn_tpu_torch.config import ModelConfig, TrainConfig
 from dream_gnn_tpu_torch.data.loader import DreamDataset
 from dream_gnn_tpu_torch.model.dream_gnn import (ModelInputs, forward_stacked,
-                                                 init_params, map_params,
                                                  param_leaves)
+from dream_gnn_tpu_torch.model.kinds import init_params, kind_of
 from dream_gnn_tpu_torch.sharding.collectives import broadcast_first_
 from dream_gnn_tpu_torch.sharding.foldstack import (StackedFolds, stack_folds,
                                                     tile, tree_map)
-from dream_gnn_tpu_torch.train.checkpoint import (checkpoint_items,
-                                                  load_train_state,
-                                                  save_params,
-                                                  save_train_state)
+from dream_gnn_tpu_torch.train.checkpoint import checkpoint_items
 from dream_gnn_tpu_torch.train.loop import (derive_model_cfg, fold_generator,
-                                            fold_seed)
+                                            fold_seed, run_intervals)
 from dream_gnn_tpu_torch.train.losses import total_loss
-from dream_gnn_tpu_torch.train.optim import (PlateauScheduler, StackedAdam,
+from dream_gnn_tpu_torch.train.optim import (StackedAdam,
                                              clip_by_global_norm_per_fold_)
-from dream_gnn_tpu_torch.train.step import decoder_targets, run_steps
-from dream_gnn_tpu_torch.utils.logging import MetricLogger
+from dream_gnn_tpu_torch.train.step import decoder_targets
 from dream_gnn_tpu_torch.utils.metrics import aupr_masked, auroc_masked
-from dream_gnn_tpu_torch.utils.profiling import StepTimer, span
+from dream_gnn_tpu_torch.utils.profiling import span
 
 
 def stack_seed(seeds: Sequence[int], folds: Sequence[int]) -> int:
@@ -159,6 +153,10 @@ def make_one_step_stacked(model_cfg: ModelConfig, train_cfg: TrainConfig,
     adds on a card, so with them the gradients are made the group's first
     rank's bits before the clip, as train/step.py does over its replica
     group."""
+    kind = kind_of(model_cfg)
+    if not kind.stacks:
+        raise ValueError(f"model kind {kind.name!r} trains one model at a "
+                         f"time, not a fold stack")
     clip = train_cfg.train_grad_clip
     sync = mesh is not None and model_cfg.decoder_backend == "xla"
 
@@ -244,19 +242,11 @@ def train_stacked_protocol(dataset: DreamDataset, cfg: TrainConfig,
         stack_seed(seeds, folds))
     state = init_state_stacked(
         init_params_stacked(model_cfg, seeds, folds, device), generator, cfg)
-    one_step = make_one_step_stacked(model_cfg, cfg)
-
-    plateaus = [PlateauScheduler(cfg.train_lr, patience=cfg.plateau_patience,
-                                 factor=cfg.plateau_factor)
-                for _ in items]
-    best = [dict(aupr=-1.0, auroc=0.0, iter=0, train_aupr=0.0,
-                 train_auroc=0.0) for _ in items]
-    best_params = [None] * n_items
 
     # The checkpoint's anchor: the first seed directory that is set.
     anchor = next((d for d in save_dirs if d), None)
     ckpt_path = os.path.join(anchor, "ckpt_stacked.npz") if anchor else None
-    start_iter = 0
+    resume_from = None
     if cfg.resume and ckpt_path and os.path.exists(ckpt_path):
         n_ckpt = checkpoint_items(ckpt_path)
         if n_ckpt != n_items:
@@ -265,100 +255,30 @@ def train_stacked_protocol(dataset: DreamDataset, cfg: TrainConfig,
                 f"stacks {n_items} ({len(seeds)} seeds x {len(folds)} "
                 f"folds): delete the stale checkpoint or match the stacking "
                 f"it was written with")
-        start_iter, best, kept = load_train_state(
-            ckpt_path, state, plateaus, with_best_params=cfg.save_model)
-        best_params = kept or best_params
-        if verbose:
-            print(f"Resumed stacked run from {ckpt_path} at iter "
-                  f"{start_iter}")
+        resume_from = ckpt_path
 
-    for d in save_dirs:
-        if d:
-            os.makedirs(d, exist_ok=True)
-    loggers = [MetricLogger(
-        ["iter", "loss", "train_auroc", "train_aupr",
-         "test_auroc", "test_aupr"],
-        ["%d", "%.4f", "%.4f", "%.4f", "%.4f", "%.4f"],
-        os.path.join(save_dirs[si], f"test_metric{cv + 1}.csv"),
-        resume_iter=start_iter if start_iter else None)
-        if save_dirs[si] else None for si, cv in items]
+    def evaluate():
+        return torch.cat([evaluate_stacked(state.params, s, model_cfg)
+                          for s in (train_stacked, test_stacked)], dim=1)
 
-    total_iters = cfg.train_max_iter - 1       # range(1, max_iter)
-    done = start_iter
-    t0 = time.perf_counter()
-    timer = StepTimer(device)
-    while done < total_iters:
-        chunk = min(cfg.train_valid_interval, total_iters - done)
-        timer.start()
-        losses = run_steps(one_step, state, chunk, train_stacked.inputs,
-                           train_stacked.labels, train_stacked.edge_weight)
-        ms = timer.stop(chunk)
-        done += chunk
-        if chunk != cfg.train_valid_interval:
-            break   # trailing partial chunk: the reference never evals there
-        metrics = torch.cat([
-            losses[-1][:, None],
-            evaluate_stacked(state.params, train_stacked, model_cfg),
-            evaluate_stacked(state.params, test_stacked, model_cfg)],
-            dim=1).cpu().numpy()                            # (items, 5)
-
-        new_lrs = [p.step(float(m[4])) for p, m in zip(plateaus, metrics)]
-        state.opt.lr.copy_(torch.tensor(new_lrs, dtype=torch.float32))
-        for i, (loss, tr_auroc, tr_aupr, te_auroc, te_aupr) in enumerate(
-                metrics.tolist()):
-            if loggers[i]:
-                loggers[i].log(iter=done, loss=loss, train_auroc=tr_auroc,
-                               train_aupr=tr_aupr, test_auroc=te_auroc,
-                               test_aupr=te_aupr)
-            if te_aupr > best[i]["aupr"]:
-                best[i] = dict(aupr=te_aupr, auroc=te_auroc, iter=done,
-                               train_aupr=tr_aupr, train_auroc=tr_auroc)
-                if cfg.save_model:
-                    best_params[i] = map_params(
-                        lambda t, i=i: t[i].detach().cpu().clone(),
-                        state.params)
-        if cfg.checkpoint_every and ckpt_path \
-                and done % cfg.checkpoint_every == 0:
-            save_train_state(ckpt_path, state, done, plateaus, best,
-                             best_params if cfg.save_model else None)
-        if verbose:
-            m = metrics.mean(axis=0)
-            print(f"Iter={done:5d}, Loss={m[0]:.4f}, "
-                  f"Train: AUROC={m[1]:.4f}, AUPR={m[2]:.4f}, "
-                  f"Test: AUROC={m[3]:.4f}, AUPR={m[4]:.4f}  "
-                  f"[mean over {n_items} folds], {ms:.3f} ms/step, "
-                  f"{ms / n_items:.3f} ms/fold-step")
-
-    elapsed = time.perf_counter() - t0
-    for lg in loggers:
-        if lg:
-            lg.close()
-    for i, (si, cv) in enumerate(items):
-        if not save_dirs[si]:
-            continue
-        with open(os.path.join(save_dirs[si], f"best_metric{cv + 1}.csv"),
-                  "w") as f:
-            f.write("iter,train_auroc,train_aupr,test_auroc,test_aupr\n")
-            f.write(f"{best[i]['iter']},{best[i]['train_auroc']:.4f},"
-                    f"{best[i]['train_aupr']:.4f},{best[i]['auroc']:.4f},"
-                    f"{best[i]['aupr']:.4f}\n")
-        if cfg.save_model and best_params[i] is not None:
-            save_params(os.path.join(save_dirs[si],
-                                     f"best_model_fold{cv + 1}.npz"),
-                        best_params[i])
-
+    results, timer = run_intervals(
+        cfg, kind_of(model_cfg), state, make_one_step_stacked(model_cfg, cfg),
+        (train_stacked.inputs, train_stacked.labels,
+         train_stacked.edge_weight), evaluate,
+        lambda lrs: state.opt.lr.copy_(torch.tensor(lrs, dtype=torch.float32)),
+        [(save_dirs[si], cv + 1) if save_dirs[si] else None
+         for si, cv in items],
+        ckpt_path=ckpt_path, resume_from=resume_from, verbose=verbose,
+        line_tail=lambda ms: f"  [mean over {n_items} folds], {ms:.3f} "
+                             f"ms/step, {ms / n_items:.3f} ms/fold-step")
     ms_per_step = timer.ms_per_step
     if verbose and ms_per_step is not None:
         print(f"Protocol timing: {ms_per_step:.3f} ms/step "
               f"({len(seeds)} seeds x {len(folds)} folds stacked), "
               f"{ms_per_step / n_items:.3f} ms/fold-step "
               f"({'CUDA events' if timer.cuda else 'host clock'}, "
-              f"{timer.total_steps} steps), {elapsed:.1f} s total")
-
-    results = [dict(best_auroc=best[i]["auroc"], best_aupr=best[i]["aupr"],
-                    best_iter=best[i]["iter"], elapsed_s=elapsed,
-                    best_params=best_params[i], model_cfg=model_cfg,
-                    ms_per_step=ms_per_step)
-               for i in range(n_items)]
+              f"{timer.total_steps} steps), "
+              f"{results[0]['elapsed_s']:.1f} s total")
+    results = [dict(r, model_cfg=model_cfg) for r in results]
     nf = len(folds)
     return [results[si * nf:(si + 1) * nf] for si in range(len(seeds))]

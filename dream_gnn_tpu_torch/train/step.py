@@ -14,10 +14,10 @@ association grid (``enc_graph.a1``) weighted by the in-fold cell mask
 (``enc_graph.mask``) — the same cells and the same mean as the candidate
 edge list.  On the scale path (a ``dec_layout``) pred is in the layout's
 slot order, and the labels and weights passed in are the slot-order ones of
-``ScaleDecoderLayout.slot_labels``.  GCMC alone (``model_kind='gcmc'``):
-pred is the (R, E) class-major logits of the ratings in the bilinear
-layout's slot order, the labels their level indices in that order, and the
-loss the softmax cross-entropy; its eval is the expected rating's RMSE.
+``ScaleDecoderLayout.slot_labels``.  GCMC alone: pred is the (R, E)
+class-major logits in the bilinear layout's slot order, the labels their
+level indices.  The model kind (model/kinds.py) gives the forward, the
+loss and the metrics.
 
 Ranks.  Over a process group (a rank-sharded encoder graph or a
 candidate-sharded decoder layout, model/dream_gnn.py) every rank runs this
@@ -58,17 +58,13 @@ import torch
 
 from dream_gnn_tpu_torch.augment.masks import augment_inputs
 from dream_gnn_tpu_torch.config import ModelConfig, TrainConfig
-from dream_gnn_tpu_torch.model.dream_gnn import (ModelInputs, forward,
-                                                 param_leaves)
+from dream_gnn_tpu_torch.model.dream_gnn import ModelInputs, param_leaves
+from dream_gnn_tpu_torch.model.kinds import kind_of
 from dream_gnn_tpu_torch.nn.gcmc import SHARDED_LAYOUTS
 from dream_gnn_tpu_torch.sharding.collectives import broadcast_first_
 from dream_gnn_tpu_torch.sharding.scale_decoder_spmd import \
     ShardedScaleDecoderLayout
-from dream_gnn_tpu_torch.train.losses import (softmax_cross_entropy,
-                                              total_loss)
 from dream_gnn_tpu_torch.train.optim import clip_by_global_norm_
-from dream_gnn_tpu_torch.utils.metrics import (aupr_masked, auroc_masked,
-                                               rmse_expected)
 from dream_gnn_tpu_torch.utils.profiling import span
 
 
@@ -132,6 +128,8 @@ def make_one_step(model_cfg: ModelConfig, train_cfg: TrainConfig):
     scalar); ``labels`` and ``weight`` are the edge list's, which grid mode
     does not need."""
     augment = train_cfg.augment
+    kind = kind_of(model_cfg)
+    forward, kind_loss = kind.forward, kind.loss
 
     def one_step(state: TrainState, inputs: ModelInputs, labels=None,
                  weight=None) -> torch.Tensor:
@@ -140,20 +138,14 @@ def make_one_step(model_cfg: ModelConfig, train_cfg: TrainConfig):
                 aug_inputs, edge_masks = augment_inputs(
                     state.generator, inputs, augment,
                     num_ratings=model_cfg.num_ratings)
-            pred, drug_out, drug_sim_out, dis_out, dis_sim_out = forward(
+            pred, *outs = forward(
                 state.params, aug_inputs, model_cfg, train=True,
                 generator=state.generator, edge_masks=edge_masks)
             pred, labels, weight = decoder_targets(pred, aug_inputs,
                                                    model_cfg, labels, weight)
             with span("loss"):
-                if model_cfg.model_kind == "gcmc":
-                    loss = softmax_cross_entropy(pred, labels, weight)
-                else:
-                    loss, _ = total_loss(
-                        pred, labels, drug_out, drug_sim_out, dis_out,
-                        dis_sim_out, beta=train_cfg.beta,
-                        smoothing=train_cfg.label_smoothing, weight=weight,
-                        group=_candidate_group(aug_inputs))
+                loss = kind_loss(pred, labels, weight, outs, train_cfg,
+                                 _candidate_group(aug_inputs))
         state.opt.zero_grad()
         with span("backward"):
             loss.backward()
@@ -180,21 +172,18 @@ def evaluate(params, inputs: ModelInputs, model_cfg: ModelConfig,
     (grid mode).  Parity trap §7.3.1: the caller passes the *test* encoder
     graph for test-set evaluation.  With a candidate-sharded decoder the
     labels and weights are this rank's slot-order ones, and the metrics run
-    over every rank's candidates.  GCMC alone gives (RMSE,) of the
-    expected rating."""
+    over every rank's candidates.  Other model kinds give their own
+    metrics: GCMC alone the (RMSE,) of the expected rating."""
+    kind = kind_of(model_cfg)
     with span("eval"):
-        pred, *_ = forward(params, inputs, model_cfg, train=False)
+        pred, *_ = kind.forward(params, inputs, model_cfg, train=False)
         pred, labels, weight = decoder_targets(pred, inputs, model_cfg,
                                                labels, weight)
-        if model_cfg.model_kind == "gcmc":
-            return (rmse_expected(pred, labels, weight,
-                                  model_cfg.rating_values),)
         if _candidate_group(inputs) is not None:
             # Every rank's slots, in candidate order, on every rank.
             pred, labels, weight = (inputs.dec_layout.gather(x)
                                     for x in (pred, labels, weight))
-        return auroc_masked(labels, pred, weight), aupr_masked(labels, pred,
-                                                               weight)
+        return kind.metrics(pred, labels, weight, model_cfg)
 
 
 def run_steps(one_step, state, n_steps: int, *args) -> torch.Tensor:

@@ -27,12 +27,12 @@ import torch
 from dream_gnn_tpu_torch.config import AugmentConfig, ModelConfig, TrainConfig
 from dream_gnn_tpu_torch.data import movielens
 from dream_gnn_tpu_torch.kernels import bilinear_decoder as bd
-from dream_gnn_tpu_torch.model import dream_gnn
+from dream_gnn_tpu_torch.model import dream_gnn, gcmc_alone, kinds
 from dream_gnn_tpu_torch.nn.gcmc import (gcmc_layer_apply,
                                          gcmc_stack_layer_init)
 from dream_gnn_tpu_torch.train.losses import softmax_cross_entropy
 from dream_gnn_tpu_torch.train.scale import build_gcmc_inputs
-from dream_gnn_tpu_torch.train.step import evaluate
+from dream_gnn_tpu_torch.train.step import evaluate, make_one_step
 from dream_gnn_tpu_torch.utils.profiling import (clear_spans, span_totals,
                                                  trace)
 from gnnbench import faults, run
@@ -94,8 +94,8 @@ def _fresh(params):
 
 
 def test_forward_logits_match_reference(case):
-    pred, *_ = dream_gnn.forward(case["params"], case["inputs"][0],
-                                 case["model_cfg"], train=False)
+    pred, *_ = gcmc_alone.forward(case["params"], case["inputs"][0],
+                                  case["model_cfg"], train=False)
     want, _ = ref.forward(case["params"], case["data"], "train", case["cfg"],
                           None, torch.float32)
     order = case["inputs"][0].dec_layout.order
@@ -107,8 +107,8 @@ def test_loss_and_each_gradient_match_reference(case):
     cfg, mc = case["cfg"], case["model_cfg"]
     p_prog, p_ref = _fresh(case["params"]), _fresh(case["params"])
     gen = torch.Generator().manual_seed(5)
-    pred, *_ = dream_gnn.forward(p_prog, case["inputs"][0], mc, train=True,
-                                 generator=gen)
+    pred, *_ = gcmc_alone.forward(p_prog, case["inputs"][0], mc, train=True,
+                                  generator=gen)
     loss = softmax_cross_entropy(pred, case["labels"][0], case["weights"][0])
     loss.backward()
     g2 = torch.Generator().manual_seed(5)
@@ -192,14 +192,33 @@ def test_stack_init_widths():
     assert p["w_drug"].shape == (10, 7, 3) and p["w_dis"].shape == (10, 5, 3)
     assert p["ifc_w"].shape == (30, 4) and p["fc_w"].shape == (30, 4)
     with pytest.raises(NotImplementedError):
-        dream_gnn.init_params(gen, ModelConfig(model_kind="gcmc", layers=1,
-                                               share_param=False))
+        gcmc_alone.init_params(gen, ModelConfig(model_kind="gcmc", layers=1,
+                                                share_param=False))
 
 
 def test_message_units_of_gcmc_alone_are_not_cut():
-    assert ModelConfig(model_kind="gcmc", gcn_agg_units=500, num_ratings=10,
-                       gcn_agg_accum="stack").effective_msg_units(0) == 50
+    params = gcmc_alone.init_params(
+        torch.Generator().manual_seed(0),
+        ModelConfig(model_kind="gcmc", src_in_units=6, dst_in_units=4,
+                    gcn_agg_units=500, num_ratings=10, layers=1,
+                    gcn_agg_accum="stack", gcn_out_units=8,
+                    share_param=False))
+    assert params["tgcn"][0]["w_drug"].shape == (10, 6, 50)
+    assert params["tgcn"][0]["w_dis"].shape == (10, 4, 50)
     assert ModelConfig(gcn_agg_units=1024).effective_msg_units(0) == 341
+
+
+@pytest.mark.parametrize("build", ["init_params", "make_one_step"])
+def test_an_unknown_model_kind_is_refused(build):
+    """A misspelt ``model_kind`` (a configuration file passes the key
+    straight into ``ModelConfig``) raises, naming the known kinds, where
+    it would otherwise train DREAM-GNN."""
+    cfg = ModelConfig(model_kind="gcmc-alone")
+    with pytest.raises(ValueError, match="'dream', 'gcmc'"):
+        if build == "init_params":
+            kinds.init_params(torch.Generator().manual_seed(0), cfg)
+        else:
+            make_one_step(cfg, TrainConfig(model=cfg))
 
 
 def test_dream_stack_is_still_refused():
@@ -209,8 +228,8 @@ def test_dream_stack_is_still_refused():
 
 
 def test_gcmc_init_params_shapes(case):
-    params = dream_gnn.init_params(torch.Generator().manual_seed(0),
-                                   case["model_cfg"])
+    params = kinds.kind_of(case["model_cfg"]).init(
+        torch.Generator().manual_seed(0), case["model_cfg"])
     got = {n: tuple(t.shape) for n, t in dream_gnn.named_leaves(params)}
     want = {".".join(str(k) for k in path).replace(".0.", "[0]."): shape
             for path, shape, _ in driver.param_spec(case["cfg"])}
